@@ -1,0 +1,46 @@
+"""Carry the JAX package's state across to the port, as plain data.
+
+The port never imports the JAX package; a caller that holds both (the
+parity tests) hands over plain fields and numpy arrays, so that both
+packages run on the very same inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.ops.fused_cg import HALO, LANE, Canvas
+from poisson_tpu_torch.utils.platform import resolve_device
+
+
+def problem_from_reference(fields: dict) -> Problem:
+    """A port ``Problem`` from a JAX ``Problem``'s fields
+    (``dataclasses.asdict`` of it)."""
+    return Problem(**fields)
+
+
+def canvases_from_reference(cv_fields: dict, cs, cw, g, rhs, sc2, sc_int,
+                            device=None):
+    """The port's (cv, cS, cW, g, rhs, sc2, sc_int) from the arrays of
+    ``poisson_tpu.ops.pallas_cg.build_canvases``.
+
+    ``cv_fields`` is the JAX ``Canvas._asdict()``; it must be full width
+    (no column blocking), which is the only layout the port's kernels take.
+    Arrays may be JAX arrays or numpy; they are copied as fp32 tensors to
+    ``device`` (default ``cuda``)."""
+    if cv_fields.get("cg", 0) or cv_fields.get("ncb", 1) != 1:
+        raise ValueError("only full-width canvases carry across (cg == 0)")
+    cv = Canvas(bm=cv_fields["bm"], nb=cv_fields["nb"],
+                rows=cv_fields["rows"], cols=cv_fields["cols"])
+    if cv.cols % LANE or (cv.rows - 2 * HALO) % 8:
+        raise ValueError(f"canvas geometry {cv} is not the port's layout")
+    dev = resolve_device(device)
+    tensors = [torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+               for x in (cs, cw, g, rhs, sc2, sc_int)]
+    for t in tensors[:-1]:
+        if tuple(t.shape) != (cv.rows, cv.cols):
+            raise ValueError(f"canvas shape {tuple(t.shape)} does not match "
+                             f"{(cv.rows, cv.cols)}")
+    return (cv, *tensors)

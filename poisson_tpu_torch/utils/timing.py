@@ -1,0 +1,113 @@
+"""Instrumentation: phase timing and the solve report (counterpart of
+``poisson_tpu/utils/timing.py``).
+
+PyTorch returns before the card has finished, so every phase boundary is
+fenced with ``torch.cuda.synchronize()`` when the phase ran on a CUDA device;
+a host clock without the fence would measure the enqueue, not the work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from typing import Optional
+
+import torch
+
+from poisson_tpu_torch.config import Problem
+
+
+def fence(device) -> None:
+    """Wait for every kernel queued on ``device`` (no-op on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class PhaseTimer:
+    """Named wall-clock phases, each fenced on ``device`` at its exit.
+
+    >>> t = PhaseTimer("cpu")
+    >>> with t.phase("solve"):
+    ...     pass
+    >>> sorted(t.times)
+    ['solve']
+    """
+
+    def __init__(self, device="cuda") -> None:
+        self.device = device
+        self.times: dict[str, float] = {}
+
+    def phase(self, name: str):
+        timer = self
+
+        class _Ctx:
+            def __enter__(self):
+                fence(timer.device)
+                self._t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *exc):
+                fence(timer.device)
+                timer.times[name] = timer.times.get(name, 0.0) + (
+                    time.perf_counter() - self._t0
+                )
+
+        return _Ctx()
+
+
+def mlups(problem: Problem, iterations: int, seconds: float) -> float:
+    """Million lattice-site updates per second: interior·iters/time/1e6."""
+    return problem.interior_points * iterations / seconds / 1e6
+
+
+@dataclasses.dataclass
+class SolveReport:
+    """One solve's result line, as structured data.
+
+    ``first_solve_seconds`` includes the one-time work of the first call
+    (kernel build and load, canvas setup and upload); ``solve_seconds`` is
+    the best of the timed repeats that follow. ``achieved_gbps`` is the
+    backend's bytes model (``bytes_per_iter``) over the measured time, None
+    where the backend has no model."""
+
+    M: int
+    N: int
+    iterations: int
+    solve_seconds: float
+    first_solve_seconds: float
+    us_per_iter: float
+    mlups: float
+    final_diff: float
+    dtype: str
+    backend: str
+    device: str
+    device_kind: str
+    l2_error: Optional[float] = None
+    bytes_per_iter: Optional[int] = None
+    achieved_gbps: Optional[float] = None
+    stopped: Optional[str] = None
+
+    def json_line(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    def table(self) -> str:
+        rows = [
+            f"M={self.M}, N={self.N} | Iter={self.iterations} "
+            f"| Time={self.solve_seconds:.4f} s",
+            f"  first solve: {self.first_solve_seconds:.2f} s   dtype: "
+            f"{self.dtype}   backend: {self.backend} [{self.device_kind}]",
+            f"  throughput: {self.mlups:.0f} MLUPS   "
+            f"{self.us_per_iter:.1f} us/iter   final ||dw||: "
+            f"{self.final_diff:.3e}"
+            + (f"   L2 err vs analytic: {self.l2_error:.3e}"
+               if self.l2_error is not None else ""),
+        ]
+        if self.achieved_gbps is not None:
+            rows.append(f"  attribution: {self.achieved_gbps:.1f} GB/s "
+                        f"({self.bytes_per_iter} bytes/iter model)")
+        if self.stopped is not None:
+            rows.append(f"  WARNING: solve stopped without converging "
+                        f"({self.stopped})")
+        return "\n".join(rows)

@@ -1,0 +1,117 @@
+"""The port stands alone: ``poisson_tpu_torch`` imports neither ``jax`` nor
+``poisson_tpu``, runs on the card unless asked for the CPU, and launches no
+kernel for CPU tensors."""
+
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import poisson_tpu_torch
+from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.ops import fused_cg
+from poisson_tpu_torch.solvers import pcg
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "poisson_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "poisson_tpu")
+
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in {forbidden!r}:
+            raise ImportError('blocked: ' + name)
+        return None
+
+for name in list(sys.modules):
+    if name.split('.')[0] in {forbidden!r}:
+        del sys.modules[name]
+sys.meta_path.insert(0, Block())
+import poisson_tpu_torch
+for mod in pkgutil.walk_packages(poisson_tpu_torch.__path__,
+                                 'poisson_tpu_torch.'):
+    if not mod.name.endswith('__main__'):
+        importlib.import_module(mod.name)
+assert not any(n.split('.')[0] in {forbidden!r} for n in sys.modules)
+print('ok')
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"   # several test workers share the cores
+    return env
+
+
+def test_imports_with_jax_and_reference_unimportable():
+    code = _BLOCKED_IMPORT.format(forbidden=FORBIDDEN)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_module_imports_jax_or_the_reference():
+    offenders = []
+    for path in sorted(PACKAGE.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.name}: {n}" for n in names
+                          if n.split(".")[0] in FORBIDDEN]
+    assert not offenders
+    modules = [m.name for m in pkgutil.walk_packages(
+        poisson_tpu_torch.__path__, "poisson_tpu_torch.")]
+    assert "poisson_tpu_torch.ops.fused_cg" in modules
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: fused_cg.fused_cg_solve(Problem(M=10, N=10)),
+    lambda: pcg.pcg_solve(Problem(M=10, N=10)),
+    lambda: fused_cg.build_canvases(Problem(M=10, N=10)),
+], ids=["fused_cg_solve", "pcg_solve", "build_canvases"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry,
+                                                           monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
+def test_cpu_solve_launches_no_kernel():
+    fused_cg.reset_launch_counts()
+    r = fused_cg.fused_cg_solve(Problem(M=40, N=40), device="cpu")
+    assert int(r.iterations) == 50
+    assert fused_cg.launch_counts() == {"direction_and_stencil": 0,
+                                        "fused_update": 0}
+
+
+@pytest.mark.parametrize("extra,backend", [
+    ([], "fused"),
+    (["--dtype", "float64"], "torch"),
+])
+def test_cli_solves_on_cpu(extra, backend):
+    out = subprocess.run(
+        [sys.executable, "-m", "poisson_tpu_torch", "40", "40",
+         "--device", "cpu", "--json", *extra],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["iterations"] == 50
+    assert rec["backend"] == backend
+    assert rec["device_kind"] == "cpu"
+    assert rec["stopped"] is None
+    assert rec["l2_error"] < 5e-3
+    assert rec["achieved_gbps"] is None    # no device rate from a CPU run
