@@ -6,24 +6,39 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the CUDA kernels from ``poisson_tpu_torch/ops/csrc`` for
-   ``sm_90a``, with its time and ``ptxas`` report;
+2. build of every CUDA source in ``poisson_tpu_torch/ops/csrc`` for
+   ``sm_90a``, one ``nvcc`` each, all at once, with their times and
+   ``ptxas`` reports;
 3. each kernel against its plain PyTorch version on the card, on the same
-   seeded canvases with nonzero β and α, at 800×1200 (the flagship) and at
-   2400×3200 (the largest published grid): max abs error of pn, Ap, w, r
-   (tolerance 1e-6; the kernels repeat the plain arithmetic in the same
-   order, so 0 is expected) and relative error of every partial sum
-   (tolerance 1e-5; only the summation order differs);
-4. the main path, ``fused_cg_solve``, with every launch count set to 0 just
-   before it: a warm-up and three timed solves at 800×1200 and one at
-   2400×3200, before any profiler session. 800×1200 must give 989
-   iterations with diff < 1e-6 and an iterate within 1e-5 of the plain fp64
-   ``pcg_solve`` on the card (the fp32 tolerance of
-   tests/test_precision.py); 2400×3200 must give 2449 ± 1 (the fp32
-   allowance of tests/test_pcg_golden.py); the counts read just after must
-   show both kernels launched at least once per iteration;
-5. the kernels' times (profiler device time per launch; the plain
-   versions by CUDA events) and a profile of one flagship solve;
+   seeded canvases with nonzero β and coefficients, at 800×1200 (the
+   flagship) and at 2400×3200 (the largest published grid): max abs error of
+   every field (pn, Ap, w, r for A and B; pn, t1, t2, t3, x, r, p₁ for C
+   and D; tolerance 1e-6, and 0 is expected, since the kernels repeat the
+   plain arithmetic in the same order) and relative error of every partial
+   sum (tolerance 1e-5; only the summation order differs);
+4. four paths, each with every launch count set to 0 just before it and
+   read just after, all before any profiler session:
+   - the fused path, ``fused_cg_solve`` (kernels A and B): a warm-up and
+     three timed solves at 800×1200 and one at 2400×3200; 800×1200 must give
+     989 iterations with diff < 1e-6 and an iterate within 1e-5 of the plain
+     fp64 ``pcg_solve`` on the card (the fp32 tolerance of
+     tests/test_precision.py); 2400×3200 must give 2449 ± 1 (the fp32
+     allowance of tests/test_pcg_golden.py);
+   - the resident path, ``resident_cg_solve`` (kernel R, one launch per
+     solve) at 40×40, 400×600 and 800×1200 (the grids its budget admits):
+     50, 546 and 989 iterations, iterates within 1e-6 of kernel R's plain
+     version run on the card and within 1e-5 of the plain fp64 solve;
+   - the communication-avoiding path, ``ca_cg_solve`` (kernels C and D):
+     546 at 400×600, exactly 989 at 800×1200 with an iterate within 1e-5 of
+     the fp64 solve, 2449 ± 1 at 2400×3200;
+   - mixed-precision refinement, ``refined_solve`` at 400×600 over the fused
+     backend (kernels A and B) and the resident one (kernel R): relative
+     scaled residual ≤ 1e-10, decreasing every pass, the first inner solve
+     546 iterations;
+   each path's counts must show each of its kernels launched;
+5. the kernels' times (profiler device time per launch; the plain versions
+   by CUDA events), bytes and bounds, and a profile of one flagship solve on
+   the fused and on the CA path;
 6. a ``kernels`` JSON line, then the ``ok`` JSON line last.
 
 Without a CUDA device, or run outside a checkout (no ``poisson_tpu_torch``
@@ -37,24 +52,61 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-FIELD_TOL = 1e-6     # max abs error of pn, Ap, w, r against the plain version
+FIELD_TOL = 1e-6     # max abs error of a kernel's fields against the plain
 SUM_TOL = 1e-5       # relative error of each partial sum
-ITERATE_TOL = 1e-5   # fused fp32 iterate vs plain fp64 solve
+ITERATE_TOL = 1e-5   # fp32 iterate vs plain fp64 solve
+PLAIN_TOL = 1e-6     # kernel R's iterate vs its plain version on the card
+REFINE_TOL = 1e-10  # refined solve's relative scaled residual (fp64 floor)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
-# Flops per live point: A forms z + βp at 5 points (10), the stencil (13) and
-# its dot (2); B two axpys (4), p²sc² (2), r² (1) and two sums (2).
-FLOPS_PER_POINT = {"direction_stencil": 25, "fused_update": 9}
-REPLACES = {
-    "direction_stencil": "poisson_tpu/ops/pallas_cg.py:733",
-    "fused_update": "poisson_tpu/ops/pallas_cg.py:805",
+
+
+class Kernel(NamedTuple):
+    wrapper: str    # the Python wrapper, whose ``launches`` count is read
+    symbol: str     # the CUDA kernel's name, as the profiler reports it
+    source: str
+    replaces: str   # the TPU kernel's pallas_call site
+    flops: int      # operations the function needs per live point
+    passes: int     # band canvases it must read once or write once
+
+
+# Flops per live point (per iteration for R), counting what the function
+# needs, not what a kernel's design adds. A: pn = z + βp (2), the stencil
+# (13), its dot (2); kernel A also recomputes z + βp at the four
+# neighbours, which is its design, not work the function needs. B: two
+# axpys (4), p²sc² (2), r² (1) and two sums (2). C: pn (2), three stencils
+# (39), 6 plain Gram terms (12) and 6 weighted (18). D: r' (6), x' (6),
+# p₁ (4), r'² (2). R: A's and B's, 26 per iteration.
+KERNELS = {
+    "direction_stencil": Kernel(
+        "direction_and_stencil", "direction_stencil_kernel",
+        "poisson_tpu_torch/ops/csrc/fused_cg.cu",
+        "poisson_tpu/ops/pallas_cg.py:733", 17, 7),
+    "fused_update": Kernel(
+        "fused_update", "fused_update_kernel",
+        "poisson_tpu_torch/ops/csrc/fused_cg.cu",
+        "poisson_tpu/ops/pallas_cg.py:805", 9, 7),
+    "basis_sweep": Kernel(
+        "basis_sweep", "basis_sweep_kernel",
+        "poisson_tpu_torch/ops/csrc/ca_cg.cu",
+        "poisson_tpu/ops/pallas_ca.py:318", 71, 10),
+    "pair_update": Kernel(
+        "pair_update", "pair_update_kernel",
+        "poisson_tpu_torch/ops/csrc/ca_cg.cu",
+        "poisson_tpu/ops/pallas_ca.py:369", 18, 9),
+    "resident_solve": Kernel(
+        "resident_solve", "resident_kernel",
+        "poisson_tpu_torch/ops/csrc/resident_cg.cu",
+        "poisson_tpu/ops/pallas_resident.py:154", 26, 6),
 }
-SOURCE = "poisson_tpu_torch/ops/csrc/fused_cg.cu"
 GRIDS = [(800, 1200), (2400, 3200)]
+RESIDENT_GRIDS = [(40, 40, 50), (400, 600, 546), (800, 1200, 989)]
+RESIDENT_MAIN = "400x600"    # the grid kernel R's headline numbers use
 REPEATS = 3          # timed flagship solves after the warm-up; best reported
 
 
@@ -123,10 +175,54 @@ def kernel_device_ms(fn, reps: int, symbol: str):
     return sum(h[1] for h in hits) / n / 1e3
 
 
-def check_kernels(M: int, N: int, fc, results: dict):
-    """Phase 3 at one grid: kernels vs plain versions. Returns the function
-    that times them, which runs after the main path so that no profiler
-    session precedes the timed solves."""
+def band_points(fc, cv) -> int:
+    return (cv.rows - 2 * fc.HALO) * cv.cols
+
+
+def rel_err(got, want) -> float:
+    return abs(float(got) - float(want)) / abs(float(want))
+
+
+def timer(results: dict, name: str, tag: str, run, plain, reps: int,
+          plain_reps: int, points: int, iterations: int = 1):
+    """A function that times ``run`` (profiler device time per launch, CUDA
+    events as the fallback) and ``plain`` (CUDA events) and records them
+    with the bytes and bound of one launch over ``points`` band points
+    (``iterations`` sweeps of work for kernel R)."""
+    kernel = KERNELS[name]
+
+    def time_it() -> None:
+        ev_ms = events_ms(run, reps)
+        dev_ms = kernel_device_ms(run, reps, kernel.symbol)
+        plain_ms = events_ms(plain, plain_reps)
+        nbytes = kernel.passes * points * 4
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = (kernel.flops * points * iterations
+                        / FP32_FLOPS_PER_S * 1e3)
+        results.setdefault(name, {})[tag] = rec = {
+            "ms": dev_ms if dev_ms is not None else ev_ms,
+            "timing": "profiler" if dev_ms is not None else "cuda_events",
+            "events_ms": ev_ms,
+            "plain_ms": plain_ms,
+            "bytes": nbytes,
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                         else "operations"),
+        }
+        print(f"time {name} {tag}: {json.dumps(rec)}", flush=True)
+        torch.cuda.synchronize()
+
+    return time_it
+
+
+def record_err(errors: dict, name: str, err: float) -> None:
+    errors[name] = max(errors.get(name, 0.0), err)
+
+
+def check_kernels(M: int, N: int, fc, ca, results: dict, errors: dict):
+    """Phase 3 at one grid: kernels A, B, C, D vs their plain versions.
+    Returns the functions that time them, which run after the main paths so
+    that no profiler session precedes the timed solves."""
     from poisson_tpu_torch.config import Problem
 
     problem = Problem(M=M, N=N)
@@ -141,7 +237,9 @@ def check_kernels(M: int, N: int, fc, results: dict):
     z, p, w0, r0 = (interior_random() for _ in range(4))
     beta = torch.tensor(0.37, dtype=torch.float32, device="cuda")
     alpha = torch.tensor(0.21, dtype=torch.float32, device="cuda")
-    band_points = (cv.rows - 2 * fc.HALO) * cv.cols
+    coefs = torch.tensor([0.31, 0.22, 0.07, 0.25, 0.15, 0.0, 0.0, 0.0],
+                         dtype=torch.float32, device="cuda")
+    points = band_points(fc, cv)
     tag = f"{M}x{N}"
 
     # Kernel A against its plain version, on the same inputs.
@@ -149,69 +247,89 @@ def check_kernels(M: int, N: int, fc, results: dict):
     pn_p, ap_p = torch.zeros_like(z), torch.zeros_like(z)
     part_p = fc.direction_and_stencil_plain(cv, beta, z, p, cs, cw, g,
                                             pn_p, ap_p)
-    torch.cuda.synchronize()
-    a_err = max(float((pn_k - pn_p).abs().max()),
-                float((ap_k - ap_p).abs().max()))
-    a_rel = abs(float(part_k.sum()) - float(part_p.sum())) / abs(
-        float(part_p.sum()))
-
-    # Kernel B against its plain version (w, r are updated in place).
+    # Kernel B (w, r are updated in place).
     w_k, r_k, w_p, r_p = w0.clone(), r0.clone(), w0.clone(), r0.clone()
     _, _, d_k, z_k = fc.fused_update(cv, alpha, pn_k, ap_k, sc2, w_k, r_k)
     d_p, z_p = fc.fused_update_plain(cv, alpha, pn_k, ap_k, sc2, w_p, r_p)
+    # Kernel C.
+    c_k = ca.basis_sweep(cv, beta, p, z, cs, cw, g, sc2)
+    c_p = tuple(torch.zeros_like(z) for _ in range(4))
+    gram_p = ca.basis_sweep_plain(cv, beta, p, z, cs, cw, g, sc2, *c_p)
+    # Kernel D, on kernel C's outputs (x, r updated in place).
+    x_k, rd_k, x_p, rd_p = w0.clone(), r0.clone(), w0.clone(), r0.clone()
+    _, _, p1_k, rr_k = ca.pair_update(cv, coefs, *c_k[:4], x_k, rd_k)
+    p1_p = torch.zeros_like(z)
+    rr_p = ca.pair_update_plain(cv, coefs, *c_k[:4], x_p, rd_p, p1_p)
     torch.cuda.synchronize()
-    b_err = max(float((w_k - w_p).abs().max()),
-                float((r_k - r_p).abs().max()))
-    b_rel = max(abs(float(k.sum()) - float(q.sum())) / abs(float(q.sum()))
-                for k, q in ((d_k, d_p), (z_k, z_p)))
-    for name, err, rel in (("direction_stencil", a_err, a_rel),
-                           ("fused_update", b_err, b_rel)):
+
+    def max_err(pairs) -> float:
+        return max(float((a - b).abs().max()) for a, b in pairs)
+
+    gk, gp = c_k[4].double().sum(dim=0), gram_p.double().sum(dim=0)
+    checks = {
+        "direction_stencil": (max_err([(pn_k, pn_p), (ap_k, ap_p)]),
+                              rel_err(part_k.sum(), part_p.sum())),
+        "fused_update": (max_err([(w_k, w_p), (r_k, r_p)]),
+                         max(rel_err(d_k.sum(), d_p.sum()),
+                             rel_err(z_k.sum(), z_p.sum()))),
+        "basis_sweep": (max_err(zip(c_k[:4], c_p)),
+                        max(rel_err(a, b) for a, b in zip(gk, gp))),
+        "pair_update": (max_err([(x_k, x_p), (rd_k, rd_p), (p1_k, p1_p)]),
+                        rel_err(rr_k.sum(), rr_p.sum())),
+    }
+    for name, (err, rel) in checks.items():
         print(f"kernel {name} {tag}: max_abs_err={err!r} (tol {FIELD_TOL}) "
               f"partial_sum_rel_err={rel!r} (tol {SUM_TOL})", flush=True)
         check(err <= FIELD_TOL, f"{name} {tag}: max abs error {err}")
         check(rel <= SUM_TOL, f"{name} {tag}: partial-sum error {rel}")
+        record_err(errors, name, err)
 
-    # Times: device time per launch from the profiler (the wrapper's host
-    # cost cannot hide it), CUDA events over a burst as the fallback; the
-    # plain versions by events. Inputs stay resident between launches, as
-    # in the solve loop.
-    errors = {"direction_stencil": a_err, "fused_update": b_err}
-    for name, err in errors.items():
-        rec = results.setdefault(name, {"max_abs_err": 0.0})
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-    reps = 200
-    run_a = lambda: fc.direction_and_stencil(cv, beta, z, p, cs, cw, g,
-                                             out=(pn_k, ap_k))
-    run_b = lambda: fc.fused_update(cv, alpha, pn_k, ap_k, sc2, w_k, r_k)
-    plain_a = lambda: fc.direction_and_stencil_plain(cv, beta, z, p, cs, cw,
-                                                     g, pn_p, ap_p)
-    plain_b = lambda: fc.fused_update_plain(cv, alpha, pn_k, ap_k, sc2, w_p,
-                                            r_p)
+    # Timers. Inputs stay resident between launches, as in the solve loops.
+    c_out = tuple(torch.zeros_like(z) for _ in range(4))
+    p1_out = torch.zeros_like(z)
+    return [
+        timer(results, "direction_stencil", tag,
+              lambda: fc.direction_and_stencil(cv, beta, z, p, cs, cw, g,
+                                               out=(pn_k, ap_k)),
+              lambda: fc.direction_and_stencil_plain(cv, beta, z, p, cs, cw,
+                                                     g, pn_p, ap_p),
+              200, 20, points),
+        timer(results, "fused_update", tag,
+              lambda: fc.fused_update(cv, alpha, pn_k, ap_k, sc2, w_k, r_k),
+              lambda: fc.fused_update_plain(cv, alpha, pn_k, ap_k, sc2, w_p,
+                                            r_p),
+              200, 20, points),
+        timer(results, "basis_sweep", tag,
+              lambda: ca.basis_sweep(cv, beta, p, z, cs, cw, g, sc2,
+                                     out=c_out),
+              lambda: ca.basis_sweep_plain(cv, beta, p, z, cs, cw, g, sc2,
+                                           *c_p),
+              200, 10, points),
+        timer(results, "pair_update", tag,
+              lambda: ca.pair_update(cv, coefs, *c_k[:4], x_k, rd_k,
+                                     out=p1_out),
+              lambda: ca.pair_update_plain(cv, coefs, *c_k[:4], x_p, rd_p,
+                                           p1_p),
+              200, 20, points),
+    ]
 
-    def time_them() -> None:
-        for name, run, plain in (("direction_stencil", run_a, plain_a),
-                                 ("fused_update", run_b, plain_b)):
-            ev_ms = events_ms(run, reps)
-            dev_ms = kernel_device_ms(run, reps, name + "_kernel")
-            plain_ms = events_ms(plain, 20)
-            nbytes = 7 * band_points * 4
-            bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ops_ms = (FLOPS_PER_POINT[name] * band_points
-                            / FP32_FLOPS_PER_S * 1e3)
-            results[name][tag] = rec = {
-                "ms": dev_ms if dev_ms is not None else ev_ms,
-                "timing": "profiler" if dev_ms is not None else "cuda_events",
-                "events_ms": ev_ms,
-                "plain_ms": plain_ms,
-                "bytes": nbytes,
-                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-                "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                             else "operations"),
-            }
-            print(f"time {name} {tag}: {json.dumps(rec)}", flush=True)
-        torch.cuda.synchronize()
 
-    return time_them
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def solve_line(name: str, problem, r, seconds: float, l2, extra=None):
+    iters = int(r.iterations)
+    rec = {"iterations": iters, "diff": float(r.diff), "l2_error": l2,
+           "seconds": seconds, "us_per_iter": seconds / iters * 1e6,
+           "mlups": problem.interior_points * iters / seconds / 1e6}
+    rec.update(extra or {})
+    print(f"solve {name} {problem.M}x{problem.N}: {json.dumps(rec)}",
+          flush=True)
 
 
 def main() -> None:
@@ -222,8 +340,11 @@ def main() -> None:
     try:
         from poisson_tpu_torch.analysis import l2_error_host
         from poisson_tpu_torch.config import FLAGSHIP, Problem
-        from poisson_tpu_torch.ops import _build, fused_cg as fc
+        from poisson_tpu_torch.ops import _build, ca_cg as ca
+        from poisson_tpu_torch.ops import fused_cg as fc
+        from poisson_tpu_torch.ops import resident as rs
         from poisson_tpu_torch.solvers.pcg import pcg_solve
+        from poisson_tpu_torch.solvers.refine import refined_solve
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout): {e}")
 
@@ -237,35 +358,35 @@ def main() -> None:
           f"{sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    kernels = _build.load_kernels()
+    libs = _build.load_all()
     wall = time.perf_counter() - t0
-    print(f"build: {kernels.path.name} for sm_90a from {SOURCE}: nvcc "
-          f"{kernels.build_seconds:.2f} s, build+load {wall:.2f} s", flush=True)
-    for line in kernels.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    print(f"build: {len(libs)} libraries for sm_90a, build+load {wall:.2f} s "
+          "(one nvcc per source, in parallel)", flush=True)
+    for name, kernels in libs.items():
+        print(f"build: {kernels.path.name} from {_build.source(name).name}: "
+              f"nvcc {kernels.build_seconds:.2f} s", flush=True)
+        for line in kernels.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
 
     results: dict = {}
-    timers = [check_kernels(M, N, fc, results) for M, N in GRIDS]
+    errors: dict = {}
+    timers = [t for M, N in GRIDS
+              for t in check_kernels(M, N, fc, ca, results, errors)]
+    counts: dict = {}
 
-    # The main path. Counts are zeroed just before it and read just after.
+    # --- the fused path (kernels A, B). Counts zeroed just before, read
+    # just after.
     big = Problem(M=2400, N=3200)
     fc.build_canvases(big, "cuda")          # set-up, outside the timed solve
     fc.reset_launch_counts()
     fused = fc.fused_cg_solve(FLAGSHIP)     # warm-up solve
     flag_times = []
     for _ in range(REPEATS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fused = fc.fused_cg_solve(FLAGSHIP)
-        torch.cuda.synchronize()
-        flag_times.append(time.perf_counter() - t0)
-    flag_s = min(flag_times)
-    t0 = time.perf_counter()
-    big_r = fc.fused_cg_solve(big)
-    torch.cuda.synchronize()
-    big_s = time.perf_counter() - t0
-    counts = fc.launch_counts()
+        fused, s = timed(lambda: fc.fused_cg_solve(FLAGSHIP))
+        flag_times.append(s)
+    big_r, big_s = timed(lambda: fc.fused_cg_solve(big))
+    counts.update(fc.launch_counts())
 
     iters = int(fused.iterations)
     diff = float(fused.diff)
@@ -278,53 +399,164 @@ def main() -> None:
     check(gap <= ITERATE_TOL, f"800x1200: iterate {gap} from fp64 solve")
     l2 = l2_error_host(FLAGSHIP, fused.w)
     check(np.isfinite(l2) and l2 < 1e-3, f"800x1200: L2 error {l2}")
-    cv = fc.canvas_spec(FLAGSHIP)
-    bytes_per_iter = 14 * (cv.rows - 2 * fc.HALO) * cv.cols * 4
-    print("solve 800x1200: " + json.dumps({
-        "iterations": iters, "diff": diff, "l2_error": l2,
-        "max_diff_vs_fp64": gap, "seconds": flag_s,
-        "seconds_each": flag_times,
-        "us_per_iter": flag_s / iters * 1e6,
-        "mlups": FLAGSHIP.interior_points * iters / flag_s / 1e6,
-        "achieved_gbps": bytes_per_iter * iters / flag_s / 1e9,
-    }), flush=True)
-
+    flag_s = min(flag_times)
+    bytes_per_iter = 14 * band_points(fc, fc.canvas_spec(FLAGSHIP)) * 4
+    solve_line("fused", FLAGSHIP, fused, flag_s, l2, {
+        "max_diff_vs_fp64": gap, "seconds_each": flag_times,
+        "achieved_gbps": bytes_per_iter * iters / flag_s / 1e9})
     big_iters = int(big_r.iterations)
     check(abs(big_iters - 2449) <= 1,
           f"2400x3200: {big_iters} iterations, expected 2449 +- 1")
     check(float(big_r.diff) < 1e-6, f"2400x3200: diff {float(big_r.diff)}")
     big_l2 = l2_error_host(big, big_r.w)
     check(np.isfinite(big_l2), "2400x3200: non-finite iterate")
-    bcv = fc.canvas_spec(big)
-    big_bytes = 14 * (bcv.rows - 2 * fc.HALO) * bcv.cols * 4
-    print("solve 2400x3200: " + json.dumps({
-        "iterations": big_iters, "diff": float(big_r.diff),
-        "l2_error": big_l2, "seconds": big_s,
-        "us_per_iter": big_s / big_iters * 1e6,
-        "mlups": big.interior_points * big_iters / big_s / 1e6,
-        "achieved_gbps": big_bytes * big_iters / big_s / 1e9,
-    }), flush=True)
-
+    big_bytes = 14 * band_points(fc, fc.canvas_spec(big)) * 4
+    solve_line("fused", big, big_r, big_s, big_l2, {
+        "achieved_gbps": big_bytes * big_iters / big_s / 1e9})
     total_iters = (1 + REPEATS) * iters + big_iters
-    for name, n in counts.items():
-        check(n >= total_iters, f"{name}: {n} launches on the main path, "
-                                f"fewer than the {total_iters} iterations")
-    print(f"launches on the main path: {json.dumps(counts)} for "
-          f"{total_iters} iterations", flush=True)
+    for name in ("direction_and_stencil", "fused_update"):
+        check(counts[name] >= total_iters,
+              f"{name}: {counts[name]} launches on the fused path, fewer "
+              f"than the {total_iters} iterations")
+    print(f"launches on the fused path: {json.dumps(fc.launch_counts())} "
+          f"for {total_iters} iterations", flush=True)
 
-    for time_them in timers:
-        time_them()
+    # --- the resident path (kernel R): one launch per solve.
+    fp64 = {FLAGSHIP: w64}
+    for M, N, _ in RESIDENT_GRIDS:
+        p = Problem(M=M, N=N)
+        fc.build_canvases(p, "cuda")
+        if p not in fp64:
+            fp64[p] = pcg_solve(p, dtype=torch.float64, device="cuda")
+    rs.reset_launch_counts()
+    res_runs = {}
+    for M, N, _ in RESIDENT_GRIDS:
+        p = Problem(M=M, N=N)
+        rs.resident_cg_solve(p)                       # warm-up
+        res_runs[p] = [timed(lambda: rs.resident_cg_solve(p))
+                       for _ in range(REPEATS)]
+    counts.update(rs.launch_counts())
+    check(counts["resident_solve"] == (1 + REPEATS) * len(RESIDENT_GRIDS),
+          f"resident_solve: {counts['resident_solve']} launches, expected "
+          "one per solve")
+    for M, N, expected in RESIDENT_GRIDS:
+        p = Problem(M=M, N=N)
+        r, s = min(res_runs[p], key=lambda rs_: rs_[1])
+        k = int(r.iterations)
+        check(k == expected, f"resident {M}x{N}: {k} iterations, expected "
+                             f"{expected}")
+        check(float(r.diff) < 1e-6, f"resident {M}x{N}: diff {float(r.diff)}")
+        cv, cs, cw, g, rhs, sc2, sc_int = fc.build_canvases(p, "cuda")
+        wp, kp, _, _ = rs.resident_solve_plain(p, cv, cs, cw, g, rhs, sc2)
+        plain_w = torch.nn.functional.pad(
+            wp[fc.HALO : fc.HALO + M - 1, 1:N] * sc_int, (1, 1, 1, 1))
+        check(int(kp) == k, f"resident {M}x{N}: plain version gives "
+                            f"{int(kp)} iterations, kernel {k}")
+        vs_plain = float((r.w - plain_w).abs().max())
+        vs_fp64 = float((r.w.double() - fp64[p].w).abs().max())
+        check(vs_plain <= PLAIN_TOL,
+              f"resident {M}x{N}: iterate {vs_plain} from its plain version")
+        check(vs_fp64 <= ITERATE_TOL,
+              f"resident {M}x{N}: iterate {vs_fp64} from the fp64 solve")
+        record_err(errors, "resident_solve", vs_plain)
+        solve_line("resident", p, r, s, l2_error_host(p, r.w), {
+            "seconds_each": [t for _, t in res_runs[p]],
+            "max_diff_vs_plain": vs_plain, "max_diff_vs_fp64": vs_fp64})
+        points = band_points(fc, cv)
+        timers.append(timer(
+            results, "resident_solve", f"{M}x{N}",
+            lambda p=p, cv=cv, cs=cs, cw=cw, g=g, rhs=rhs, sc2=sc2:
+                rs.resident_solve(p, cv, cs, cw, g, rhs, sc2),
+            lambda p=p, cv=cv, cs=cs, cw=cw, g=g, rhs=rhs, sc2=sc2:
+                rs.resident_solve_plain(p, cv, cs, cw, g, rhs, sc2),
+            10, 1, points, k))
+    print(f"launches on the resident path: {json.dumps(rs.launch_counts())} "
+          f"for {(1 + REPEATS) * len(RESIDENT_GRIDS)} solves", flush=True)
+
+    # --- the communication-avoiding path (kernels C, D).
+    mid = Problem(M=400, N=600)
+    ca.reset_launch_counts()
+    ca_runs = {}
+    for p in (mid, FLAGSHIP):
+        ca.ca_cg_solve(p)                              # warm-up
+        ca_runs[p] = [timed(lambda: ca.ca_cg_solve(p))
+                      for _ in range(REPEATS)]
+    ca_big, ca_big_s = timed(lambda: ca.ca_cg_solve(big))
+    counts.update(ca.launch_counts())
+    pairs = 0
+    for p, expected in ((mid, 546), (FLAGSHIP, 989)):
+        r, s = min(ca_runs[p], key=lambda rs_: rs_[1])
+        k = int(r.iterations)
+        check(k == expected, f"ca {p.M}x{p.N}: {k} iterations, expected "
+                             f"{expected}")
+        check(float(r.diff) < 1e-6, f"ca {p.M}x{p.N}: diff {float(r.diff)}")
+        vs_fp64 = float((r.w.double() - fp64[p].w).abs().max())
+        check(vs_fp64 <= ITERATE_TOL,
+              f"ca {p.M}x{p.N}: iterate {vs_fp64} from the fp64 solve")
+        nbytes = ca.PASSES_PER_PAIR * band_points(fc, fc.canvas_spec(p)) * 4
+        solve_line("ca", p, r, s, l2_error_host(p, r.w), {
+            "seconds_each": [t for _, t in ca_runs[p]],
+            "max_diff_vs_fp64": vs_fp64,
+            "achieved_gbps": nbytes * k / 2 / s / 1e9})
+        pairs += (1 + REPEATS) * ((k + 1) // 2)
+    big_k = int(ca_big.iterations)
+    check(abs(big_k - 2449) <= 1,
+          f"ca 2400x3200: {big_k} iterations, expected 2449 +- 1")
+    check(float(ca_big.diff) < 1e-6, f"ca 2400x3200: diff "
+                                     f"{float(ca_big.diff)}")
+    ca_big_l2 = l2_error_host(big, ca_big.w)
+    check(np.isfinite(ca_big_l2), "ca 2400x3200: non-finite iterate")
+    nbytes = ca.PASSES_PER_PAIR * band_points(fc, fc.canvas_spec(big)) * 4
+    solve_line("ca", big, ca_big, ca_big_s, ca_big_l2, {
+        "achieved_gbps": nbytes * big_k / 2 / ca_big_s / 1e9})
+    pairs += (big_k + 1) // 2
+    for name in ("basis_sweep", "pair_update"):
+        check(counts[name] >= pairs,
+              f"{name}: {counts[name]} launches on the CA path, fewer than "
+              f"its {pairs} pairs")
+    print(f"launches on the CA path: {json.dumps(ca.launch_counts())} for "
+          f"{pairs} pairs", flush=True)
+
+    # --- mixed-precision refinement to the fp64 floor at 400×600, over the
+    # fused backend (kernels A, B) and the resident one (kernel R, one
+    # launch per inner solve). Its own counts, zeroed just before.
+    for backend, module in (("fused", fc), ("resident", rs)):
+        module.reset_launch_counts()
+        ref, ref_s = timed(lambda: refined_solve(mid, tol=REFINE_TOL,
+                                                 backend=backend))
+        launched = module.launch_counts()
+        inner = list(ref.inner_iterations)
+        norms = list(ref.residual_norms)
+        print(f"refine {backend} 400x600: " + json.dumps({
+            "seconds": ref_s, "inner_iterations": inner,
+            "relative_residual": ref.relative_residual,
+            "residual_norms": norms, "launches": launched}), flush=True)
+        check(ref.converged and ref.relative_residual <= REFINE_TOL,
+              f"refine {backend}: relative residual "
+              f"{ref.relative_residual} above {REFINE_TOL}")
+        check(inner[0] == 546, f"refine {backend}: first inner solve "
+                               f"{inner[0]} iterations, expected 546")
+        check(all(b < a for a, b in zip(norms, norms[1:])),
+              f"refine {backend}: residuals not decreasing: {norms}")
+        least = len(inner) if backend == "resident" else sum(inner)
+        for name, n in launched.items():
+            check(n >= least, f"refine {backend}: {name} launched {n} "
+                              f"times, fewer than {least}")
+
+    for time_it in timers:
+        time_it()
 
     # Where one flagship solve's time goes: device time by kernel against
     # the host's wall clock (profiled, so the wall includes its overhead).
-    prof, prof_wall = profile_kernels(lambda: fc.fused_cg_solve(FLAGSHIP))
-    if prof is None:
-        print("profile 800x1200: the profiler recorded no device activity",
-              flush=True)
-    else:
+    for path, solve in (("fused", fc.fused_cg_solve), ("ca", ca.ca_cg_solve)):
+        prof, prof_wall = profile_kernels(lambda: solve(FLAGSHIP))
+        if prof is None:
+            print(f"profile {path} 800x1200: the profiler recorded no device "
+                  "activity", flush=True)
+            continue
         busy_us = sum(us for _, us in prof.values())
         top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]
-        print("profile 800x1200: " + json.dumps({
+        print(f"profile {path} 800x1200: " + json.dumps({
             "wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
             "launches_per_iter": sum(n for n, _ in prof.values()) / iters,
@@ -332,25 +564,31 @@ def main() -> None:
                             for k, (n, us) in top],
         }), flush=True)
 
-    wrapper = {"direction_stencil": "direction_and_stencil",
-               "fused_update": "fused_update"}
     line = []
-    for name in ("direction_stencil", "fused_update"):
+    for name, kernel in KERNELS.items():
         rec = results[name]
-        flag, large = rec["800x1200"], rec["2400x3200"]
-        line.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name],
-            "launches": counts[wrapper[name]],
-            "max_abs_err": rec["max_abs_err"],
-            "ms": flag["ms"], "plain_ms": flag["plain_ms"],
-            "bound_ms": flag["bound_ms"], "bound_by": flag["bound_by"],
+        tags = ([RESIDENT_MAIN] if name == "resident_solve"
+                else ["800x1200"])
+        tags += [t for t in rec if t not in tags]
+        main_rec = rec[tags[0]]
+        entry = {
+            "name": name, "route": "cuda", "source": kernel.source,
+            "replaces": kernel.replaces,
+            "launches": counts[kernel.wrapper],
+            "max_abs_err": errors[name],
+            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"],
             "library_ms": None,
-            "timing": flag["timing"],
-            "ms_2400x3200": large["ms"],
-            "plain_ms_2400x3200": large["plain_ms"],
-            "bound_ms_2400x3200": large["bound_ms"],
-        })
+            "timing": main_rec["timing"], "shape": tags[0],
+        }
+        for tag in tags[1:]:
+            for key in ("ms", "plain_ms", "bound_ms"):
+                entry[f"{key}_{tag}"] = rec[tag][key]
+        line.append(entry)
+    for entry in line:
+        check(entry["launches"] > 0, f"{entry['name']}: no launch on its "
+                                     "path")
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "poisson_tpu")
                   for m in sys.modules), "the JAX package was imported")
     print(f"nvidia-smi: {card}", flush=True)

@@ -8,10 +8,13 @@ tolerance. It imports ``torch`` and ``numpy``, never ``jax`` or
 - ``config``   — ``Problem`` and ``FLAGSHIP``.
 - ``models``   — host fp64 setup: fictitious-domain coefficients, RHS,
                  analytic solution.
-- ``ops``      — the plain stencil operators (``stencil``) and the fused
+- ``ops``      — the plain stencil operators (``stencil``); the fused
                  two-sweep canvas iteration with its CUDA kernels A and B
-                 (``fused_cg``, sources in ``ops/csrc``).
-- ``solvers``  — the plain PyTorch PCG solver (``solvers.pcg``).
+                 (``fused_cg``); the whole solve in one launch of kernel R
+                 (``resident``); the communication-avoiding pair iteration
+                 with kernels C and D (``ca_cg``). Sources in ``ops/csrc``.
+- ``solvers``  — the plain PyTorch PCG solver (``solvers.pcg``) and
+                 mixed-precision refinement (``solvers.refine``).
 - ``interop``  — carries the JAX package's problem and canvases across as
                  plain data, for the parity tests.
 
@@ -20,10 +23,14 @@ without a card they raise. ``python -m poisson_tpu_torch M N`` is the CLI.
 """
 
 from poisson_tpu_torch.config import FLAGSHIP, Problem
+from poisson_tpu_torch.ops.ca_cg import ca_cg_solve
 from poisson_tpu_torch.ops.fused_cg import fused_cg_solve
+from poisson_tpu_torch.ops.resident import resident_cg_solve
 from poisson_tpu_torch.solvers.pcg import PCGResult, pcg_solve
+from poisson_tpu_torch.solvers.refine import RefineResult, refined_solve
 
 __version__ = "0.1.0"
 
-__all__ = ["FLAGSHIP", "Problem", "fused_cg_solve", "pcg_solve", "PCGResult",
-           "__version__"]
+__all__ = ["FLAGSHIP", "Problem", "PCGResult", "RefineResult", "ca_cg_solve",
+           "fused_cg_solve", "pcg_solve", "refined_solve",
+           "resident_cg_solve", "__version__"]

@@ -2,9 +2,13 @@
 ``poisson_tpu/cli.py``).
 
 Backends: ``fused`` is the two-sweep canvas iteration with CUDA kernels A and
-B (fp32 only); ``torch`` is the plain PyTorch solver (fp64 Jacobi-PCG or
-fp32 on the scaled system); ``auto`` picks ``fused`` for fp32 and ``torch``
-for fp64, as the JAX CLI picks ``pallas`` for fp32 on one accelerator.
+B; ``resident`` the whole solve in one launch of kernel R (grids within the
+residency budget); ``ca`` the communication-avoiding pair iteration with
+kernels C and D — these three are fp32 only, the counterparts of the JAX
+CLI's ``pallas``, ``pallas-resident`` and ``pallas-ca``. ``torch`` is the
+plain PyTorch solver (fp64 Jacobi-PCG or fp32 on the scaled system);
+``auto`` picks ``fused`` for fp32 and ``torch`` for fp64, as the JAX CLI
+picks ``pallas`` for fp32 on one accelerator.
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ import sys
 
 from poisson_tpu_torch.config import Problem
 
-BACKENDS = ("auto", "torch", "fused")
+BACKENDS = ("auto", "torch", "fused", "resident", "ca")
+FP32_BACKENDS = ("fused", "resident", "ca")
 
 # Canvas passes per fused iteration: kernel A reads z, p, cS, cW, γ and
 # writes pn, Ap; kernel B reads p, Ap, sc², w, r and writes w, r.
@@ -50,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default; raises without a card) or cpu, "
                         "which runs the kernels' plain versions")
     p.add_argument("--backend", choices=BACKENDS, default="auto",
-                   help="auto: fused for float32, torch for float64")
+                   help="auto: fused for float32, torch for float64; "
+                        "resident and ca are the other fp32 paths")
     p.add_argument("--json", action="store_true",
                    help="one JSON line instead of a table")
     return p
@@ -59,9 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
 def pick_backend(backend: str, dtype: str) -> str:
     if backend == "auto":
         return "fused" if dtype == "float32" else "torch"
-    if backend == "fused" and dtype != "float32":
-        raise SystemExit("--backend fused is the fp32 path; use --backend "
-                         "torch for float64")
+    if backend in FP32_BACKENDS and dtype != "float32":
+        raise SystemExit(f"--backend {backend} is an fp32 path; use "
+                         "--backend torch for float64")
     return backend
 
 
@@ -89,10 +95,15 @@ def main(argv=None) -> int:
     backend = pick_backend(args.backend, args.dtype)
 
     from poisson_tpu_torch.analysis import l2_error_host
+    from poisson_tpu_torch.ops.ca_cg import PASSES_PER_PAIR, ca_cg_solve
     from poisson_tpu_torch.ops.fused_cg import (
         HALO,
         canvas_spec,
         fused_cg_solve,
+    )
+    from poisson_tpu_torch.ops.resident import (
+        refuse_above_budget,
+        resident_cg_solve,
     )
     from poisson_tpu_torch.solvers.pcg import (
         FLAG_CONVERGED,
@@ -103,14 +114,25 @@ def main(argv=None) -> int:
     from poisson_tpu_torch.utils.platform import device_name, resolve_device
     from poisson_tpu_torch.utils.timing import PhaseTimer, SolveReport, mlups
 
+    if backend == "resident":
+        try:
+            refuse_above_budget(problem)
+        except ValueError as e:
+            raise SystemExit(f"--backend resident: {e}") from None
     device = resolve_device(args.device)
+    solvers = {"fused": fused_cg_solve, "resident": resident_cg_solve,
+               "ca": ca_cg_solve}
+    # Canvas passes per iteration of the streaming paths; the resident solve
+    # has no per-iteration device-memory figure (its state stays in L2).
+    passes = {"fused": FUSED_PASSES_PER_ITER, "ca": PASSES_PER_PAIR / 2}
     bytes_per_iter = None
-    if backend == "fused":
-        run = lambda: fused_cg_solve(problem, device=device)
-        if device.type == "cuda":   # a device rate only from a device run
+    if backend in solvers:
+        run = lambda: solvers[backend](problem, device=device)
+        # A device rate only from a device run.
+        if device.type == "cuda" and backend in passes:
             cv = canvas_spec(problem)
-            bytes_per_iter = (FUSED_PASSES_PER_ITER * (cv.rows - 2 * HALO)
-                              * cv.cols * 4)
+            bytes_per_iter = int(passes[backend] * (cv.rows - 2 * HALO)
+                                 * cv.cols * 4)
     else:
         run = lambda: pcg_solve(problem, dtype=args.dtype, device=device)
 

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/fused_cg.cu`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into ``ops/build/`` (listed in
-``.gitignore``); ``ctypes`` loads it. The file name carries a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Nothing here runs at import: this module is imported on
-machines with no ``nvcc`` and no card, where only the plain versions run.
+Every source ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface, at first use, into
+``ops/build/`` (listed in ``.gitignore``); ``ctypes`` loads it. The file name
+carries a hash of the source and the flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is. :func:`load_all` starts one ``nvcc``
+per missing library, all at once, and waits for them together. Nothing here
+runs at import: this module is imported on machines with no ``nvcc`` and no
+card, where only the plain versions run.
 """
 
 from __future__ import annotations
@@ -20,20 +22,28 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_cg.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# (seconds, nvcc output) of the builds this process ran, by library name.
+_BUILD_LOGS: dict[str, tuple[float, str]] = {}
+
 
 @dataclasses.dataclass(frozen=True)
 class Kernels:
-    """The loaded library and how it was obtained."""
+    """One loaded library and how it was obtained."""
 
+    name: str
     lib: ctypes.CDLL
     path: Path
     build_seconds: float   # 0.0 when an existing build was loaded
     log: str               # nvcc's output (ptxas registers and spills)
+
+
+def source(name: str) -> Path:
+    return CSRC / f"{name}.cu"
 
 
 def _nvcc() -> str:
@@ -50,48 +60,104 @@ def _nvcc() -> str:
     )
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_cg_block_size.argtypes = []
-    lib.fused_cg_block_size.restype = i32
-    lib.fused_cg_error_string.argtypes = [i32]
-    lib.fused_cg_error_string.restype = ctypes.c_char_p
-    # beta z p cs cw g pn ap part | rows cols halo blocks device | stream
-    lib.fused_cg_direction_stencil.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
-    lib.fused_cg_direction_stencil.restype = i32
-    # alpha p ap sc2 w r diff_part zr_part | cols halo blocks device | stream
-    lib.fused_cg_update.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-    lib.fused_cg_update.restype = i32
+def _target(name: str) -> Path:
+    tag = hashlib.sha256(source(name).read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+
+
+def build(names) -> None:
+    """Compile the libraries of ``names`` that are not built yet, one
+    ``nvcc`` each, all running at once; raise if any fails."""
+    todo = [n for n in names if not _target(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    running = {}
+    for name in todo:
+        tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in running.items():
+        log = proc.communicate()[0]
+        _BUILD_LOGS[name] = (time.perf_counter() - t0, log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {source(name).name}:\n{log}")
+        else:
+            os.replace(tmp, _target(name))   # atomic: all or none is seen
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I32_OUT = ctypes.POINTER(_I32)
+
+# The C entries of each library: symbol → (argument types, return type).
+# Every library also exports ``<name>_error_string``.
+ENTRIES = {
+    "fused_cg": {
+        "fused_cg_block_size": ([], _I32),
+        # beta z p cs cw g pn ap part | rows cols halo blocks device | stream
+        "fused_cg_direction_stencil": ([_PTR] * 9 + [_I32] * 5 + [_PTR], _I32),
+        # alpha p ap sc2 w r diff_part zr_part | cols halo blocks device |
+        # stream
+        "fused_cg_update": ([_PTR] * 8 + [_I32] * 4 + [_PTR], _I32),
+    },
+    "ca_cg": {
+        "ca_cg_layout": ([_I32_OUT] * 3, None),
+        # beta pprev r cs cw g sc2 pn t1 t2 t3 gram | rows cols halo device |
+        # stream
+        "ca_cg_basis_sweep": ([_PTR] * 12 + [_I32] * 4 + [_PTR], _I32),
+        # coefs pn t1 t2 t3 x r p1 rr_part | cols halo blocks device | stream
+        "ca_cg_pair_update": ([_PTR] * 9 + [_I32] * 4 + [_PTR], _I32),
+    },
+    "resident_cg": {
+        # device, out: blocks
+        "resident_cg_grid": ([_I32, _I32_OUT], _I32),
+        # cs cw g rhs sc2 w r p0 p1 ap part k diff zr | h1h2 norm_w delta |
+        # cap rows cols halo blocks device | stream
+        "resident_cg_solve": ([_PTR] * 14 + [_F32] * 3 + [_I32] * 6 + [_PTR],
+                              _I32),
+    },
+}
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    entries = {f"{name}_error_string": ([_I32], ctypes.c_char_p),
+               **ENTRIES[name]}
+    for symbol, (argtypes, restype) in entries.items():
+        getattr(lib, symbol).argtypes = argtypes
+        getattr(lib, symbol).restype = restype
 
 
 @functools.lru_cache(maxsize=None)
-def load_kernels() -> Kernels:
-    """Build (if needed) and load the kernel library; cached per process."""
-    source = SOURCE.read_bytes()
-    tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"fused_cg-{tag[:16]}.so"
-    build_seconds, log = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        build_seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{log}")
-        os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+def load_kernels(name: str = "fused_cg") -> Kernels:
+    """Build (if needed) and load the library of ``csrc/<name>.cu``; cached
+    per process."""
+    if name not in ENTRIES:
+        raise ValueError(f"unknown kernel library {name!r}")
+    build([name])
+    out = _target(name)
     lib = ctypes.CDLL(str(out))
-    _bind(lib)
-    return Kernels(lib=lib, path=out, build_seconds=build_seconds, log=log)
+    _bind(name, lib)
+    seconds, log = _BUILD_LOGS.get(name, (0.0, ""))
+    return Kernels(name=name, lib=lib, path=out, build_seconds=seconds,
+                   log=log)
+
+
+def load_all() -> dict:
+    """Every library, the missing ones built in parallel."""
+    build(ENTRIES)
+    return {name: load_kernels(name) for name in ENTRIES}
 
 
 def check(kernels: Kernels, code: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error."""
     if code != 0:
-        name = kernels.lib.fused_cg_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({name})")
+        err = getattr(kernels.lib, f"{kernels.name}_error_string")(code)
+        raise RuntimeError(f"{what}: CUDA error {code} ({err.decode()})")

@@ -235,14 +235,21 @@ def fused_update_plain(cv: Canvas, alpha, p, ap, sc2, w, r):
     return _block_partials(pb * pb * sc2[band]), _block_partials(r_new * r_new)
 
 
-def _check_operands(cv: Canvas, scalar, canvases: dict) -> torch.device:
+def _check_operands(cv: Canvas, canvases: dict, scalar=None,
+                    scalar_size: int = 1) -> torch.device:
     """The kernels take fp32, contiguous (rows, cols) canvases on one device
-    and a one-element fp32 scalar there; anything else raises."""
-    dev = scalar.device
+    and, where they take one, an fp32 scalar operand of ``scalar_size``
+    elements there; anything else raises."""
+    first = scalar if scalar is not None else next(iter(canvases.values()))
+    dev = first.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if scalar.dtype != torch.float32 or scalar.numel() != 1:
-        raise ValueError("the scalar operand must be one fp32 element")
+    if scalar is not None and (scalar.dtype != torch.float32
+                               or scalar.numel() != scalar_size
+                               or not scalar.is_contiguous()
+                               or scalar.device != dev):
+        raise ValueError(f"the scalar operand must be {scalar_size} "
+                         f"contiguous fp32 element(s) on {dev}")
     if (cv.rows - 2 * HALO) * cv.cols % BLOCK:
         raise ValueError(f"canvas band of {cv} is not a multiple of {BLOCK}")
     for name, t in canvases.items():
@@ -267,7 +274,7 @@ def _kernels():
     """The built library, checked to use this module's partial layout."""
     from poisson_tpu_torch.ops._build import load_kernels
 
-    kernels = load_kernels()
+    kernels = load_kernels("fused_cg")
     if kernels.lib.fused_cg_block_size() != BLOCK:
         raise RuntimeError(f"{kernels.path.name} reduces over "
                            f"{kernels.lib.fused_cg_block_size()} points per "
@@ -285,8 +292,8 @@ def direction_and_stencil(cv: Canvas, beta, z, p, cs, cw, g, out=None):
     ``out`` they are allocated zeroed."""
     pn, ap = out if out is not None else (torch.zeros_like(z),
                                           torch.zeros_like(z))
-    dev = _check_operands(cv, beta, dict(z=z, p=p, cs=cs, cw=cw, g=g,
-                                         pn=pn, ap=ap))
+    dev = _check_operands(cv, dict(z=z, p=p, cs=cs, cw=cw, g=g, pn=pn,
+                                   ap=ap), beta)
     outs = {pn.data_ptr(), ap.data_ptr()}
     if len(outs) < 2 or outs & {p.data_ptr(), z.data_ptr()}:
         raise ValueError("pn and ap must not alias each other, p or z")
@@ -313,7 +320,7 @@ direction_and_stencil.launches = 0
 def fused_update(cv: Canvas, alpha, p, ap, sc2, w, r):
     """Kernel B: w ← w + α·p and r ← r − α·Ap in place; returns
     (w, r, partials of Σ p²·sc², partials of Σ r²), one sweep."""
-    dev = _check_operands(cv, alpha, dict(p=p, ap=ap, sc2=sc2, w=w, r=r))
+    dev = _check_operands(cv, dict(p=p, ap=ap, sc2=sc2, w=w, r=r), alpha)
     if dev.type == "cpu":
         diff_part, zr_part = fused_update_plain(cv, alpha, p, ap, sc2, w, r)
         return w, r, diff_part, zr_part
@@ -378,25 +385,29 @@ def _fused_init(cv: Canvas, rhs) -> _FusedState:
     )
 
 
-def _make_fused_body(problem: Problem, cv: Canvas, cs, cw, g, sc2):
+def _make_fused_body(problem: Problem, cv: Canvas, cs, cw, g, sc2,
+                     kernels=KERNEL_WRAPPERS):
     """One fused iteration (kernels A + B) as a state→state function. A done
     state is frozen: α is forced to 0, so w and r keep their values, and k,
     ζ, β and diff keep theirs, which keeps the count exact however many
-    iterations run between two reads of ``done``."""
+    iterations run between two reads of ``done``. ``kernels`` are the two
+    sweeps, called as :func:`direction_and_stencil` and :func:`fused_update`
+    are."""
+    direction_and_stencil_fn, fused_update_fn = kernels
     f32 = dict(dtype=torch.float32, device=cs.device)
     h1h2 = torch.tensor(problem.h1 * problem.h2, **f32)
     norm_w = h1h2 if problem.weighted_norm else torch.tensor(1.0, **f32)
     delta = torch.tensor(problem.delta, **f32)
 
     def body(s: _FusedState) -> _FusedState:
-        pn, ap, denom_part = direction_and_stencil(
+        pn, ap, denom_part = direction_and_stencil_fn(
             cv, s.beta, s.r, s.p, cs, cw, g, out=(s.spare, s.ap))
         denom = torch.sum(denom_part) * h1h2
         degenerate = torch.abs(denom) < _DENOM_TOL
         alpha = torch.where(degenerate | s.done, 0.0,
                             s.zr / torch.where(degenerate, 1.0, denom))
-        w, r, diff_part, zr_part = fused_update(cv, alpha, pn, ap, sc2,
-                                                s.w, s.r)
+        w, r, diff_part, zr_part = fused_update_fn(cv, alpha, pn, ap, sc2,
+                                                   s.w, s.r)
         diff = torch.abs(alpha) * torch.sqrt(torch.sum(diff_part) * norm_w)
         zr_new = torch.sum(zr_part) * h1h2
         live = ~s.done
@@ -414,9 +425,10 @@ def _make_fused_body(problem: Problem, cv: Canvas, cs, cw, g, sc2):
 
 
 def _fused_solve(problem: Problem, cv: Canvas, cs, cw, g, rhs, sc2,
-                 check_every: int = CHECK_EVERY) -> _FusedState:
+                 check_every: int = CHECK_EVERY,
+                 kernels=KERNEL_WRAPPERS) -> _FusedState:
     """The fused solve on given canvases (all on one device)."""
-    body = _make_fused_body(problem, cv, cs, cw, g, sc2)
+    body = _make_fused_body(problem, cv, cs, cw, g, sc2, kernels)
     s = _fused_init(cv, rhs)
     h1h2 = torch.tensor(problem.h1 * problem.h2, dtype=torch.float32,
                         device=rhs.device)
@@ -435,3 +447,36 @@ def fused_cg_solve(problem: Problem, device=None,
     y = s.w[HALO : HALO + M - 1, 1:N]
     w = F.pad(y * sc_int, (1, 1, 1, 1))
     return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.zr)
+
+
+def scaled_rhs_canvas(problem: Problem, cv: Canvas, rhs_grid64, device):
+    """The scaled right-hand side b̃ = sc·rhs of a caller-supplied fp64 grid
+    (full (M+1, N+1) shape), as an fp32 canvas on ``device``."""
+    sc64 = host_fields64(problem, True)[3]
+    scaled = np.asarray(rhs_grid64, np.float64) * sc64
+    return _full_to_canvas(problem, cv, scaled.astype(np.float32), device)
+
+
+def canvas_to_w64(problem: Problem, w, sc_int) -> np.ndarray:
+    """Solution canvas of the scaled system → the fp64 host grid
+    w = sc·y (zero ring), the product taken in fp64."""
+    M, N = problem.M, problem.N
+    y = w[HALO : HALO + M - 1, 1:N].detach().cpu().numpy().astype(np.float64)
+    w64 = np.zeros(problem.grid_shape, np.float64)
+    w64[1:M, 1:N] = y * sc_int.detach().cpu().numpy().astype(np.float64)
+    return w64
+
+
+def fused_cg_solve_rhs(problem: Problem, rhs_grid64, device=None,
+                       check_every: int = CHECK_EVERY):
+    """Fused solve of ``A w = rhs`` for a caller-supplied RHS grid (fp64 host
+    array, full (M+1, N+1) shape): the counterpart of
+    ``poisson_tpu.ops.pallas_cg.pallas_cg_solve_rhs``, the inner solver of
+    mixed-precision refinement (``solvers.refine``). Coefficient canvases
+    come from the cache; only the RHS canvas is built per call.
+
+    Returns ``(w64, iterations)`` with w accumulated on the host in fp64."""
+    cv, cs, cw, g, _, sc2, sc_int = build_canvases(problem, device)
+    rhs = scaled_rhs_canvas(problem, cv, rhs_grid64, cs.device)
+    s = _fused_solve(problem, cv, cs, cw, g, rhs, sc2, check_every)
+    return canvas_to_w64(problem, s.w, sc_int), int(s.k)

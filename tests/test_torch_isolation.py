@@ -15,8 +15,8 @@ import torch
 
 import poisson_tpu_torch
 from poisson_tpu_torch.config import Problem
-from poisson_tpu_torch.ops import fused_cg
-from poisson_tpu_torch.solvers import pcg
+from poisson_tpu_torch.ops import ca_cg, fused_cg, resident
+from poisson_tpu_torch.solvers import pcg, refine
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "poisson_tpu_torch"
@@ -75,14 +75,20 @@ def test_no_module_imports_jax_or_the_reference():
     assert not offenders
     modules = [m.name for m in pkgutil.walk_packages(
         poisson_tpu_torch.__path__, "poisson_tpu_torch.")]
-    assert "poisson_tpu_torch.ops.fused_cg" in modules
+    for name in ("ops.fused_cg", "ops.resident", "ops.ca_cg",
+                 "solvers.refine"):
+        assert f"poisson_tpu_torch.{name}" in modules
 
 
 @pytest.mark.parametrize("entry", [
     lambda: fused_cg.fused_cg_solve(Problem(M=10, N=10)),
     lambda: pcg.pcg_solve(Problem(M=10, N=10)),
     lambda: fused_cg.build_canvases(Problem(M=10, N=10)),
-], ids=["fused_cg_solve", "pcg_solve", "build_canvases"])
+    lambda: resident.resident_cg_solve(Problem(M=10, N=10)),
+    lambda: ca_cg.ca_cg_solve(Problem(M=10, N=10)),
+    lambda: refine.refined_solve(Problem(M=10, N=10)),
+], ids=["fused_cg_solve", "pcg_solve", "build_canvases", "resident_cg_solve",
+        "ca_cg_solve", "refined_solve"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -91,16 +97,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry,
 
 
 def test_cpu_solve_launches_no_kernel():
-    fused_cg.reset_launch_counts()
-    r = fused_cg.fused_cg_solve(Problem(M=40, N=40), device="cpu")
-    assert int(r.iterations) == 50
+    for module in (fused_cg, ca_cg, resident):
+        module.reset_launch_counts()
+    for solve in (fused_cg.fused_cg_solve, ca_cg.ca_cg_solve,
+                  resident.resident_cg_solve):
+        assert int(solve(Problem(M=40, N=40), device="cpu").iterations) == 50
     assert fused_cg.launch_counts() == {"direction_and_stencil": 0,
                                         "fused_update": 0}
+    assert ca_cg.launch_counts() == {"basis_sweep": 0, "pair_update": 0}
+    assert resident.launch_counts() == {"resident_solve": 0}
 
 
 @pytest.mark.parametrize("extra,backend", [
     ([], "fused"),
     (["--dtype", "float64"], "torch"),
+    (["--backend", "resident"], "resident"),
+    (["--backend", "ca"], "ca"),
 ])
 def test_cli_solves_on_cpu(extra, backend):
     out = subprocess.run(
@@ -115,3 +127,17 @@ def test_cli_solves_on_cpu(extra, backend):
     assert rec["stopped"] is None
     assert rec["l2_error"] < 5e-3
     assert rec["achieved_gbps"] is None    # no device rate from a CPU run
+
+
+@pytest.mark.parametrize("args,message", [
+    (["40", "40", "--backend", "ca", "--dtype", "float64"], "fp32 path"),
+    (["40", "40", "--backend", "resident", "--dtype", "float64"],
+     "fp32 path"),
+    (["2400", "3200", "--backend", "resident"], "40 MB residency budget"),
+], ids=["ca_fp64", "resident_fp64", "resident_over_budget"])
+def test_cli_refuses_what_a_backend_does_not_take(args, message):
+    out = subprocess.run(
+        [sys.executable, "-m", "poisson_tpu_torch", *args, "--device", "cpu"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert message in out.stderr
