@@ -15,8 +15,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every field (pn, Ap, w, r for A and B; pn, t1, t2, t3, x, r, p₁ for C
    and D; tolerance 1e-6, and 0 is expected, since the kernels repeat the
    plain arithmetic in the same order) and relative error of every partial
-   sum (tolerance 1e-5; only the summation order differs);
-4. four paths, each with every launch count set to 0 just before it and
+   sum (tolerance 1e-5; only the summation order differs); and the sharded
+   forms of A, B, C and D the same way, on shard 0 of both grids cut 2×2
+   (canvas 416×640 and 1216×1664), with the live band widened past the
+   shard's rows, the column mask, and inputs nonzero on the halo rows and
+   columns;
+4. six paths, each with every launch count set to 0 just before it and
    read just after, all before any profiler session:
    - the fused path, ``fused_cg_solve`` (kernels A and B): a warm-up and
      three timed solves at 800×1200 and one at 2400×3200; 800×1200 must give
@@ -31,6 +35,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    - the communication-avoiding path, ``ca_cg_solve`` (kernels C and D):
      546 at 400×600, exactly 989 at 800×1200 with an iterate within 1e-5 of
      the fp64 solve, 2449 ± 1 at 2400×3200;
+   - the sharded fused path, ``fused_cg_solve_sharded`` (the sharded forms
+     of A and B), and the sharded CA path, ``ca_cg_solve_sharded`` (those
+     of C and D), on a 2×2 mesh whose four shards all sit on the one card:
+     546 at 400×600 and 989 at 800×1200 exactly, iterates within 1e-5 of
+     the plain fp64 solve, 2449 ± 1 at 2400×3200; each sharded form
+     launched exactly shards × steps times, no single-device form at all;
+     a 2×1 mesh across two cards only where two are visible (a line says
+     when it did not run);
    - mixed-precision refinement, ``refined_solve`` at 400×600 over the fused
      backend (kernels A and B) and the resident one (kernel R): relative
      scaled residual ≤ 1e-10, decreasing every pass, the first inner solve
@@ -38,8 +50,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events), bytes and bounds, and a profile of one flagship solve on
-   the fused and on the CA path;
-6. a ``kernels`` JSON line, then the ``ok`` JSON line last.
+   the fused, CA, sharded fused and sharded CA paths;
+6. a ``kernels`` JSON line (nine kernels), then the ``ok`` JSON line last.
 
 Without a CUDA device, or run outside a checkout (no ``poisson_tpu_torch``
 beside it), it exits non-zero before printing any result.
@@ -49,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -67,12 +80,14 @@ FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 
 
 class Kernel(NamedTuple):
-    wrapper: str    # the Python wrapper, whose ``launches`` count is read
+    wrapper: str    # the key of its launch count in ``launch_counts()``
     symbol: str     # the CUDA kernel's name, as the profiler reports it
     source: str
     replaces: str   # the TPU kernel's pallas_call site
     flops: int      # operations the function needs per live point
     passes: int     # band canvases it must read once or write once
+    main: str = "800x1200"   # the shape its headline numbers use
+    extra_rows: int = 0      # canvas rows it must also move, past the band
 
 
 # Flops per live point (per iteration for R), counting what the function
@@ -81,7 +96,12 @@ class Kernel(NamedTuple):
 # neighbours, which is its design, not work the function needs. B: two
 # axpys (4), p²sc² (2), r² (1) and two sums (2). C: pn (2), three stencils
 # (39), 6 plain Gram terms (12) and 6 weighted (18). D: r' (6), x' (6),
-# p₁ (4), r'² (2). R: A's and B's, 26 per iteration.
+# p₁ (4), r'² (2). R: A's and B's, 26 per iteration. The sharded forms add
+# the column mask's multiply to each masked product (A, B, D 1; C 6), and
+# move a few rows past the band (``extra_rows``): A reads z and p on the two
+# halo rows and writes pn there (6) and reads the mask (1); C reads p_prev
+# and r on its four ring rows (8), cS on three rows past the centre and cW
+# and γ on two (7), and the mask (1); B and D read the mask (1).
 KERNELS = {
     "direction_stencil": Kernel(
         "direction_and_stencil", "direction_stencil_kernel",
@@ -102,12 +122,30 @@ KERNELS = {
     "resident_solve": Kernel(
         "resident_solve", "resident_kernel",
         "poisson_tpu_torch/ops/csrc/resident_cg.cu",
-        "poisson_tpu/ops/pallas_resident.py:154", 26, 6),
+        "poisson_tpu/ops/pallas_resident.py:154", 26, 6, main="400x600"),
+    "direction_stencil_sharded": Kernel(
+        "direction_and_stencil_sharded", "direction_stencil_sharded",
+        "poisson_tpu_torch/ops/csrc/fused_cg.cu",
+        "poisson_tpu/ops/pallas_cg.py:733", 18, 7, "800x1200-2x2", 7),
+    "fused_update_sharded": Kernel(
+        "fused_update_sharded", "fused_update_sharded",
+        "poisson_tpu_torch/ops/csrc/fused_cg.cu",
+        "poisson_tpu/ops/pallas_cg.py:805", 10, 7, "800x1200-2x2", 1),
+    "basis_sweep_sharded": Kernel(
+        "basis_sweep_sharded", "basis_sweep_sharded",
+        "poisson_tpu_torch/ops/csrc/ca_cg.cu",
+        "poisson_tpu/ops/pallas_ca.py:318", 77, 10, "800x1200-2x2", 16),
+    "pair_update_sharded": Kernel(
+        "pair_update_sharded", "pair_update_sharded",
+        "poisson_tpu_torch/ops/csrc/ca_cg.cu",
+        "poisson_tpu/ops/pallas_ca.py:369", 19, 9, "800x1200-2x2", 1),
 }
 GRIDS = [(800, 1200), (2400, 3200)]
 RESIDENT_GRIDS = [(40, 40, 50), (400, 600, 546), (800, 1200, 989)]
-RESIDENT_MAIN = "400x600"    # the grid kernel R's headline numbers use
 REPEATS = 3          # timed flagship solves after the warm-up; best reported
+SHARD_GRID = (2, 2)  # the sharded paths' mesh: four shards on one card
+SHARDED_EXPECTED = [(400, 600, 546, 0), (800, 1200, 989, 0),
+                    (2400, 3200, 2449, 1)]   # (M, N, iterations, allowance)
 
 
 def fail(message: str) -> None:
@@ -158,9 +196,18 @@ def profile_kernels(fn):
     return (kernels or None), wall
 
 
+def named(name: str, symbol: str) -> bool:
+    """Whether a profiler event ``name`` is the kernel ``symbol`` itself: the
+    whole identifier, not part of a longer one (``direction_stencil_kernel``
+    is not ``direction_stencil_sharded``)."""
+    word = r"[A-Za-z0-9_]"
+    return re.search(rf"(?<!{word}){re.escape(symbol)}(?!{word})",
+                     name) is not None
+
+
 def kernel_device_ms(fn, reps: int, symbol: str):
-    """Device ms per launch of the kernel whose name contains ``symbol``,
-    from the profiler over ``reps`` calls; None if it saw no such kernel."""
+    """Device ms per launch of the kernel named ``symbol``, from the
+    profiler over ``reps`` calls; None if it saw no such kernel."""
     def burst():
         for _ in range(reps):
             fn()
@@ -168,7 +215,8 @@ def kernel_device_ms(fn, reps: int, symbol: str):
     kernels, _ = profile_kernels(burst)
     if not kernels:
         return None
-    hits = [(n, us) for name, (n, us) in kernels.items() if symbol in name]
+    hits = [(n, us) for name, (n, us) in kernels.items()
+            if named(name, symbol)]
     if not hits:
         return None
     n = sum(h[0] for h in hits)
@@ -184,18 +232,19 @@ def rel_err(got, want) -> float:
 
 
 def timer(results: dict, name: str, tag: str, run, plain, reps: int,
-          plain_reps: int, points: int, iterations: int = 1):
+          plain_reps: int, points: int, iterations: int = 1, cols: int = 0):
     """A function that times ``run`` (profiler device time per launch, CUDA
     events as the fallback) and ``plain`` (CUDA events) and records them
     with the bytes and bound of one launch over ``points`` band points
-    (``iterations`` sweeps of work for kernel R)."""
+    (``iterations`` sweeps of work for kernel R) and the kernel's extra rows
+    of ``cols`` columns."""
     kernel = KERNELS[name]
 
     def time_it() -> None:
         ev_ms = events_ms(run, reps)
         dev_ms = kernel_device_ms(run, reps, kernel.symbol)
         plain_ms = events_ms(plain, plain_reps)
-        nbytes = kernel.passes * points * 4
+        nbytes = (kernel.passes * points + kernel.extra_rows * cols) * 4
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops_ms = (kernel.flops * points * iterations
                         / FP32_FLOPS_PER_S * 1e3)
@@ -314,6 +363,139 @@ def check_kernels(M: int, N: int, fc, ca, results: dict, errors: dict):
     ]
 
 
+def check_sharded_kernels(M: int, N: int, fc, ca, fs, mesh, results: dict,
+                          errors: dict):
+    """Phase 3 for the sharded forms at one grid: kernels A and B on shard 0
+    of the fused layout and C and D on shard 0 of the CA layout, on a 2×2
+    mesh, with the widened bands, the column masks and inputs that are
+    nonzero on every row and column (halo rows and columns included),
+    against their plain versions. Returns the functions that time them."""
+    from poisson_tpu_torch.config import Problem
+
+    problem = Problem(M=M, N=N)
+    rng = np.random.default_rng(M + 1)
+    beta = torch.tensor(0.37, dtype=torch.float32, device="cuda")
+    alpha = torch.tensor(0.21, dtype=torch.float32, device="cuda")
+    coefs = torch.tensor([0.31, 0.22, 0.07, 0.25, 0.15, 0.0, 0.0, 0.0],
+                         dtype=torch.float32, device="cuda")
+    tag = f"{M}x{N}-{SHARD_GRID[0]}x{SHARD_GRID[1]}"
+    h = fc.HALO
+
+    def anywhere(cv):
+        x = rng.standard_normal((cv.rows, cv.cols)).astype(np.float32)
+        return torch.tensor(x, device="cuda")
+
+    spec, sh = fs.shard_canvases(problem, mesh, 1)
+    cv = spec.cv
+    band = (h - 1, h + spec.m_blk + 1)
+    a_in = (sh.cs[0], sh.cw[0], sh.g[0])
+    mask, sc2 = sh.colmask[0], sh.sc2[0]
+    z, p, w0, r0 = (anywhere(cv) for _ in range(4))
+    pn_k, ap_k, part_k = fc.direction_and_stencil(cv, beta, z, p, *a_in,
+                                                  band=band, colmask=mask)
+    pn_p, ap_p = torch.zeros_like(z), torch.zeros_like(z)
+    part_p = fc.direction_and_stencil_plain(cv, beta, z, p, *a_in, pn_p,
+                                            ap_p, band, mask)
+    w_k, r_k, w_p, r_p = w0.clone(), r0.clone(), w0.clone(), r0.clone()
+    _, _, d_k, z_k = fc.fused_update(cv, alpha, pn_k, ap_k, sc2, w_k, r_k,
+                                     colmask=mask)
+    d_p, z_p = fc.fused_update_plain(cv, alpha, pn_k, ap_k, sc2, w_p, r_p,
+                                     mask)
+
+    cspec, csh = fs.shard_canvases(problem, mesh, 2)
+    ccv = cspec.cv
+    cband = (h - 2, h + cspec.m_blk + 2)
+    c_in = (csh.cs[0], csh.cw[0], csh.g[0], csh.sc2[0])
+    cmask = csh.colmask[0]
+    pprev, rc, x0, rd0 = (anywhere(ccv) for _ in range(4))
+    c_k = ca.basis_sweep(ccv, beta, pprev, rc, *c_in, band=cband,
+                         colmask=cmask)
+    c_p = tuple(torch.zeros_like(rc) for _ in range(4))
+    gram_p = ca.basis_sweep_plain(ccv, beta, pprev, rc, *c_in, *c_p, cband,
+                                  cmask)
+    x_k, rd_k, x_p, rd_p = x0.clone(), rd0.clone(), x0.clone(), rd0.clone()
+    _, _, p1_k, rr_k = ca.pair_update(ccv, coefs, *c_k[:4], x_k, rd_k,
+                                      colmask=cmask)
+    p1_p = torch.zeros_like(rc)
+    rr_p = ca.pair_update_plain(ccv, coefs, *c_k[:4], x_p, rd_p, p1_p, cmask)
+    torch.cuda.synchronize()
+
+    def max_err(pairs) -> float:
+        return max(float((a - b).abs().max()) for a, b in pairs)
+
+    gk, gp = c_k[4].double().sum(dim=0), gram_p.double().sum(dim=0)
+    checks = {
+        "direction_stencil_sharded": (
+            max_err([(pn_k, pn_p), (ap_k, ap_p)]),
+            rel_err(part_k.sum(), part_p.sum())),
+        "fused_update_sharded": (
+            max_err([(w_k, w_p), (r_k, r_p)]),
+            max(rel_err(d_k.sum(), d_p.sum()), rel_err(z_k.sum(),
+                                                       z_p.sum()))),
+        # Some Gram entries are sums of terms of both signs: relative to
+        # the largest entry.
+        "basis_sweep_sharded": (
+            max_err(zip(c_k[:4], c_p)),
+            float((gk - gp).abs().max() / gp.abs().max())),
+        "pair_update_sharded": (
+            max_err([(x_k, x_p), (rd_k, rd_p), (p1_k, p1_p)]),
+            rel_err(rr_k.sum(), rr_p.sum())),
+    }
+    for name, (err, rel) in checks.items():
+        print(f"kernel {name} {tag} (shard canvas {cv.rows}x{cv.cols}): "
+              f"max_abs_err={err!r} (tol {FIELD_TOL}) "
+              f"partial_sum_rel_err={rel!r} (tol {SUM_TOL})", flush=True)
+        check(err <= FIELD_TOL, f"{name} {tag}: max abs error {err}")
+        check(rel <= SUM_TOL, f"{name} {tag}: partial-sum error {rel}")
+        record_err(errors, name, err)
+
+    points, cpoints = spec.m_blk * cv.cols, cspec.m_blk * ccv.cols
+    c_out = tuple(torch.zeros_like(rc) for _ in range(4))
+    p1_out = torch.zeros_like(rc)
+    return [
+        timer(results, "direction_stencil_sharded", tag,
+              lambda: fc.direction_and_stencil(cv, beta, z, p, *a_in,
+                                               out=(pn_k, ap_k), band=band,
+                                               colmask=mask),
+              lambda: fc.direction_and_stencil_plain(cv, beta, z, p, *a_in,
+                                                     pn_p, ap_p, band, mask),
+              200, 20, points, cols=cv.cols),
+        timer(results, "fused_update_sharded", tag,
+              lambda: fc.fused_update(cv, alpha, pn_k, ap_k, sc2, w_k, r_k,
+                                      colmask=mask),
+              lambda: fc.fused_update_plain(cv, alpha, pn_k, ap_k, sc2, w_p,
+                                            r_p, mask),
+              200, 20, points, cols=cv.cols),
+        timer(results, "basis_sweep_sharded", tag,
+              lambda: ca.basis_sweep(ccv, beta, pprev, rc, *c_in, out=c_out,
+                                     band=cband, colmask=cmask),
+              lambda: ca.basis_sweep_plain(ccv, beta, pprev, rc, *c_in, *c_p,
+                                           cband, cmask),
+              200, 10, cpoints, cols=ccv.cols),
+        timer(results, "pair_update_sharded", tag,
+              lambda: ca.pair_update(ccv, coefs, *c_k[:4], x_k, rd_k,
+                                     out=p1_out, colmask=cmask),
+              lambda: ca.pair_update_plain(ccv, coefs, *c_k[:4], x_p, rd_p,
+                                           p1_p, cmask),
+              200, 20, cpoints, cols=ccv.cols),
+    ]
+
+
+def driven_steps(needed: int, cap: int, check_every: int) -> int:
+    """Steps ``solvers.pcg.drive`` runs for a solve whose state is done
+    after ``needed`` steps: up to the next read of ``done``, at most
+    ``cap``."""
+    return min(cap, -(-needed // check_every) * check_every)
+
+
+def single_counts(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if not k.endswith("_sharded")}
+
+
+def sharded_counts(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if k.endswith("_sharded")}
+
+
 def timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -343,7 +525,10 @@ def main() -> None:
         from poisson_tpu_torch.ops import _build, ca_cg as ca
         from poisson_tpu_torch.ops import fused_cg as fc
         from poisson_tpu_torch.ops import resident as rs
-        from poisson_tpu_torch.solvers.pcg import pcg_solve
+        from poisson_tpu_torch.parallel import ca_sharded as cs_
+        from poisson_tpu_torch.parallel import fused_sharded as fs
+        from poisson_tpu_torch.parallel.mesh import make_solver_mesh
+        from poisson_tpu_torch.solvers.pcg import CHECK_EVERY, pcg_solve
         from poisson_tpu_torch.solvers.refine import refined_solve
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout): {e}")
@@ -371,8 +556,14 @@ def main() -> None:
 
     results: dict = {}
     errors: dict = {}
+    # The sharded paths' mesh: 2×2, its four shards all on the one card.
+    mesh = make_solver_mesh(["cuda:0"] * (SHARD_GRID[0] * SHARD_GRID[1]),
+                            grid=SHARD_GRID)
     timers = [t for M, N in GRIDS
               for t in check_kernels(M, N, fc, ca, results, errors)]
+    timers += [t for M, N in GRIDS
+               for t in check_sharded_kernels(M, N, fc, ca, fs, mesh,
+                                              results, errors)]
     counts: dict = {}
 
     # --- the fused path (kernels A, B). Counts zeroed just before, read
@@ -386,7 +577,7 @@ def main() -> None:
         fused, s = timed(lambda: fc.fused_cg_solve(FLAGSHIP))
         flag_times.append(s)
     big_r, big_s = timed(lambda: fc.fused_cg_solve(big))
-    counts.update(fc.launch_counts())
+    counts.update(single_counts(fc.launch_counts()))
 
     iters = int(fused.iterations)
     diff = float(fused.diff)
@@ -482,7 +673,7 @@ def main() -> None:
         ca_runs[p] = [timed(lambda: ca.ca_cg_solve(p))
                       for _ in range(REPEATS)]
     ca_big, ca_big_s = timed(lambda: ca.ca_cg_solve(big))
-    counts.update(ca.launch_counts())
+    counts.update(single_counts(ca.launch_counts()))
     pairs = 0
     for p, expected in ((mid, 546), (FLAGSHIP, 989)):
         r, s = min(ca_runs[p], key=lambda rs_: rs_[1])
@@ -517,6 +708,79 @@ def main() -> None:
     print(f"launches on the CA path: {json.dumps(ca.launch_counts())} for "
           f"{pairs} pairs", flush=True)
 
+    # --- the sharded paths on the 2×2 mesh of one card: kernels A and B's
+    # sharded forms (fused-sharded), C and D's (ca-sharded). Counts zeroed
+    # just before each path, read just after; each shard launches each form
+    # once per step that ``drive`` runs.
+    shards = mesh.size
+    for p in (mid, FLAGSHIP, big):       # set-up, outside the timed solves
+        fs.shard_canvases(p, mesh, 1)
+        fs.shard_canvases(p, mesh, cs_.RING)
+    # (path, kernels' module, solve, halo ring, iterations per step, canvas
+    # passes per iteration)
+    for path, module, solve, ring, per_step, passes in (
+            ("fused-sharded", fc, fs.fused_cg_solve_sharded, 1, 1, 14),
+            ("ca-sharded", ca, cs_.ca_cg_solve_sharded, cs_.RING, 2,
+             ca.PASSES_PER_PAIR / 2)):
+        module.reset_launch_counts()
+        steps = 0
+        for M, N, expected, allowance in SHARDED_EXPECTED:
+            p = Problem(M=M, N=N)
+            runs = 1 if p == big else REPEATS
+            if p != big:
+                solve(p, mesh)                          # warm-up
+            times = [timed(lambda: solve(p, mesh)) for _ in range(runs)]
+            r, sec = min(times, key=lambda rs_: rs_[1])
+            k = int(r.iterations)
+            check(abs(k - expected) <= allowance,
+                  f"{path} {M}x{N}: {k} iterations, expected {expected}"
+                  + (f" +- {allowance}" if allowance else ""))
+            check(float(r.diff) < 1e-6, f"{path} {M}x{N}: diff "
+                                        f"{float(r.diff)}")
+            extra = {"mesh": f"{mesh.px}x{mesh.py}",
+                     "seconds_each": [t for _, t in times]}
+            if p in fp64:
+                gap = float((r.w.double() - fp64[p].w).abs().max())
+                check(gap <= ITERATE_TOL,
+                      f"{path} {M}x{N}: iterate {gap} from the fp64 solve")
+                extra["max_diff_vs_fp64"] = gap
+            l2 = l2_error_host(p, r.w)
+            check(np.isfinite(l2), f"{path} {M}x{N}: non-finite iterate")
+            spec = fs.shard_spec(p, mesh.px, mesh.py, ring)
+            nbytes = passes * shards * spec.m_blk * spec.cv.cols * 4
+            extra["achieved_gbps"] = nbytes * k / sec / 1e9
+            solve_line(path, p, r, sec, l2, extra)
+            cap_steps = (p.iteration_cap + per_step - 1) // per_step
+            steps += (runs + (p != big)) * driven_steps(
+                -(-k // per_step), cap_steps, CHECK_EVERY)
+        launched = module.launch_counts()
+        print(f"launches on the {path} path: {json.dumps(launched)} for "
+              f"{steps} steps on {shards} shards", flush=True)
+        check(not any(single_counts(launched).values()),
+              f"{path}: a single-device kernel form was launched")
+        for name, n in sharded_counts(launched).items():
+            check(n == shards * steps,
+                  f"{path}: {name} launched {n} times, expected "
+                  f"{shards} shards x {steps} steps")
+        counts.update(sharded_counts(launched))
+
+    # A mesh across two cards, where the machine has them.
+    if torch.cuda.device_count() > 1:
+        pair_mesh = make_solver_mesh(["cuda:0", "cuda:1"], grid=(2, 1))
+        for path, solve in (("fused-sharded", fs.fused_cg_solve_sharded),
+                            ("ca-sharded", cs_.ca_cg_solve_sharded)):
+            r, sec = timed(lambda: solve(FLAGSHIP, pair_mesh))
+            k = int(r.iterations)
+            check(k == 989, f"{path} 2x1 on two cards: {k} iterations")
+            gap = float((r.w.double() - w64.w).abs().max())
+            check(gap <= ITERATE_TOL, f"{path} 2x1: iterate {gap} from fp64")
+            solve_line(path, FLAGSHIP, r, sec, l2_error_host(FLAGSHIP, r.w),
+                       {"mesh": "2x1", "devices": ["cuda:0", "cuda:1"],
+                        "max_diff_vs_fp64": gap})
+    else:
+        print("sharded 2x1 across two cards: not run "
+              f"({torch.cuda.device_count()} card visible)", flush=True)
+
     # --- mixed-precision refinement to the fp64 floor at 400×600, over the
     # fused backend (kernels A, B) and the resident one (kernel R, one
     # launch per inner solve). Its own counts, zeroed just before.
@@ -524,7 +788,7 @@ def main() -> None:
         module.reset_launch_counts()
         ref, ref_s = timed(lambda: refined_solve(mid, tol=REFINE_TOL,
                                                  backend=backend))
-        launched = module.launch_counts()
+        launched = single_counts(module.launch_counts())
         inner = list(ref.inner_iterations)
         norms = list(ref.residual_norms)
         print(f"refine {backend} 400x600: " + json.dumps({
@@ -548,7 +812,10 @@ def main() -> None:
 
     # Where one flagship solve's time goes: device time by kernel against
     # the host's wall clock (profiled, so the wall includes its overhead).
-    for path, solve in (("fused", fc.fused_cg_solve), ("ca", ca.ca_cg_solve)):
+    for path, solve in (
+            ("fused", fc.fused_cg_solve), ("ca", ca.ca_cg_solve),
+            ("fused-sharded", lambda p: fs.fused_cg_solve_sharded(p, mesh)),
+            ("ca-sharded", lambda p: cs_.ca_cg_solve_sharded(p, mesh))):
         prof, prof_wall = profile_kernels(lambda: solve(FLAGSHIP))
         if prof is None:
             print(f"profile {path} 800x1200: the profiler recorded no device "
@@ -567,9 +834,7 @@ def main() -> None:
     line = []
     for name, kernel in KERNELS.items():
         rec = results[name]
-        tags = ([RESIDENT_MAIN] if name == "resident_solve"
-                else ["800x1200"])
-        tags += [t for t in rec if t not in tags]
+        tags = [kernel.main] + [t for t in rec if t != kernel.main]
         main_rec = rec[tags[0]]
         entry = {
             "name": name, "route": "cuda", "source": kernel.source,

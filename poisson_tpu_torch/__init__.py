@@ -15,22 +15,32 @@ tolerance. It imports ``torch`` and ``numpy``, never ``jax`` or
                  with kernels C and D (``ca_cg``). Sources in ``ops/csrc``.
 - ``solvers``  — the plain PyTorch PCG solver (``solvers.pcg``) and
                  mixed-precision refinement (``solvers.refine``).
+- ``parallel`` — the device mesh, halo exchange and mesh-order sums, and
+                 the sharded fused and CA solves, which run the kernels'
+                 sharded (banded, masked) forms on every shard.
 - ``interop``  — carries the JAX package's problem and canvases across as
                  plain data, for the parity tests.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a card they raise. ``python -m poisson_tpu_torch M N`` is the CLI.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"`` (a
+mesh of CPU devices for the sharded solves); without a card they raise.
+``python -m poisson_tpu_torch M N`` is the CLI.
 """
 
 from poisson_tpu_torch.config import FLAGSHIP, Problem
 from poisson_tpu_torch.ops.ca_cg import ca_cg_solve
 from poisson_tpu_torch.ops.fused_cg import fused_cg_solve
 from poisson_tpu_torch.ops.resident import resident_cg_solve
+from poisson_tpu_torch.parallel import (
+    ca_cg_solve_sharded,
+    fused_cg_solve_sharded,
+    make_solver_mesh,
+)
 from poisson_tpu_torch.solvers.pcg import PCGResult, pcg_solve
 from poisson_tpu_torch.solvers.refine import RefineResult, refined_solve
 
 __version__ = "0.1.0"
 
 __all__ = ["FLAGSHIP", "Problem", "PCGResult", "RefineResult", "ca_cg_solve",
-           "fused_cg_solve", "pcg_solve", "refined_solve",
+           "ca_cg_solve_sharded", "fused_cg_solve", "fused_cg_solve_sharded",
+           "make_solver_mesh", "pcg_solve", "refined_solve",
            "resident_cg_solve", "__version__"]

@@ -4,11 +4,16 @@
 Backends: ``fused`` is the two-sweep canvas iteration with CUDA kernels A and
 B; ``resident`` the whole solve in one launch of kernel R (grids within the
 residency budget); ``ca`` the communication-avoiding pair iteration with
-kernels C and D — these three are fp32 only, the counterparts of the JAX
-CLI's ``pallas``, ``pallas-resident`` and ``pallas-ca``. ``torch`` is the
-plain PyTorch solver (fp64 Jacobi-PCG or fp32 on the scaled system);
-``auto`` picks ``fused`` for fp32 and ``torch`` for fp64, as the JAX CLI
-picks ``pallas`` for fp32 on one accelerator.
+kernels C and D; ``fused-sharded`` and ``ca-sharded`` the same two
+iterations on every shard of a ``--mesh PXxPY`` of cards, with the kernels'
+sharded forms — these five are fp32 only, the counterparts of the JAX CLI's
+``pallas``, ``pallas-resident``, ``pallas-ca``, ``pallas-sharded`` and
+``pallas-ca-sharded``. ``torch`` is the plain PyTorch solver (fp64
+Jacobi-PCG or fp32 on the scaled system). ``auto`` picks ``torch`` for
+fp64; for fp32 it picks ``fused-sharded`` when more than one card is
+visible or ``--mesh`` is given, and ``fused`` otherwise, as the JAX CLI
+picks its sharded and single-device fused paths
+(``poisson_tpu/cli.py:361-377``).
 """
 
 from __future__ import annotations
@@ -18,12 +23,26 @@ import sys
 
 from poisson_tpu_torch.config import Problem
 
-BACKENDS = ("auto", "torch", "fused", "resident", "ca")
-FP32_BACKENDS = ("fused", "resident", "ca")
+BACKENDS = ("auto", "torch", "fused", "resident", "ca", "fused-sharded",
+            "ca-sharded")
+FP32_BACKENDS = ("fused", "resident", "ca", "fused-sharded", "ca-sharded")
+SHARDED_BACKENDS = ("fused-sharded", "ca-sharded")
 
 # Canvas passes per fused iteration: kernel A reads z, p, cS, cW, γ and
 # writes pn, Ap; kernel B reads p, Ap, sc², w, r and writes w, r.
 FUSED_PASSES_PER_ITER = 14
+
+
+def parse_mesh(text: str) -> tuple[int, int]:
+    """``PXxPY`` → (px, py), both positive."""
+    try:
+        px, py = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh takes PXxPY, e.g. 2x2; got {text!r}") from None
+    if px < 1 or py < 1:
+        raise argparse.ArgumentTypeError(f"--mesh {text}: both sides >= 1")
+    return px, py
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,20 +74,65 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default; raises without a card) or cpu, "
                         "which runs the kernels' plain versions")
     p.add_argument("--backend", choices=BACKENDS, default="auto",
-                   help="auto: fused for float32, torch for float64; "
-                        "resident and ca are the other fp32 paths")
+                   help="auto: torch for float64; for float32 "
+                        "fused-sharded with more than one card or --mesh, "
+                        "else fused; resident, ca and ca-sharded are the "
+                        "other fp32 paths")
+    p.add_argument("--mesh", type=parse_mesh, default=None,
+                   metavar="PXxPY",
+                   help="shard grid of the sharded backends (default: "
+                        "near-square over the visible cards; one shard per "
+                        "card on cuda, every shard on the CPU with "
+                        "--device cpu)")
     p.add_argument("--json", action="store_true",
                    help="one JSON line instead of a table")
     return p
 
 
-def pick_backend(backend: str, dtype: str) -> str:
+def visible_devices(device: str) -> int:
+    """Cards a mesh may take: those visible for ``cuda``, one for ``cpu``."""
+    import torch
+
+    if device == "cpu":
+        return 1
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def pick_backend(backend: str, dtype: str, visible: int = 1,
+                 mesh=None) -> str:
     if backend == "auto":
-        return "fused" if dtype == "float32" else "torch"
+        if dtype != "float32":
+            backend = "torch"
+        else:
+            sharded = visible > 1 or mesh is not None
+            return "fused-sharded" if sharded else "fused"
     if backend in FP32_BACKENDS and dtype != "float32":
         raise SystemExit(f"--backend {backend} is an fp32 path; use "
                          "--backend torch for float64")
+    if mesh is not None and backend not in SHARDED_BACKENDS:
+        raise SystemExit(f"--mesh shards the fp32 sharded backends "
+                         f"({', '.join(SHARDED_BACKENDS)}), not {backend}")
     return backend
+
+
+def build_mesh(args, visible: int):
+    """The mesh of a sharded backend: ``--mesh`` or the near-square grid
+    over the visible cards; shard s on card s (a mesh larger than the
+    visible cards is refused), or every shard on the CPU."""
+    from poisson_tpu_torch.parallel.mesh import (
+        choose_process_grid,
+        make_solver_mesh,
+    )
+
+    px, py = args.mesh if args.mesh is not None else choose_process_grid(
+        max(visible, 1))
+    n = px * py
+    if args.device == "cpu":
+        return make_solver_mesh(["cpu"] * n, grid=(px, py))
+    if n > visible:
+        raise SystemExit(f"--mesh {px}x{py} needs {n} cards; {visible} "
+                         "visible (--device cpu puts every shard on the CPU)")
+    return make_solver_mesh([f"cuda:{i}" for i in range(n)], grid=(px, py))
 
 
 def _grid(args) -> None:
@@ -92,7 +156,8 @@ def main(argv=None) -> int:
     problem = Problem(M=args.M, N=args.N, delta=args.delta,
                       max_iter=args.max_iter,
                       weighted_norm=not args.unweighted_norm)
-    backend = pick_backend(args.backend, args.dtype)
+    visible = visible_devices(args.device)
+    backend = pick_backend(args.backend, args.dtype, visible, args.mesh)
 
     from poisson_tpu_torch.analysis import l2_error_host
     from poisson_tpu_torch.ops.ca_cg import PASSES_PER_PAIR, ca_cg_solve
@@ -104,6 +169,14 @@ def main(argv=None) -> int:
     from poisson_tpu_torch.ops.resident import (
         refuse_above_budget,
         resident_cg_solve,
+    )
+    from poisson_tpu_torch.parallel.fused_sharded import (
+        fused_cg_solve_sharded,
+        shard_spec,
+    )
+    from poisson_tpu_torch.parallel.ca_sharded import (
+        RING,
+        ca_cg_solve_sharded,
     )
     from poisson_tpu_torch.solvers.pcg import (
         FLAG_CONVERGED,
@@ -122,19 +195,33 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     solvers = {"fused": fused_cg_solve, "resident": resident_cg_solve,
                "ca": ca_cg_solve}
+    sharded = {"fused-sharded": (fused_cg_solve_sharded, 1),
+               "ca-sharded": (ca_cg_solve_sharded, RING)}
     # Canvas passes per iteration of the streaming paths; the resident solve
     # has no per-iteration device-memory figure (its state stays in L2).
-    passes = {"fused": FUSED_PASSES_PER_ITER, "ca": PASSES_PER_PAIR / 2}
-    bytes_per_iter = None
+    passes = {"fused": FUSED_PASSES_PER_ITER, "ca": PASSES_PER_PAIR / 2,
+              "fused-sharded": FUSED_PASSES_PER_ITER,
+              "ca-sharded": PASSES_PER_PAIR / 2}
+    # Centre points every sweep covers: the canvas's, or all the shards'.
+    points = None
+    mesh = None
     if backend in solvers:
         run = lambda: solvers[backend](problem, device=device)
-        # A device rate only from a device run.
-        if device.type == "cuda" and backend in passes:
-            cv = canvas_spec(problem)
-            bytes_per_iter = int(passes[backend] * (cv.rows - 2 * HALO)
-                                 * cv.cols * 4)
+        cv = canvas_spec(problem)
+        points = (cv.rows - 2 * HALO) * cv.cols
+    elif backend in sharded:
+        mesh = build_mesh(args, visible)
+        solve, ring = sharded[backend]
+        run = lambda: solve(problem, mesh)
+        spec = shard_spec(problem, mesh.px, mesh.py, ring)
+        points = mesh.size * spec.m_blk * spec.cv.cols
     else:
         run = lambda: pcg_solve(problem, dtype=args.dtype, device=device)
+
+    bytes_per_iter = None
+    # A device rate only from a device run.
+    if device.type == "cuda" and backend in passes:
+        bytes_per_iter = int(passes[backend] * points * 4)
 
     timer = PhaseTimer(device)
     with timer.phase("first_solve"):   # builds kernels and canvases
@@ -160,6 +247,7 @@ def main(argv=None) -> int:
         achieved_gbps=(None if bytes_per_iter is None
                        else bytes_per_iter * iters / best / 1e9),
         stopped=stopped,
+        mesh=None if mesh is None else (mesh.px, mesh.py),
     )
     print(report.json_line() if args.json else report.table())
     return 0

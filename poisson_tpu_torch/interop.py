@@ -2,7 +2,8 @@
 
 The port never imports the JAX package; a caller that holds both (the
 parity tests) hands over plain fields and numpy arrays, so that both
-packages run on the very same inputs.
+packages run on the very same inputs: single-device canvases, or the
+stacked shard canvases of the sharded solves.
 """
 
 from __future__ import annotations
@@ -44,3 +45,27 @@ def canvases_from_reference(cv_fields: dict, cs, cw, g, rhs, sc2, sc_int,
             raise ValueError(f"canvas shape {tuple(t.shape)} does not match "
                              f"{(cv.rows, cv.cols)}")
     return (cv, *tensors)
+
+
+def shard_canvases_from_reference(cs, cw, g, rhs, sc2, sc_int, colmask,
+                                  devices):
+    """The port's per-shard canvases (a ``ShardCanvases``) from the stacked
+    arrays of ``poisson_tpu.parallel.pallas_sharded._shard_canvases`` or
+    ``pallas_ca_sharded._ca_shard_canvases``: shard s of each (P, R, C) or
+    (P, m̂, n̂) array, as an fp32 tensor on ``devices[s]``, and the (1, C)
+    column mask on every shard's device. Arrays may be JAX arrays or
+    numpy."""
+    from poisson_tpu_torch.parallel.fused_sharded import to_shards
+
+    arrays = dict(cs=cs, cw=cw, g=g, rhs=rhs, sc2=sc2, sc_int=sc_int,
+                  colmask=colmask)
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    shards = arrays["cs"].shape[0]
+    if len(devices) != shards or any(
+            arrays[k].shape[0] != shards
+            for k in ("cw", "g", "rhs", "sc2", "sc_int")):
+        raise ValueError(f"{len(devices)} devices for stacked arrays of "
+                         f"{shards} shards")
+    if arrays["colmask"].shape != (1, arrays["cs"].shape[2]):
+        raise ValueError(f"colmask has shape {arrays['colmask'].shape}")
+    return to_shards(arrays, [resolve_device(d) for d in devices])

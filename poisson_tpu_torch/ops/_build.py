@@ -102,19 +102,22 @@ _I32_OUT = ctypes.POINTER(_I32)
 ENTRIES = {
     "fused_cg": {
         "fused_cg_block_size": ([], _I32),
-        # beta z p cs cw g pn ap part | rows cols halo blocks device | stream
-        "fused_cg_direction_stencil": ([_PTR] * 9 + [_I32] * 5 + [_PTR], _I32),
-        # alpha p ap sc2 w r diff_part zr_part | cols halo blocks device |
-        # stream
-        "fused_cg_update": ([_PTR] * 8 + [_I32] * 4 + [_PTR], _I32),
+        # beta z p cs cw g colmask pn ap part | rows cols halo lo hi blocks
+        # device | stream (a null colmask: the single-device form)
+        "fused_cg_direction_stencil": ([_PTR] * 10 + [_I32] * 7 + [_PTR],
+                                       _I32),
+        # alpha p ap sc2 colmask w r diff_part zr_part | cols halo blocks
+        # device | stream
+        "fused_cg_update": ([_PTR] * 9 + [_I32] * 4 + [_PTR], _I32),
     },
     "ca_cg": {
         "ca_cg_layout": ([_I32_OUT] * 3, None),
-        # beta pprev r cs cw g sc2 pn t1 t2 t3 gram | rows cols halo device |
-        # stream
-        "ca_cg_basis_sweep": ([_PTR] * 12 + [_I32] * 4 + [_PTR], _I32),
-        # coefs pn t1 t2 t3 x r p1 rr_part | cols halo blocks device | stream
-        "ca_cg_pair_update": ([_PTR] * 9 + [_I32] * 4 + [_PTR], _I32),
+        # beta pprev r cs cw g sc2 colmask pn t1 t2 t3 gram | rows cols halo
+        # lo hi device | stream
+        "ca_cg_basis_sweep": ([_PTR] * 13 + [_I32] * 6 + [_PTR], _I32),
+        # coefs pn t1 t2 t3 colmask x r p1 rr_part | cols halo blocks device
+        # | stream
+        "ca_cg_pair_update": ([_PTR] * 10 + [_I32] * 4 + [_PTR], _I32),
     },
     "resident_cg": {
         # device, out: blocks

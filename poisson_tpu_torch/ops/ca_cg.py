@@ -29,7 +29,10 @@ strip. The Pallas drivers' ``bm``, ``parallel`` and ``serial`` knobs shape
 the TPU grid of strips and have no meaning on one strip, so they are not
 taken here (the Kahan serial-reduce layout is still to be ported).
 Kernel C's partials are per (TILE_H × TILE_W) tile of the band, kernel D's
-per BLOCK consecutive band points, as kernel B's.
+per BLOCK consecutive band points, as kernel B's. The sharded CA solve
+(``parallel.ca_sharded``) calls each kernel's sharded form: C with pn formed
+two rows past the centre on each side, both with a column mask on the
+unweighted sums.
 
 Each wrapper launches its CUDA kernel for CUDA tensors, and counts the launch
 in its ``launches`` attribute; for CPU tensors, and only for them, it runs
@@ -57,7 +60,12 @@ from poisson_tpu_torch.ops.fused_cg import (
     _shift_col_plus,
     _stream,
     build_canvases,
+    check_colmask,
+    count_launch,
+    launch_counts as _launch_counts,
+    live_band,
     n_partials,
+    reset_launch_counts as _reset_launch_counts,
 )
 from poisson_tpu_torch.solvers.pcg import (
     CHECK_EVERY,
@@ -110,38 +118,45 @@ def _tile_partials(x):
 
 
 def basis_sweep_plain(cv: Canvas, beta, pprev, r, cs, cw, g, sc2,
-                      pn, t1, t2, t3):
-    """Kernel C's plain version: writes the band rows of ``pn``, ``t1``,
-    ``t2``, ``t3`` and returns the (tiles, 12) Gram partials.
+                      pn, t1, t2, t3, band=None, colmask=None):
+    """Kernel C's plain version: writes the centre rows of ``pn``, ``t1``,
+    ``t2``, ``t3`` and returns the (tiles, 12) Gram partials, the six
+    unweighted products multiplied by ``colmask`` first when one is given.
 
-    pn is formed on the live band and is zero elsewhere; t1 is computed on
-    the band ±1 rows (the guard rows next to it included, as the Pallas
-    kernel does), which is what t2's stencil reads."""
-    h, hi = HALO, cv.rows - HALO
-    band = slice(h, hi)
+    pn is formed on the live band (the centre rows, or a shard's band two
+    rows wider on each side) and is zero elsewhere; t1 is computed on the
+    centre ±1 rows (the rows next to them included, as the Pallas kernel
+    does), which is what t2's stencil reads."""
+    lo, hi = live_band(cv, band, 2)
+    h, hc = HALO, cv.rows - HALO
+    centre = slice(h, hc)
     pn_full = torch.zeros_like(r)
-    pn_full[band] = r[band] + beta * pprev[band]
-    t1_ext = _stencil(pn_full, cs, cw, g, h - 1, hi + 1)
+    pn_full[lo:hi] = r[lo:hi] + beta * pprev[lo:hi]
+    t1_ext = _stencil(pn_full, cs, cw, g, h - 1, hc + 1)
     t1_pad = torch.zeros_like(r)
-    t1_pad[h - 1 : hi + 1] = t1_ext
+    t1_pad[h - 1 : hc + 1] = t1_ext
     a = t1_ext[1:-1]
-    b = _stencil(t1_pad, cs, cw, g, h, hi)
-    c = _stencil(r, cs, cw, g, h, hi)
-    p, rc, w2 = pn_full[band], r[band], sc2[band]
-    pn[band], t1[band], t2[band], t3[band] = p, a, b, c
+    b = _stencil(t1_pad, cs, cw, g, h, hc)
+    c = _stencil(r, cs, cw, g, h, hc)
+    p, rc, w2 = pn_full[centre], r[centre], sc2[centre]
+    pn[centre], t1[centre], t2[centre], t3[centre] = p, a, b, c
+    plain = [p * a, a * a, rc * a, rc * c, a * c, a * b]
+    if colmask is not None:
+        plain = [x * colmask for x in plain]
     return torch.stack([
         _tile_partials(x) for x in (
-            p * a, a * a, rc * a, rc * c, a * c, a * b,
-            p * p * w2, p * rc * w2, p * a * w2, rc * rc * w2, rc * a * w2,
-            a * a * w2)
+            *plain, p * p * w2, p * rc * w2, p * a * w2, rc * rc * w2,
+            rc * a * w2, a * a * w2)
     ], dim=1)
 
 
-def pair_update_plain(cv: Canvas, coefs, pn, t1, t2, t3, x, r, p1):
-    """Kernel D's plain version: updates the band of ``x`` and ``r`` in
-    place, writes the band of ``p1`` and returns the per-block partials of
-    Σ r'². x and p₁ use r before its update; p₁ is pn when ``coefs[5]`` (the
-    pair's ``only1``) is nonzero."""
+def pair_update_plain(cv: Canvas, coefs, pn, t1, t2, t3, x, r, p1,
+                      colmask=None):
+    """Kernel D's plain version: updates the centre rows of ``x`` and ``r``
+    in place, writes those of ``p1`` and returns the per-block partials of
+    Σ r'² (each r'² multiplied by ``colmask`` first when one is given). x
+    and p₁ use r before its update; p₁ is pn when ``coefs[5]`` (the pair's
+    ``only1``) is nonzero."""
     band = slice(HALO, cv.rows - HALO)
     c_p, a2, a2a1, alpha1, beta1, only1 = (coefs[j] for j in range(6))
     pv, a, rv = pn[band], t1[band], r[band]
@@ -149,7 +164,8 @@ def pair_update_plain(cv: Canvas, coefs, pn, t1, t2, t3, x, r, p1):
     x[band] = x[band] + c_p * pv + a2 * rv - a2a1 * a
     p1[band] = torch.where(only1 != 0, pv, rv - alpha1 * a + beta1 * pv)
     r[band] = r_new
-    return _block_partials(r_new * r_new)
+    rr = r_new * r_new
+    return _block_partials(rr if colmask is None else rr * colmask)
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,42 +187,54 @@ def _distinct(names: dict, what: str) -> None:
         raise ValueError(f"{', '.join(names)} must not alias ({what})")
 
 
-def basis_sweep(cv: Canvas, beta, pprev, r, cs, cw, g, sc2, out=None):
+def basis_sweep(cv: Canvas, beta, pprev, r, cs, cw, g, sc2, out=None,
+                band=None, colmask=None):
     """Kernel C: returns (pn, t1, t2, t3, (tiles, 12) Gram partials), one
     sweep.
 
     ``out=(pn, t1, t2, t3)`` names the output canvases; they must not alias
     each other, ``pprev`` or ``r`` (neighbouring blocks read those while
     these are written), and their guard rows must be zero — the kernel
-    writes only the live band. Without ``out`` they are allocated zeroed."""
+    writes only the centre rows. Without ``out`` they are allocated zeroed.
+
+    The sharded form (``parallel.ca_sharded``): ``band`` widens the rows on
+    which pn is formed by two on each side, onto the shard's width-2 halo
+    ring, and ``colmask``, a (1, cols) fp32 tensor, multiplies the six
+    unweighted Gram products before they are summed. A column mask
+    launches the kernel's sharded form, counted in ``sharded_launches``."""
     outs = out if out is not None else tuple(torch.zeros_like(r)
                                              for _ in range(4))
     pn, t1, t2, t3 = outs
     dev = _check_operands(cv, dict(pprev=pprev, r=r, cs=cs, cw=cw, g=g,
                                    sc2=sc2, pn=pn, t1=t1, t2=t2, t3=t3), beta)
+    lo, hi = live_band(cv, band, 2)
+    mask_ptr = check_colmask(cv, colmask, dev)
     _distinct(dict(pn=pn, t1=t1, t2=t2, t3=t3, pprev=pprev, r=r),
               "the outputs are written while the inputs are read")
     if dev.type == "cpu":
-        gram = basis_sweep_plain(cv, beta, pprev, r, cs, cw, g, sc2, *outs)
+        gram = basis_sweep_plain(cv, beta, pprev, r, cs, cw, g, sc2, *outs,
+                                 (lo, hi), colmask)
         return (*outs, gram)
     kernels = _kernels()
     gram = torch.empty((n_tiles(cv), N_GRAM), dtype=torch.float32,
                        device=dev)
     code = kernels.lib.ca_cg_basis_sweep(
         beta.data_ptr(), pprev.data_ptr(), r.data_ptr(), cs.data_ptr(),
-        cw.data_ptr(), g.data_ptr(), sc2.data_ptr(), pn.data_ptr(),
+        cw.data_ptr(), g.data_ptr(), sc2.data_ptr(), mask_ptr, pn.data_ptr(),
         t1.data_ptr(), t2.data_ptr(), t3.data_ptr(), gram.data_ptr(),
-        cv.rows, cv.cols, HALO, dev.index or 0, _stream(dev),
+        cv.rows, cv.cols, HALO, lo, hi, dev.index or 0, _stream(dev),
     )
     check(kernels, code, "basis_sweep launch")
-    basis_sweep.launches += 1
+    count_launch(basis_sweep, colmask)
     return (*outs, gram)
 
 
 basis_sweep.launches = 0
+basis_sweep.sharded_launches = 0
 
 
-def pair_update(cv: Canvas, coefs, pn, t1, t2, t3, x, r, out=None):
+def pair_update(cv: Canvas, coefs, pn, t1, t2, t3, x, r, out=None,
+                colmask=None):
     """Kernel D: x and r updated in place, p₁ written; returns
     (x, r, p1, partials of Σ r'²), one sweep.
 
@@ -214,40 +242,43 @@ def pair_update(cv: Canvas, coefs, pn, t1, t2, t3, x, r, out=None):
     kernel's row, with ``only1`` added in its spare slot 5. ``out``
     names the p₁ canvas (guard rows zero); it must not alias any operand,
     and x and r must not alias pn, t1, t2, t3. Without ``out`` it is
-    allocated zeroed."""
+    allocated zeroed. ``colmask`` (the sharded form, counted in
+    ``sharded_launches``) multiplies each r'² before it is summed."""
     p1 = out if out is not None else torch.zeros_like(r)
     dev = _check_operands(cv, dict(pn=pn, t1=t1, t2=t2, t3=t3, x=x, r=r,
                                    p1=p1), coefs, N_COEFS)
+    mask_ptr = check_colmask(cv, colmask, dev)
     _distinct(dict(pn=pn, t1=t1, t2=t2, t3=t3, x=x, r=r, p1=p1),
               "x and r are updated in place, p1 is written")
     if dev.type == "cpu":
-        part = pair_update_plain(cv, coefs, pn, t1, t2, t3, x, r, p1)
+        part = pair_update_plain(cv, coefs, pn, t1, t2, t3, x, r, p1,
+                                 colmask)
         return x, r, p1, part
     kernels = _kernels()
     blocks = n_partials(cv)
     part = torch.empty(blocks, dtype=torch.float32, device=dev)
     code = kernels.lib.ca_cg_pair_update(
         coefs.data_ptr(), pn.data_ptr(), t1.data_ptr(), t2.data_ptr(),
-        t3.data_ptr(), x.data_ptr(), r.data_ptr(), p1.data_ptr(),
+        t3.data_ptr(), mask_ptr, x.data_ptr(), r.data_ptr(), p1.data_ptr(),
         part.data_ptr(), cv.cols, HALO, blocks, dev.index or 0, _stream(dev),
     )
     check(kernels, code, "pair_update launch")
-    pair_update.launches += 1
+    count_launch(pair_update, colmask)
     return x, r, p1, part
 
 
 pair_update.launches = 0
+pair_update.sharded_launches = 0
 
 KERNEL_WRAPPERS = (basis_sweep, pair_update)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
+    _reset_launch_counts(KERNEL_WRAPPERS)
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    return _launch_counts(KERNEL_WRAPPERS)
 
 
 # --- the pair scalars and the solve ------------------------------------------

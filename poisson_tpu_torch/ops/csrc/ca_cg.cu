@@ -12,9 +12,14 @@
 // poisson_tpu/ops/pallas_ca.py:_make_basis_kernel (pallas_call in
 // basis_sweep). Kernel D, pair_update, replaces
 // poisson_tpu/ops/pallas_ca.py:_make_pair_update_kernel (pallas_call in
-// pair_update).
+// pair_update). Each has a second form for the sharded CA solve
+// (poisson_tpu_torch/parallel/ca_sharded.py), the counterpart of the Pallas
+// kernels' `masked` form (poisson_tpu/parallel/pallas_ca_sharded.py:216,223):
+// a (1, cols) column mask keeps the neighbours' values in a shard's halo
+// columns out of the unweighted sums. The band on which C forms pn is a
+// runtime argument of both forms of C.
 //
-// Canvas: rows x cols fp32, row-major, live band rows [halo, rows - halo);
+// Canvas: rows x cols fp32, row-major, centre rows [halo, rows - halo);
 // (rows - 2 halo) is a multiple of 8 and cols of 128. Guard rows are never
 // written; the caller allocates outputs zeroed once, which keeps them zero.
 //
@@ -82,24 +87,38 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Kernel C. Block (bx, by) owns canvas rows halo + by*kTileH + [0, kTileH)
 // and columns bx*kTileW + [0, kTileW); thread (ty, tx) = (tid / 32, tid % 32)
-// owns one point of it.
-__global__ void __launch_bounds__(kThreads)
-basis_sweep_kernel(const float* __restrict__ beta_ptr,
-                   const float* __restrict__ pprev,
-                   const float* __restrict__ r,
-                   const float* __restrict__ cs,
-                   const float* __restrict__ cw,
-                   const float* __restrict__ g,
-                   const float* __restrict__ sc2, float* __restrict__ pn,
-                   float* __restrict__ t1, float* __restrict__ t2,
-                   float* __restrict__ t3, float* __restrict__ gram,
-                   int rows, int cols, int halo) {
-  constexpr int kPw = kTileW + 4, kPh = kTileH + 4;  // pn: halo 2
-  constexpr int kTw = kTileW + 2, kTh = kTileH + 2;  // t1, r: halo 1
-  __shared__ float s_pn[kPh][kPw];
-  __shared__ float s_t1[kTh][kTw];
-  __shared__ float s_r[kTh][kTw];
-  __shared__ float slots[kGram][kWarps];
+// owns one point of it. pn = r + beta p_prev is live on the rows [lo, hi):
+// the centre rows on one device; on a shard the band is widened by two rows
+// on each side (lo = halo - 2, hi = rows - halo + 2), so pn is real on the
+// width-2 halo ring, whose r and p_prev hold the neighbours' values, and t1
+// next to the shard's edge reads them, not zeros
+// (poisson_tpu/parallel/pallas_ca_sharded.py:212-220). When kMasked, the six
+// unweighted Gram products are multiplied by colmask[col] before they are
+// summed; the weighted six need no mask, since a shard's sc2 is zero outside
+// the points it owns.
+constexpr int kPw = kTileW + 4, kPh = kTileH + 4;  // pn: halo 2
+constexpr int kTw = kTileW + 2, kTh = kTileH + 2;  // t1, r: halo 1
+
+struct BasisShared {
+  float pn[kPh][kPw];
+  float t1[kTh][kTw];
+  float r[kTh][kTw];
+  float slots[kGram][kWarps];
+};
+
+template <bool kMasked>
+__device__ __forceinline__ void basis_sweep_body(
+    const float* __restrict__ beta_ptr, const float* __restrict__ pprev,
+    const float* __restrict__ r, const float* __restrict__ cs,
+    const float* __restrict__ cw, const float* __restrict__ g,
+    const float* __restrict__ sc2, const float* __restrict__ colmask,
+    float* __restrict__ pn, float* __restrict__ t1, float* __restrict__ t2,
+    float* __restrict__ t3, float* __restrict__ gram, int cols, int halo,
+    int lo, int hi, BasisShared& sh) {
+  auto& s_pn = sh.pn;
+  auto& s_t1 = sh.t1;
+  auto& s_r = sh.r;
+  auto& slots = sh.slots;
 
   const int tid = threadIdx.x;
   const int row0 = halo + blockIdx.y * kTileH;
@@ -107,18 +126,21 @@ basis_sweep_kernel(const float* __restrict__ beta_ptr,
   const float beta = *beta_ptr;
 
   // pn over the tile plus 2: zero off the live band and beyond the edges.
-  // Rows row0 - 2 .. row0 + kTileH + 1 lie inside the canvas (halo >= 2).
+  // Rows row0 - 2 .. row0 + kTileH + 1 lie inside the canvas (halo >= 2),
+  // and so does the band (the wrapper checks halo - 2 <= lo, hi <= rows -
+  // halo + 2).
   for (int i = tid; i < kPh * kPw; i += kThreads) {
     const int lr = i / kPw, lc = i % kPw;
     const int row = row0 - 2 + lr, col = col0 - 2 + lc;
     float v = 0.0f;
-    if (row >= halo && row < rows - halo && col >= 0 && col < cols) {
+    if (row >= lo && row < hi && col >= 0 && col < cols) {
       const long long k = static_cast<long long>(row) * cols + col;
       v = __fadd_rn(r[k], __fmul_rn(beta, pprev[k]));
     }
     s_pn[lr][lc] = v;
   }
-  // r over the tile plus 1, as stored (its guard rows hold zeros).
+  // r over the tile plus 1, as stored (guard rows hold zeros, a shard's
+  // halo rows its neighbours' values).
   for (int i = tid; i < kTh * kTw; i += kThreads) {
     const int lr = i / kTw, lc = i % kTw;
     const int row = row0 - 1 + lr, col = col0 - 1 + lc;
@@ -178,6 +200,11 @@ basis_sweep_kernel(const float* __restrict__ beta_ptr,
       __fmul_rn(__fmul_rn(rc, a), w2),       // wrt
       __fmul_rn(__fmul_rn(a, a), w2),        // wtt
   };
+  if (kMasked) {
+    const float m = colmask[col];
+#pragma unroll
+    for (int j = 0; j < kGram / 2; ++j) v[j] = __fmul_rn(v[j], m);
+  }
   const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
   for (int j = 0; j < kGram; ++j) {
@@ -200,19 +227,18 @@ basis_sweep_kernel(const float* __restrict__ beta_ptr,
 //   x' = x + c_p pn + a2 r - a2a1 t1
 //   p1 = pn if only1 != 0 (the pair applied its first step only, so pn is
 //        the next direction material), else r - alpha1 t1 + beta1 pn
-// one partial of sum(r'^2) per block.
-__global__ void __launch_bounds__(kThreads)
-pair_update_kernel(const float* __restrict__ coefs,
-                   const float* __restrict__ pn,
-                   const float* __restrict__ t1,
-                   const float* __restrict__ t2,
-                   const float* __restrict__ t3, float* __restrict__ x,
-                   float* __restrict__ r, float* __restrict__ p1,
-                   float* __restrict__ rr_part, int cols, int halo) {
-  __shared__ float slots[kWarps];
-  const long long i = static_cast<long long>(halo) * cols
-                      + static_cast<long long>(blockIdx.x) * kThreads
+// one partial of sum(r'^2) per block, each r'^2 multiplied by colmask[col]
+// first when kMasked.
+template <bool kMasked>
+__device__ __forceinline__ void pair_update_body(
+    const float* __restrict__ coefs, const float* __restrict__ pn,
+    const float* __restrict__ t1, const float* __restrict__ t2,
+    const float* __restrict__ t3, const float* __restrict__ colmask,
+    float* __restrict__ x, float* __restrict__ r, float* __restrict__ p1,
+    float* __restrict__ rr_part, int cols, int halo, float* slots) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads
                       + threadIdx.x;
+  const long long i = static_cast<long long>(halo) * cols + t;
   const float c_p = coefs[0], a2 = coefs[1], a2a1 = coefs[2];
   const float alpha1 = coefs[3], beta1 = coefs[4];
   const bool only1 = coefs[5] != 0.0f;
@@ -230,16 +256,83 @@ pair_update_kernel(const float* __restrict__ coefs,
   r[i] = rn;
   p1[i] = pv1;
 
-  const float s = warp_sum(__fmul_rn(rn, rn));
+  float rr = __fmul_rn(rn, rn);
+  if (kMasked) rr = __fmul_rn(rr, colmask[t % cols]);
+  const float s = warp_sum(rr);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) slots[warp] = s;
   __syncthreads();
   if (threadIdx.x == 0) {
-    float t = slots[0];
+    float sum = slots[0];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, slots[w]);
-    rr_part[blockIdx.x] = t;
+    for (int w = 1; w < kWarps; ++w) sum = __fadd_rn(sum, slots[w]);
+    rr_part[blockIdx.x] = sum;
   }
+}
+
+// The single-device forms and the sharded (masked) forms are separate
+// kernels with names neither of which contains the other, so a profiler
+// trace tells them apart by name.
+__global__ void __launch_bounds__(kThreads)
+basis_sweep_kernel(const float* __restrict__ beta,
+                   const float* __restrict__ pprev,
+                   const float* __restrict__ r,
+                   const float* __restrict__ cs,
+                   const float* __restrict__ cw,
+                   const float* __restrict__ g,
+                   const float* __restrict__ sc2, float* __restrict__ pn,
+                   float* __restrict__ t1, float* __restrict__ t2,
+                   float* __restrict__ t3, float* __restrict__ gram,
+                   int cols, int halo, int lo, int hi) {
+  __shared__ BasisShared sh;
+  basis_sweep_body<false>(beta, pprev, r, cs, cw, g, sc2, nullptr, pn, t1,
+                          t2, t3, gram, cols, halo, lo, hi, sh);
+}
+
+__global__ void __launch_bounds__(kThreads)
+basis_sweep_sharded(const float* __restrict__ beta,
+                    const float* __restrict__ pprev,
+                    const float* __restrict__ r,
+                    const float* __restrict__ cs,
+                    const float* __restrict__ cw,
+                    const float* __restrict__ g,
+                    const float* __restrict__ sc2,
+                    const float* __restrict__ colmask,
+                    float* __restrict__ pn, float* __restrict__ t1,
+                    float* __restrict__ t2, float* __restrict__ t3,
+                    float* __restrict__ gram, int cols, int halo, int lo,
+                    int hi) {
+  __shared__ BasisShared sh;
+  basis_sweep_body<true>(beta, pprev, r, cs, cw, g, sc2, colmask, pn, t1,
+                         t2, t3, gram, cols, halo, lo, hi, sh);
+}
+
+__global__ void __launch_bounds__(kThreads)
+pair_update_kernel(const float* __restrict__ coefs,
+                   const float* __restrict__ pn,
+                   const float* __restrict__ t1,
+                   const float* __restrict__ t2,
+                   const float* __restrict__ t3, float* __restrict__ x,
+                   float* __restrict__ r, float* __restrict__ p1,
+                   float* __restrict__ rr_part, int cols, int halo) {
+  __shared__ float slots[kWarps];
+  pair_update_body<false>(coefs, pn, t1, t2, t3, nullptr, x, r, p1, rr_part,
+                          cols, halo, slots);
+}
+
+__global__ void __launch_bounds__(kThreads)
+pair_update_sharded(const float* __restrict__ coefs,
+                    const float* __restrict__ pn,
+                    const float* __restrict__ t1,
+                    const float* __restrict__ t2,
+                    const float* __restrict__ t3,
+                    const float* __restrict__ colmask,
+                    float* __restrict__ x, float* __restrict__ r,
+                    float* __restrict__ p1, float* __restrict__ rr_part,
+                    int cols, int halo) {
+  __shared__ float slots[kWarps];
+  pair_update_body<true>(coefs, pn, t1, t2, t3, colmask, x, r, p1, rr_part,
+                         cols, halo, slots);
 }
 
 }  // namespace
@@ -259,29 +352,42 @@ const char* ca_cg_error_string(int code) {
 
 // Each entry launches one kernel on `stream` (PyTorch's current stream of
 // `device`) and returns cudaGetLastError(): a launch the runtime refused
-// never runs, and a later synchronise would not report it.
+// never runs, and a later synchronise would not report it. A null `colmask`
+// launches the single-device form, any other the sharded (masked) form.
 int ca_cg_basis_sweep(const float* beta, const float* pprev, const float* r,
                       const float* cs, const float* cw, const float* g,
-                      const float* sc2, float* pn, float* t1, float* t2,
-                      float* t3, float* gram, int rows, int cols, int halo,
-                      int device, cudaStream_t stream) {
+                      const float* sc2, const float* colmask, float* pn,
+                      float* t1, float* t2, float* t3, float* gram, int rows,
+                      int cols, int halo, int lo, int hi, int device,
+                      cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(cols / kTileW, (rows - 2 * halo) / kTileH);
-  basis_sweep_kernel<<<grid, kThreads, 0, stream>>>(
-      beta, pprev, r, cs, cw, g, sc2, pn, t1, t2, t3, gram, rows, cols,
-      halo);
+  if (colmask == nullptr) {
+    basis_sweep_kernel<<<grid, kThreads, 0, stream>>>(
+        beta, pprev, r, cs, cw, g, sc2, pn, t1, t2, t3, gram, cols, halo, lo,
+        hi);
+  } else {
+    basis_sweep_sharded<<<grid, kThreads, 0, stream>>>(
+        beta, pprev, r, cs, cw, g, sc2, colmask, pn, t1, t2, t3, gram, cols,
+        halo, lo, hi);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 int ca_cg_pair_update(const float* coefs, const float* pn, const float* t1,
-                      const float* t2, const float* t3, float* x, float* r,
-                      float* p1, float* rr_part, int cols, int halo,
-                      int blocks, int device, cudaStream_t stream) {
+                      const float* t2, const float* t3, const float* colmask,
+                      float* x, float* r, float* p1, float* rr_part, int cols,
+                      int halo, int blocks, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pair_update_kernel<<<blocks, kThreads, 0, stream>>>(
-      coefs, pn, t1, t2, t3, x, r, p1, rr_part, cols, halo);
+  if (colmask == nullptr) {
+    pair_update_kernel<<<blocks, kThreads, 0, stream>>>(
+        coefs, pn, t1, t2, t3, x, r, p1, rr_part, cols, halo);
+  } else {
+    pair_update_sharded<<<blocks, kThreads, 0, stream>>>(
+        coefs, pn, t1, t2, t3, colmask, x, r, p1, rr_part, cols, halo);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,10 +36,10 @@
 //
 // Bound on the H100: at the grids admitted, operations and syncs. The
 // function must read 5 canvases and write 1 (6 MB at 400 x 600, 1.8 us at
-// 3.35 TB/s) but does 34 flops per band point per iteration, kernels A's
-// and B's (71 us of fp32 at 67 TFLOP/s for the 546-iteration 400 x 600
-// solve); a streaming solver would move 14 canvases per iteration (4.3 us
-// each at the HBM rate).
+// 3.35 TB/s) but needs 26 flops per band point per iteration, kernel A's
+// 17 and kernel B's 9 (54.24 us of fp32 at 67 TFLOP/s for the 546-iteration
+// 400 x 600 solve); a streaming solver would move 14 canvases per iteration
+// (4.3 us each at the HBM rate).
 // The design keeps all of it on the card: one launch per solve, no host in
 // the loop, the working set in L2, two grid syncs per iteration. Keeping
 // the state in shared memory across SMs is later work.

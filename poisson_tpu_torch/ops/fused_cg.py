@@ -28,7 +28,10 @@ and below; global column j at canvas column j, columns padded to a multiple
 of 128 (which also keeps every row 512-byte aligned for coalesced loads).
 The strip height ``bm`` is a TPU VMEM notion that the GPU kernels ignore:
 the canvas is one strip, as in ``pallas_resident.resident_canvas``.
-Everything outside the interior is zero, so the kernels need no masks.
+Everything outside the interior is zero, so the kernels need no masks. A
+shard's canvas holds its neighbours' values around the points it owns; the
+sharded solve (``parallel.fused_sharded``) calls each kernel's sharded form,
+with a live band widened past the centre rows and a column mask on the sums.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors, and counts the
 launch in its ``launches`` attribute; for CPU tensors, and only for them, it
@@ -200,39 +203,65 @@ def _block_partials(x):
     return x.reshape(-1, BLOCK).sum(dim=1)
 
 
-def direction_and_stencil_plain(cv: Canvas, beta, z, p, cs, cw, g, pn, ap):
-    """Kernel A's plain version: writes the band rows of ``pn`` and ``ap``
-    and returns the per-block partials of ⟨Ap, pn⟩.
+def live_band(cv: Canvas, band, widen: int) -> tuple[int, int]:
+    """The rows [lo, hi) on which the direction is formed: the centre rows
+    by default; a shard widens them by up to ``widen`` rows on each side
+    (kernel A by 1, kernel C by 2). Anything else raises."""
+    lo, hi = (HALO, cv.rows - HALO) if band is None else (int(band[0]),
+                                                           int(band[1]))
+    if not (HALO - widen <= lo <= HALO
+            and cv.rows - HALO <= hi <= cv.rows - HALO + widen):
+        raise ValueError(f"band {(lo, hi)} must hold the centre rows "
+                         f"[{HALO}, {cv.rows - HALO}) and reach at most "
+                         f"{widen} row(s) past them")
+    return lo, hi
 
-    The new direction is formed on the live band only and framed by one
-    ring of zeros, which is what the neighbours off the band and beyond
-    the canvas edge read (zero rows off the band, zero columns shifted in,
-    no wraparound)."""
-    band = slice(HALO, cv.rows - HALO)
+
+def direction_and_stencil_plain(cv: Canvas, beta, z, p, cs, cw, g, pn, ap,
+                                band=None, colmask=None):
+    """Kernel A's plain version: writes ``pn`` on the live band and ``ap`` on
+    the centre rows, and returns the per-block partials of ⟨Ap, pn⟩, each
+    product multiplied by ``colmask`` first when one is given.
+
+    The new direction is formed on the live band and framed by zeros, which
+    is what the neighbours off the band and beyond the canvas edge read
+    (zero rows off the band, zero columns shifted in, no wraparound). A
+    shard's band reaches one row past the centre on each side: the
+    direction there is its neighbour's edge row, which it stores into pn's
+    halo rows for the next iteration (:func:`direction_and_stencil`)."""
+    lo, hi = live_band(cv, band, 1)
+    centre = slice(HALO, cv.rows - HALO)
     north = slice(HALO + 1, cv.rows - HALO + 1)
-    c = z[band] + beta * p[band]
-    ring = F.pad(c, (1, 1, 1, 1))
-    cw_c = cw[band]
+    live = z[lo:hi] + beta * p[lo:hi]
+    framed = z.new_zeros((cv.rows - 2 * HALO + 2, cv.cols))
+    framed[lo - HALO + 1 : hi - HALO + 1] = live
+    ring = F.pad(framed, (1, 1))
+    c = ring[1:-1, 1:-1]
+    cw_c = cw[centre]
     a = (
         cs[north] * (c - ring[2:, 1:-1])
-        + cs[band] * (c - ring[:-2, 1:-1])
+        + cs[centre] * (c - ring[:-2, 1:-1])
         + _shift_col_plus(cw_c) * (c - ring[1:-1, 2:])
         + cw_c * (c - ring[1:-1, :-2])
-        + g[band] * c
+        + g[centre] * c
     )
-    pn[band] = c
-    ap[band] = a
-    return _block_partials(a * c)
+    pn[lo:hi] = live
+    ap[centre] = a
+    prod = a * c
+    return _block_partials(prod if colmask is None else prod * colmask)
 
 
-def fused_update_plain(cv: Canvas, alpha, p, ap, sc2, w, r):
-    """Kernel B's plain version: updates the band of ``w`` and ``r`` in
-    place and returns the per-block partials of Σ p²·sc² and Σ r_new²."""
+def fused_update_plain(cv: Canvas, alpha, p, ap, sc2, w, r, colmask=None):
+    """Kernel B's plain version: updates the centre rows of ``w`` and ``r``
+    in place and returns the per-block partials of Σ p²·sc² and Σ r_new²
+    (each r_new² multiplied by ``colmask`` first when one is given)."""
     band = slice(HALO, cv.rows - HALO)
     pb, r_new = p[band], r[band]
     r_new -= alpha * ap[band]
     w[band] += alpha * pb
-    return _block_partials(pb * pb * sc2[band]), _block_partials(r_new * r_new)
+    rr = r_new * r_new
+    return (_block_partials(pb * pb * sc2[band]),
+            _block_partials(rr if colmask is None else rr * colmask))
 
 
 def _check_operands(cv: Canvas, canvases: dict, scalar=None,
@@ -265,6 +294,26 @@ def _check_operands(cv: Canvas, canvases: dict, scalar=None,
     return dev
 
 
+def check_colmask(cv: Canvas, colmask, dev: torch.device):
+    """A column mask is a contiguous fp32 (1, cols) tensor on ``dev``."""
+    if colmask is not None and (colmask.dtype != torch.float32
+                                or tuple(colmask.shape) != (1, cv.cols)
+                                or not colmask.is_contiguous()
+                                or colmask.device != dev):
+        raise ValueError(f"colmask must be a contiguous fp32 (1, {cv.cols}) "
+                         f"tensor on {dev}")
+    return None if colmask is None else colmask.data_ptr()
+
+
+def count_launch(wrapper, colmask) -> None:
+    """One launch of ``wrapper``'s single-device form, or of its sharded
+    (masked) form when a column mask was given."""
+    if colmask is None:
+        wrapper.launches += 1
+    else:
+        wrapper.sharded_launches += 1
+
+
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -282,47 +331,67 @@ def _kernels():
     return kernels
 
 
-def direction_and_stencil(cv: Canvas, beta, z, p, cs, cw, g, out=None):
+def direction_and_stencil(cv: Canvas, beta, z, p, cs, cw, g, out=None,
+                          band=None, colmask=None):
     """Kernel A: returns (pn, Ap, partials of ⟨Ap, pn⟩), one sweep.
 
     ``out=(pn, ap)`` names the output canvases; they must not alias each
     other, ``p`` or ``z`` (neighbouring threads read p and z while pn is
-    written) and their guard
-    rows must be zero — the kernel writes only the live band. Without
-    ``out`` they are allocated zeroed."""
+    written) and their guard rows must be zero — the kernel writes only
+    the live band of pn and the centre rows of Ap. Without ``out`` they are
+    allocated zeroed.
+
+    The sharded form (``parallel.fused_sharded``), chosen by ``colmask``, a
+    (1, cols) fp32 tensor that multiplies each ⟨Ap, pn⟩ product before it
+    is summed, and counted in ``sharded_launches``: ``band`` may widen the
+    live band by one row on each side, so the direction is formed on the
+    shard's halo rows too and stored there. A widened band without a mask
+    raises."""
     pn, ap = out if out is not None else (torch.zeros_like(z),
                                           torch.zeros_like(z))
     dev = _check_operands(cv, dict(z=z, p=p, cs=cs, cw=cw, g=g, pn=pn,
                                    ap=ap), beta)
+    lo, hi = live_band(cv, band, 1)
+    mask_ptr = check_colmask(cv, colmask, dev)
+    if colmask is None and (lo, hi) != (HALO, cv.rows - HALO):
+        raise ValueError("a band past the centre rows is the sharded form: "
+                         "it takes a colmask")
     outs = {pn.data_ptr(), ap.data_ptr()}
     if len(outs) < 2 or outs & {p.data_ptr(), z.data_ptr()}:
         raise ValueError("pn and ap must not alias each other, p or z")
     if dev.type == "cpu":
-        part = direction_and_stencil_plain(cv, beta, z, p, cs, cw, g, pn, ap)
+        part = direction_and_stencil_plain(cv, beta, z, p, cs, cw, g, pn, ap,
+                                           (lo, hi), colmask)
         return pn, ap, part
     kernels = _kernels()
     blocks = n_partials(cv)
     part = torch.empty(blocks, dtype=torch.float32, device=dev)
     code = kernels.lib.fused_cg_direction_stencil(
         beta.data_ptr(), z.data_ptr(), p.data_ptr(), cs.data_ptr(),
-        cw.data_ptr(), g.data_ptr(), pn.data_ptr(), ap.data_ptr(),
-        part.data_ptr(), cv.rows, cv.cols, HALO, blocks, dev.index or 0,
-        _stream(dev),
+        cw.data_ptr(), g.data_ptr(), mask_ptr, pn.data_ptr(), ap.data_ptr(),
+        part.data_ptr(), cv.rows, cv.cols, HALO, lo, hi, blocks,
+        dev.index or 0, _stream(dev),
     )
     check(kernels, code, "direction_stencil launch")
-    direction_and_stencil.launches += 1
+    count_launch(direction_and_stencil, colmask)
     return pn, ap, part
 
 
 direction_and_stencil.launches = 0
+direction_and_stencil.sharded_launches = 0
 
 
-def fused_update(cv: Canvas, alpha, p, ap, sc2, w, r):
+def fused_update(cv: Canvas, alpha, p, ap, sc2, w, r, colmask=None):
     """Kernel B: w ← w + α·p and r ← r − α·Ap in place; returns
-    (w, r, partials of Σ p²·sc², partials of Σ r²), one sweep."""
+    (w, r, partials of Σ p²·sc², partials of Σ r²), one sweep. ``colmask``
+    (the sharded form, counted in ``sharded_launches``) multiplies each r²
+    before it is summed; Σ p²·sc² needs none, since a shard's sc² is zero
+    outside the points it owns."""
     dev = _check_operands(cv, dict(p=p, ap=ap, sc2=sc2, w=w, r=r), alpha)
+    mask_ptr = check_colmask(cv, colmask, dev)
     if dev.type == "cpu":
-        diff_part, zr_part = fused_update_plain(cv, alpha, p, ap, sc2, w, r)
+        diff_part, zr_part = fused_update_plain(cv, alpha, p, ap, sc2, w, r,
+                                                colmask)
         return w, r, diff_part, zr_part
     kernels = _kernels()
     blocks = n_partials(cv)
@@ -330,26 +399,34 @@ def fused_update(cv: Canvas, alpha, p, ap, sc2, w, r):
     zr_part = torch.empty(blocks, dtype=torch.float32, device=dev)
     code = kernels.lib.fused_cg_update(
         alpha.data_ptr(), p.data_ptr(), ap.data_ptr(), sc2.data_ptr(),
-        w.data_ptr(), r.data_ptr(), diff_part.data_ptr(), zr_part.data_ptr(),
-        cv.cols, HALO, blocks, dev.index or 0, _stream(dev),
+        mask_ptr, w.data_ptr(), r.data_ptr(), diff_part.data_ptr(),
+        zr_part.data_ptr(), cv.cols, HALO, blocks, dev.index or 0,
+        _stream(dev),
     )
     check(kernels, code, "fused_update launch")
-    fused_update.launches += 1
+    count_launch(fused_update, colmask)
     return w, r, diff_part, zr_part
 
 
 fused_update.launches = 0
+fused_update.sharded_launches = 0
 
 KERNEL_WRAPPERS = (direction_and_stencil, fused_update)
 
 
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
+def reset_launch_counts(wrappers=KERNEL_WRAPPERS) -> None:
+    for fn in wrappers:
+        fn.launches = fn.sharded_launches = 0
 
 
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+def launch_counts(wrappers=KERNEL_WRAPPERS) -> dict:
+    """Launches of each wrapper's single-device form, by its name, and of
+    its sharded form, by its name with ``_sharded``."""
+    counts = {}
+    for fn in wrappers:
+        counts[fn.__name__] = fn.launches
+        counts[f"{fn.__name__}_sharded"] = fn.sharded_launches
+    return counts
 
 
 # --- the fused solve ----------------------------------------------------------

@@ -1,0 +1,347 @@
+"""The sharded fused solve: kernels A and B on every shard of a device mesh,
+halos copied between shard canvases, sums taken in mesh order (counterpart of
+the one-shot solve of ``poisson_tpu/parallel/pallas_sharded.py``).
+
+This is the reference's last stage, accelerator kernels per rank with halo
+exchange and all-reduced scalars (MPI+CUDA,
+``stage4-mpi+cuda/poisson_mpi_cuda_f.cu:688-983``), in the JAX package's
+design: the halo exchange moves from p to r. Kernel A forms the direction
+p ← z + β·p inside its stencil sweep, so a shard whose r and old p are fresh
+on its halo ring can form its neighbours' edge values of the new p itself,
+and β is the same on every shard. Kernel A's sharded form widens its live
+band by one row on each side and stores the direction there, which is the
+row its neighbour formed for its own edge, with the same two roundings; so
+p's halos stay fresh without ever being exchanged, provided r's halo ring
+is refreshed once per iteration (four slice copies per shard). Each
+iteration has three mesh-wide sums: ⟨Ap, p⟩, Σ p²·sc² and Σ r².
+
+Shard canvas layout (the JAX package's, with the owned rows rounded up to 8
+where JAX rounds them to its strip height; the port's canvas is one strip):
+
+  - the shard (ix, iy) owns m̂ interior rows × n̂ interior columns, with
+    m̂ = ⌈(M−1)/Px⌉ rounded up to a multiple of 8 and n̂ = ⌈(N−1)/Py⌉;
+  - canvas row HALO+li ↔ global grid row ix·m̂+1+li; canvas column lj ↔
+    global grid column iy·n̂+lj, so columns 0 and n̂+1 are the halo columns
+    (the CA layout, ``parallel.ca_sharded``, has a ring of 2);
+  - the halo columns lie inside the rows the kernels sum over, so their
+    sums take a (1, cols) column mask; the halo rows lie outside them;
+  - canvas columns past the halo (the padding to 128) are zero in every
+    coefficient canvas: on a shard they would otherwise hold a further
+    neighbour's data.
+
+Padded rows and columns have zero scaled coefficients and zero right-hand
+side, so p, Ap and r stay zero there through every sweep.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.ops.fused_cg import (
+    HALO,
+    LANE,
+    SUBLANE,
+    Canvas,
+    diagonal_residual_canvas,
+    direction_and_stencil,
+    fused_update,
+    scaled_stencil_fields,
+)
+from poisson_tpu_torch.parallel.halo import (
+    mesh_sum,
+    replicate,
+    shift_down,
+    shift_up,
+)
+from poisson_tpu_torch.parallel.mesh import X_AXIS, Y_AXIS, Mesh, block_size
+from poisson_tpu_torch.parallel.mesh import make_solver_mesh
+from poisson_tpu_torch.solvers.pcg import (
+    CHECK_EVERY,
+    PCGResult,
+    _DENOM_TOL,
+    drive,
+)
+
+
+class ShardSpec(NamedTuple):
+    """Static per-shard canvas geometry."""
+
+    cv: Canvas
+    m_blk: int   # owned interior rows per shard (a multiple of SUBLANE)
+    n_blk: int   # owned interior cols per shard
+    ring: int    # halo ring width: the first owned canvas column
+
+
+def shard_spec(problem: Problem, px: int, py: int, ring: int = 1
+               ) -> ShardSpec:
+    """The shard geometry of ``problem`` on a px × py mesh with a halo ring
+    of ``ring`` (1 for the fused solve, 2 for the CA solve)."""
+    n_blk = block_size(problem.N - 1, py)
+    if n_blk < ring:
+        raise ValueError(f"{problem.N - 1} interior columns over {py} shards "
+                         f"leave fewer than the {ring} a halo ring needs")
+    cols = ((n_blk + 2 * ring + LANE - 1) // LANE) * LANE
+    m_blk = -(-block_size(problem.M - 1, px) // SUBLANE) * SUBLANE
+    cv = Canvas(bm=m_blk, nb=1, rows=m_blk + 2 * HALO, cols=cols)
+    return ShardSpec(cv=cv, m_blk=m_blk, n_blk=n_blk, ring=ring)
+
+
+class ShardCanvases(NamedTuple):
+    """Per-shard canvases, each a tuple in mesh order (shard ix·py + iy).
+
+    cs, cw, g, rhs, sc2: (rows, cols); sc_int: (m̂, n̂), the scaling of the
+    owned points for extracting the solution; colmask: (1, cols), 1 on the
+    owned columns."""
+
+    cs: tuple
+    cw: tuple
+    g: tuple
+    rhs: tuple
+    sc2: tuple
+    sc_int: tuple
+    colmask: tuple
+
+
+def _stack(field, spec: ShardSpec, px: int, py: int) -> np.ndarray:
+    """The (px·py, rows, cols) shard canvases of a full-grid field: canvas
+    (row w, col c) of shard (ix, iy) holds grid point (ix·m̂ + w − HALO + 1,
+    iy·n̂ + c − ring + 1), zero off the grid, from canvas row HALO − ring
+    down; the columns past the halo ring are zero."""
+    cv, m_blk, n_blk, ring = spec
+    M1, N1 = field.shape
+    w0 = HALO - ring
+    height = (px - 1) * m_blk + 1 + cv.rows - w0
+    width = (py - 1) * n_blk + 1 + cv.cols
+    big = np.zeros((max(height, ring + M1), max(width, ring + N1)))
+    big[ring : ring + M1, ring : ring + N1] = field
+    out = np.zeros((px * py, cv.rows, cv.cols))
+    for ix in range(px):
+        for iy in range(py):
+            r0, c0 = ix * m_blk + 1, iy * n_blk + 1
+            out[ix * py + iy, w0:, :] = big[r0 : r0 + cv.rows - w0,
+                                            c0 : c0 + cv.cols]
+    out[:, :, n_blk + 2 * ring :] = 0.0
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def host_shard_canvases(problem: Problem, spec: ShardSpec, px: int, py: int):
+    """Host fp64 setup → stacked shard canvases (numpy): a dict of cs, cw,
+    g, rhs, sc2 of shape (px·py, rows, cols), sc_int (px·py, m̂, n̂) and
+    colmask (1, cols). The counterpart of ``pallas_sharded._shard_canvases``
+    (ring 1) and ``pallas_ca_sharded._ca_shard_canvases`` (ring 2).
+
+    rhs keeps its neighbours' values on the halo ring: that ring seeds r's
+    (and through p₀ = r₀, p's) halos at iteration 0. sc² is a weight of the
+    sums only and is zeroed outside the owned columns; the CA layout also
+    zeroes it outside the owned rows, as its JAX builder does (the fused
+    layout's halo rows of sc² lie outside every sum)."""
+    gcs, gcw, sc2_64, rhs64, sc64 = scaled_stencil_fields(problem)
+    ring, m_blk, n_blk = spec.ring, spec.m_blk, spec.n_blk
+    cs = _stack(gcs, spec, px, py)
+    cw = _stack(gcw, spec, px, py)
+    g = np.stack([diagonal_residual_canvas(cs[s], cw[s])
+                  for s in range(px * py)])
+    sc2 = _stack(sc2_64, spec, px, py)
+    sc2[:, :, :ring] = 0.0
+    sc2[:, :, ring + n_blk :] = 0.0
+    if ring > 1:
+        sc2[:, :HALO] = 0.0
+        sc2[:, HALO + m_blk :] = 0.0
+    sc_int = np.zeros((px * py, m_blk, n_blk))
+    for ix in range(px):
+        for iy in range(py):
+            blk = sc64[1 + ix * m_blk : 1 + (ix + 1) * m_blk,
+                       1 + iy * n_blk : 1 + (iy + 1) * n_blk]
+            sc_int[ix * py + iy, : blk.shape[0], : blk.shape[1]] = blk
+    colmask = np.zeros((1, spec.cv.cols))
+    colmask[0, ring : ring + n_blk] = 1.0
+    out = dict(cs=cs, cw=cw, g=g, rhs=_stack(rhs64, spec, px, py), sc2=sc2,
+               sc_int=sc_int, colmask=colmask)
+    for arr in out.values():
+        arr.flags.writeable = False
+    return out
+
+
+def to_shards(arrays: dict, devices) -> ShardCanvases:
+    """Stacked numpy canvases → per-shard fp32 tensors, shard s on
+    ``devices[s]``; the column mask goes to every shard's device."""
+    def split(x):
+        return tuple(torch.tensor(np.asarray(x[s]), dtype=torch.float32,
+                                  device=d) for s, d in enumerate(devices))
+
+    mask = np.asarray(arrays["colmask"])
+    return ShardCanvases(
+        *(split(arrays[k]) for k in ("cs", "cw", "g", "rhs", "sc2",
+                                     "sc_int")),
+        colmask=tuple(torch.tensor(mask, dtype=torch.float32, device=d)
+                      for d in devices))
+
+
+@functools.lru_cache(maxsize=8)
+def shard_canvases(problem: Problem, mesh: Mesh, ring: int = 1):
+    """(spec, canvases) of ``problem`` on ``mesh``, cached per (problem,
+    mesh, ring) and shared: callers must not write to them."""
+    spec = shard_spec(problem, mesh.px, mesh.py, ring)
+    host = host_shard_canvases(problem, spec, mesh.px, mesh.py)
+    return spec, to_shards(host, mesh.devices)
+
+
+def gated_rhs(canvases: ShardCanvases, rhs_gate) -> tuple:
+    """The shards' right-hand sides, multiplied by ``rhs_gate`` in fp32 if
+    one is given (1.0 leaves them bit for bit)."""
+    if rhs_gate is None:
+        return canvases.rhs
+    return tuple(x * torch.as_tensor(rhs_gate, dtype=x.dtype,
+                                     device=x.device) for x in canvases.rhs)
+
+
+def owned_sum_of_squares(problem: Problem, spec: ShardSpec, mesh: Mesh,
+                         canvases: ShardCanvases, rhs) -> torch.Tensor:
+    """Σ b̃² over the owned points, times h1·h2: ζ₀ of both sharded solves."""
+    lo, hi = HALO, HALO + spec.m_blk
+    parts = [(c[lo:hi] * c[lo:hi] * m).reshape(-1)
+             for c, m in zip(rhs, canvases.colmask)]
+    return mesh_sum(parts, mesh) * torch.tensor(
+        problem.h1 * problem.h2, dtype=torch.float32, device=mesh.lead)
+
+
+def gather_owned(problem: Problem, spec: ShardSpec, mesh: Mesh, canvases,
+                 sc_int) -> torch.Tensor:
+    """Each shard's owned points times its scaling → the full (M+1, N+1)
+    solution grid on the lead device (zero ring)."""
+    lo, hi = HALO, HALO + spec.m_blk
+    c0 = spec.ring
+    owned = [u[lo:hi, c0 : c0 + spec.n_blk] * s
+             for u, s in zip(canvases, sc_int)]
+    rows = [torch.cat([owned[ix * mesh.py + iy].to(mesh.lead)
+                       for iy in range(mesh.py)], dim=1)
+            for ix in range(mesh.px)]
+    w_int = torch.cat(rows, dim=0)
+    return F.pad(w_int[: problem.M - 1, : problem.N - 1], (1, 1, 1, 1))
+
+
+def exchange_r_halo(r, spec: ShardSpec, mesh: Mesh) -> None:
+    """Refresh the width-1 halo ring of every shard's r, in place: four
+    slice copies (the reference's four MPI messages, but of r, see the
+    module doc). Mesh-edge shards get zeros, the Dirichlet value."""
+    lo, hi = HALO, HALO + spec.m_blk
+    every = slice(None)
+    shift_down(r, mesh, X_AXIS, (hi - 1, every), (lo - 1, every))
+    shift_up(r, mesh, X_AXIS, (lo, every), (hi, every))
+    shift_down(r, mesh, Y_AXIS, (every, spec.n_blk), (every, 0))
+    shift_up(r, mesh, Y_AXIS, (every, 1), (every, spec.n_blk + 1))
+
+
+class _ShardedState(NamedTuple):
+    k: torch.Tensor      # iterations counted (0-d int32, lead device)
+    done: torch.Tensor   # converged or degenerate (0-d bool, lead device)
+    w: tuple             # per-shard canvases from here to ``ap``
+    r: tuple
+    p: tuple             # previous direction; β is applied at the top of A
+    spare: tuple         # the other half of p's ping-pong pair
+    ap: tuple
+    zr: torch.Tensor     # ζ = Σ r² · h1h2 over the owned points
+    beta: torch.Tensor
+    diff: torch.Tensor
+
+
+def _sharded_init(problem: Problem, spec: ShardSpec, mesh: Mesh,
+                  canvases: ShardCanvases, rhs) -> _ShardedState:
+    """w=0, r=b̃ (a copy, halo ring seeded by the rhs canvas), p=0 with β=0:
+    the first sweep forms p ← z + 0·p = r₀, halo rows included."""
+    lead = mesh.lead
+    f32 = dict(dtype=torch.float32, device=lead)
+    zeros = lambda: tuple(torch.zeros_like(x) for x in rhs)
+    return _ShardedState(
+        k=torch.zeros((), dtype=torch.int32, device=lead),
+        done=torch.zeros((), dtype=torch.bool, device=lead),
+        w=zeros(), r=tuple(x.clone() for x in rhs), p=zeros(),
+        spare=zeros(), ap=zeros(),
+        zr=owned_sum_of_squares(problem, spec, mesh, canvases, rhs),
+        beta=torch.zeros((), **f32),
+        diff=torch.full((), float("inf"), **f32),
+    )
+
+
+def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
+                       canvases: ShardCanvases):
+    """One sharded fused iteration as a state→state function
+    (``pallas_sharded._make_shard_body``). A done state is frozen, as in
+    ``ops.fused_cg._make_fused_body``: α is forced to 0, so w and r keep
+    their values (the halo exchange of an unchanged r changes nothing), and
+    k, ζ, β and diff keep theirs."""
+    cv = spec.cv
+    f = canvases
+    f32 = dict(dtype=torch.float32, device=mesh.lead)
+    h1h2 = torch.tensor(problem.h1 * problem.h2, **f32)
+    norm_w = h1h2 if problem.weighted_norm else torch.tensor(1.0, **f32)
+    delta = torch.tensor(problem.delta, **f32)
+    band = (HALO - 1, HALO + spec.m_blk + 1)   # owned rows + halo rows
+    shards = range(mesh.size)
+
+    def body(s: _ShardedState) -> _ShardedState:
+        betas = replicate(s.beta, mesh)
+        swept = [direction_and_stencil(cv, betas[i], s.r[i], s.p[i], f.cs[i],
+                                       f.cw[i], f.g[i],
+                                       out=(s.spare[i], s.ap[i]), band=band,
+                                       colmask=f.colmask[i])
+                 for i in shards]
+        denom = mesh_sum([part for _, _, part in swept], mesh) * h1h2
+        degenerate = torch.abs(denom) < _DENOM_TOL
+        alpha = torch.where(degenerate | s.done, 0.0,
+                            s.zr / torch.where(degenerate, 1.0, denom))
+        alphas = replicate(alpha, mesh)
+        updated = [fused_update(cv, alphas[i], swept[i][0], swept[i][1],
+                                f.sc2[i], s.w[i], s.r[i],
+                                colmask=f.colmask[i])
+                   for i in shards]
+        diff = torch.abs(alpha) * torch.sqrt(
+            mesh_sum([u[2] for u in updated], mesh) * norm_w)
+        zr_new = mesh_sum([u[3] for u in updated], mesh) * h1h2
+        exchange_r_halo(s.r, spec, mesh)
+        live = ~s.done
+        return _ShardedState(
+            k=s.k + live.to(torch.int32),
+            done=s.done | degenerate | (diff < delta),
+            w=s.w, r=s.r, p=tuple(pn for pn, _, _ in swept), spare=s.p,
+            ap=s.ap,
+            zr=torch.where(live, zr_new, s.zr),
+            beta=torch.where(
+                live, zr_new / torch.where(s.zr == 0.0, 1.0, s.zr), s.beta),
+            diff=torch.where(live, diff, s.diff),
+        )
+
+    return body
+
+
+def _sharded_solve(problem: Problem, spec: ShardSpec, mesh: Mesh,
+                   canvases: ShardCanvases, rhs,
+                   check_every: int = CHECK_EVERY) -> _ShardedState:
+    """The sharded fused solve on given shard canvases."""
+    body = _make_sharded_body(problem, spec, mesh, canvases)
+    s = _sharded_init(problem, spec, mesh, canvases, rhs)
+    return drive(body, s, problem.iteration_cap, check_every)
+
+
+def fused_cg_solve_sharded(problem: Problem, mesh: Mesh | None = None,
+                           rhs_gate=None,
+                           check_every: int = CHECK_EVERY) -> PCGResult:
+    """Sharded solve on the fused path (fp32, scaled system): the
+    counterpart of ``poisson_tpu.parallel.pallas_sharded
+    .pallas_cg_solve_sharded``. ``mesh`` defaults to every visible card
+    (:func:`~poisson_tpu_torch.parallel.mesh.make_solver_mesh`); a mesh of
+    CPU devices runs the kernels' plain versions. ``rhs_gate``, if given,
+    multiplies the right-hand side (1.0 leaves the solve bit-identical)."""
+    mesh = make_solver_mesh() if mesh is None else mesh
+    spec, canvases = shard_canvases(problem, mesh, 1)
+    s = _sharded_solve(problem, spec, mesh, canvases,
+                       gated_rhs(canvases, rhs_gate), check_every)
+    w = gather_owned(problem, spec, mesh, s.w, canvases.sc_int)
+    return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.zr)

@@ -88,6 +88,7 @@ class SolveReport:
     bytes_per_iter: Optional[int] = None
     achieved_gbps: Optional[float] = None
     stopped: Optional[str] = None
+    mesh: Optional[tuple[int, int]] = None   # (Px, Py) of a sharded solve
 
     def json_line(self) -> str:
         return json.dumps(dataclasses.asdict(self))
@@ -97,7 +98,9 @@ class SolveReport:
             f"M={self.M}, N={self.N} | Iter={self.iterations} "
             f"| Time={self.solve_seconds:.4f} s",
             f"  first solve: {self.first_solve_seconds:.2f} s   dtype: "
-            f"{self.dtype}   backend: {self.backend} [{self.device_kind}]",
+            f"{self.dtype}   backend: {self.backend} [{self.device_kind}]"
+            + (f"   mesh: {self.mesh[0]}x{self.mesh[1]}"
+               if self.mesh is not None else ""),
             f"  throughput: {self.mlups:.0f} MLUPS   "
             f"{self.us_per_iter:.1f} us/iter   final ||dw||: "
             f"{self.final_diff:.3e}"

@@ -246,7 +246,9 @@ def test_done_state_is_frozen():
 def test_cpu_solve_launches_no_kernel():
     ca_cg.reset_launch_counts()
     ca_cg.ca_cg_solve(Problem(M=24, N=24), device="cpu")
-    assert ca_cg.launch_counts() == {"basis_sweep": 0, "pair_update": 0}
+    assert ca_cg.launch_counts() == {"basis_sweep": 0, "pair_update": 0,
+                                     "basis_sweep_sharded": 0,
+                                     "pair_update_sharded": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
