@@ -15,12 +15,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every field (pn, Ap, w, r for A and B; pn, t1, t2, t3, x, r, p₁ for C
    and D; tolerance 1e-6, and 0 is expected, since the kernels repeat the
    plain arithmetic in the same order) and relative error of every partial
-   sum (tolerance 1e-5; only the summation order differs); and the sharded
+   sum (tolerance 1e-5; only the summation order differs); the sharded
    forms of A, B, C and D the same way, on shard 0 of both grids cut 2×2
    (canvas 416×640 and 1216×1664), with the live band widened past the
    shard's rows, the column mask, and inputs nonzero on the halo rows and
-   columns;
-4. six paths, each with every launch count set to 0 just before it and
+   columns; the column-blocked kernels A′ and B′ the same way on the
+   2400×3200 canvas with bn=1024 (ncb 4, 2448×4352) and on the wide
+   probe's auto-blocked canvas (1024×16384: bn 2048, ncb 9, 1136×18688),
+   and A and B on the wide probe's full-width canvas (1040×16512); kernel S
+   against its plain version, bit for bit, on the partials of A, B, C and
+   D at both grids in the serial mode's runs, on those of the sharded
+   forms in a shard's runs, and on those of A′ and B′ in a blocked tile's
+   runs; the blocked canvases' padding (points swept against the grid's
+   interior, which their bytes and bounds count);
+4. the paths, each with every launch count set to 0 just before it and
    read just after, all before any profiler session:
    - the fused path, ``fused_cg_solve`` (kernels A and B): a warm-up and
      three timed solves at 800×1200 and one at 2400×3200; 800×1200 must give
@@ -47,11 +55,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
      backend (kernels A and B) and the resident one (kernel R): relative
      scaled residual ≤ 1e-10, decreasing every pass, the first inner solve
      546 iterations;
+   - the column-blocked fused path, ``fused_cg_solve(bn=…)`` (kernels A′
+     and B′): 989 at 800×1200 with bn=256 (ncb 5), iterate within 1e-5 of
+     the fp64 solve, and 2449 ± 1 at 2400×3200 with bn=1024; A′ and B′
+     launched exactly once per step ``drive`` runs, A and B never;
+   - the serial-reduce mode (kernel S) at 800×1200 on the fused, blocked
+     (bn=256), CA, sharded fused and sharded CA paths (the last two on the
+     2×2 mesh), every count zeroed before each: 989 each, iterates within
+     1e-5 of the fp64 solve, the path's two field kernels launched exactly
+     once per driven step (× shards on the mesh), S exactly 2 times per
+     step (× shards) and nothing else; every other path launches S zero
+     times;
+   - the wide probe, 1024×16384 with δ = 1e-30 and 200 iterations, once on
+     the auto-blocked canvas (A′, B′) and once at full width (A, B): µs per
+     iteration of each, the host setup seconds of each canvas, and the
+     relative difference of the two iterates (≤ 1e-4);
+   - checkpoint drills at 800×1200 (``fused_cg_solve_checkpointed``,
+     ``ca_cg_solve_checkpointed``): chunks of 200 give 989 and the one-shot
+     iterate bit for bit; a run capped at 500 and resumed gives the same;
+     a blocked (bn=256) write resumed at full width and a CA write resumed
+     on the fused path give 989; every count zeroed before each solve and
+     its kernels launched exactly once per step its chunks drive; and the
+     seconds of one checkpoint write at 2400×3200;
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
-   by CUDA events), bytes and bounds, and a profile of one flagship solve on
-   the fused, CA, sharded fused and sharded CA paths;
-6. a ``kernels`` JSON line (nine kernels), then the ``ok`` JSON line last.
+   by CUDA events, and for kernel S ``torch.sum`` over the same partials
+   as its library yardstick), bytes and bounds, and a profile of one
+   flagship solve on the fused, blocked, CA, sharded fused and sharded CA
+   paths;
+6. a ``kernels`` JSON line (twelve kernels), then the ``ok`` JSON line last.
 
 Without a CUDA device, or run outside a checkout (no ``poisson_tpu_torch``
 beside it), it exits non-zero before printing any result.
@@ -59,11 +91,14 @@ beside it), it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -101,7 +136,11 @@ class Kernel(NamedTuple):
 # move a few rows past the band (``extra_rows``): A reads z and p on the two
 # halo rows and writes pn there (6) and reads the mask (1); C reads p_prev
 # and r on its four ring rows (8), cS on three rows past the centre and cW
-# and γ on two (7), and the mask (1); B and D read the mask (1).
+# and γ on two (7), and the mask (1); B and D read the mask (1). A′ and
+# B′ need A's and B's flops and bytes per content point. S adds each
+# partial once (its Kahan steps, four per run, are a few hundred
+# operations) and moves the partials and one sum per vector: its bytes are
+# given per launch (``nbytes``).
 KERNELS = {
     "direction_stencil": Kernel(
         "direction_and_stencil", "direction_stencil_kernel",
@@ -139,6 +178,18 @@ KERNELS = {
         "pair_update_sharded", "pair_update_sharded",
         "poisson_tpu_torch/ops/csrc/ca_cg.cu",
         "poisson_tpu/ops/pallas_ca.py:369", 19, 9, "800x1200-2x2", 1),
+    "direction_stencil_blocked": Kernel(
+        "direction_and_stencil_blocked", "blocked_stencil_kernel",
+        "poisson_tpu_torch/ops/csrc/blocked_cg.cu",
+        "poisson_tpu/ops/pallas_cg.py:702", 17, 7, "1024x16384"),
+    "fused_update_blocked": Kernel(
+        "fused_update_blocked", "blocked_update_kernel",
+        "poisson_tpu_torch/ops/csrc/blocked_cg.cu",
+        "poisson_tpu/ops/pallas_cg.py:770", 9, 7, "1024x16384"),
+    "serial_sum": Kernel(
+        "serial_sum", "serial_sum_kernel",
+        "poisson_tpu_torch/ops/csrc/serial_sum.cu",
+        "poisson_tpu/ops/pallas_cg.py:464", 1, 1),
 }
 GRIDS = [(800, 1200), (2400, 3200)]
 RESIDENT_GRIDS = [(40, 40, 50), (400, 600, 546), (800, 1200, 989)]
@@ -146,6 +197,15 @@ REPEATS = 3          # timed flagship solves after the warm-up; best reported
 SHARD_GRID = (2, 2)  # the sharded paths' mesh: four shards on one card
 SHARDED_EXPECTED = [(400, 600, 546, 0), (800, 1200, 989, 0),
                     (2400, 3200, 2449, 1)]   # (M, N, iterations, allowance)
+# The column-blocked path: (M, N, bn, iterations, allowance, timed solves).
+BLOCKED_EXPECTED = [(800, 1200, 256, 989, 0, REPEATS),
+                    (2400, 3200, 1024, 2449, 1, 1)]
+# The wide probe: the JAX package's big-grid probe shape, which its
+# layout rule column-blocks (bn 2048); 200 iterations that never converge.
+WIDE = dict(M=1024, N=16384, delta=1e-30, max_iter=200)
+WIDE_TOL = 1e-4      # blocked vs full-width iterate after 200 iterations
+CKPT_CHUNK = 200     # checkpoint drills: iterations per chunk
+CKPT_CAP = 500       # the capped run the drills resume
 
 
 def fail(message: str) -> None:
@@ -205,8 +265,9 @@ def named(name: str, symbol: str) -> bool:
                      name) is not None
 
 
-def kernel_device_ms(fn, reps: int, symbol: str):
-    """Device ms per launch of the kernel named ``symbol``, from the
+def kernel_device_ms(fn, reps: int, symbol: str | None):
+    """Device ms per launch of the kernel named ``symbol``, or with
+    ``symbol`` None per call of ``fn``, all its kernels together, from the
     profiler over ``reps`` calls; None if it saw no such kernel."""
     def burst():
         for _ in range(reps):
@@ -215,6 +276,8 @@ def kernel_device_ms(fn, reps: int, symbol: str):
     kernels, _ = profile_kernels(burst)
     if not kernels:
         return None
+    if symbol is None:
+        return sum(us for _, us in kernels.values()) / reps / 1e3
     hits = [(n, us) for name, (n, us) in kernels.items()
             if named(name, symbol)]
     if not hits:
@@ -232,20 +295,30 @@ def rel_err(got, want) -> float:
 
 
 def timer(results: dict, name: str, tag: str, run, plain, reps: int,
-          plain_reps: int, points: int, iterations: int = 1, cols: int = 0):
+          plain_reps: int, points: int, iterations: int = 1, cols: int = 0,
+          library=None, nbytes: int | None = None):
     """A function that times ``run`` (profiler device time per launch, CUDA
-    events as the fallback) and ``plain`` (CUDA events) and records them
-    with the bytes and bound of one launch over ``points`` band points
+    events as the fallback), ``plain`` and, where one PyTorch call computes
+    the same function, ``library`` (CUDA events), and records them with the
+    bytes and bound of one launch over ``points`` band points
     (``iterations`` sweeps of work for kernel R) and the kernel's extra rows
-    of ``cols`` columns."""
+    of ``cols`` columns, or ``nbytes`` where given. The library call's time
+    is its device time under the profiler, as the kernel's is."""
     kernel = KERNELS[name]
 
     def time_it() -> None:
         ev_ms = events_ms(run, reps)
         dev_ms = kernel_device_ms(run, reps, kernel.symbol)
         plain_ms = events_ms(plain, plain_reps)
-        nbytes = (kernel.passes * points + kernel.extra_rows * cols) * 4
-        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        library_ms = None
+        if library is not None:
+            library_ms = (kernel_device_ms(library, reps, None)
+                          or events_ms(library, reps))
+        if nbytes is None:
+            moved = (kernel.passes * points + kernel.extra_rows * cols) * 4
+        else:
+            moved = nbytes
+        bound_bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         bound_ops_ms = (kernel.flops * points * iterations
                         / FP32_FLOPS_PER_S * 1e3)
         results.setdefault(name, {})[tag] = rec = {
@@ -253,7 +326,8 @@ def timer(results: dict, name: str, tag: str, run, plain, reps: int,
             "timing": "profiler" if dev_ms is not None else "cuda_events",
             "events_ms": ev_ms,
             "plain_ms": plain_ms,
-            "bytes": nbytes,
+            "library_ms": library_ms,
+            "bytes": moved,
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                          else "operations"),
@@ -268,10 +342,26 @@ def record_err(errors: dict, name: str, err: float) -> None:
     errors[name] = max(errors.get(name, 0.0), err)
 
 
-def check_kernels(M: int, N: int, fc, ca, results: dict, errors: dict):
-    """Phase 3 at one grid: kernels A, B, C, D vs their plain versions.
-    Returns the functions that time them, which run after the main paths so
-    that no profiler session precedes the timed solves."""
+def check_serial(sr, tag: str, inputs: dict, errors: dict) -> None:
+    """Kernel S against its plain version on each of ``inputs`` (label →
+    (partials, run length)), bit for bit."""
+    for label, (parts, n) in inputs.items():
+        got, want = sr.serial_sum(parts, n), sr.serial_sum_plain(parts, n)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = float((got - want).abs().max())
+        print(f"kernel serial_sum {tag} on {label}'s partials (run {n}): "
+              f"bitwise={same} max_abs_err={err!r}", flush=True)
+        check(same, f"serial_sum {tag} on {label}'s partials: not bit for "
+                    f"bit with its plain version ({err})")
+        record_err(errors, "serial_sum", err)
+
+
+def check_kernels(M: int, N: int, fc, ca, sr, results: dict, errors: dict):
+    """Phase 3 at one grid: kernels A, B, C, D vs their plain versions, and
+    kernel S vs its plain version on their partials, in the serial mode's
+    runs. Returns the functions that time them, which run after the main
+    paths so that no profiler session precedes the timed solves."""
     from poisson_tpu_torch.config import Problem
 
     problem = Problem(M=M, N=N)
@@ -333,10 +423,29 @@ def check_kernels(M: int, N: int, fc, ca, results: dict, errors: dict):
         check(rel <= SUM_TOL, f"{name} {tag}: partial-sum error {rel}")
         record_err(errors, name, err)
 
+    # Kernel S on the partials of A (one vector), B (two rows of one
+    # buffer), C (twelve, strided) and D, in the runs of the serial mode:
+    # bit for bit with its plain version.
+    run, ca_run = fc.serial_run(cv, M - 1), ca.ca_run(problem, cv, True)
+    check_serial(sr, tag, {"A": (part_k, run), "B": ((d_k, z_k), run),
+                           "C": (c_k[4].T, ca_run), "D": (rr_k, ca_run)},
+                 errors)
+
     # Timers. Inputs stay resident between launches, as in the solve loops.
     c_out = tuple(torch.zeros_like(z) for _ in range(4))
     p1_out = torch.zeros_like(z)
+    gram_t = c_k[4].T
     return [
+        timer(results, "serial_sum", tag,
+              lambda: sr.serial_sum(part_k, run),
+              lambda: sr.serial_sum_plain(part_k, run), 200, 5,
+              part_k.numel(), nbytes=(part_k.numel() + 1) * 4,
+              library=lambda: torch.sum(part_k)),
+        timer(results, "serial_sum", f"{tag}-C",
+              lambda: sr.serial_sum(gram_t, ca_run),
+              lambda: sr.serial_sum_plain(gram_t, ca_run), 200, 5,
+              gram_t.numel(), nbytes=(gram_t.numel() + 12) * 4,
+              library=lambda: torch.sum(c_k[4], dim=0)),
         timer(results, "direction_stencil", tag,
               lambda: fc.direction_and_stencil(cv, beta, z, p, cs, cw, g,
                                                out=(pn_k, ap_k)),
@@ -363,13 +472,14 @@ def check_kernels(M: int, N: int, fc, ca, results: dict, errors: dict):
     ]
 
 
-def check_sharded_kernels(M: int, N: int, fc, ca, fs, mesh, results: dict,
-                          errors: dict):
+def check_sharded_kernels(M: int, N: int, fc, ca, fs, sr, mesh,
+                          results: dict, errors: dict):
     """Phase 3 for the sharded forms at one grid: kernels A and B on shard 0
     of the fused layout and C and D on shard 0 of the CA layout, on a 2×2
     mesh, with the widened bands, the column masks and inputs that are
     nonzero on every row and column (halo rows and columns included),
-    against their plain versions. Returns the functions that time them."""
+    against their plain versions, and kernel S on their partials in the
+    shard's runs. Returns the functions that time them."""
     from poisson_tpu_torch.config import Problem
 
     problem = Problem(M=M, N=N)
@@ -448,6 +558,12 @@ def check_sharded_kernels(M: int, N: int, fc, ca, fs, mesh, results: dict,
         check(err <= FIELD_TOL, f"{name} {tag}: max abs error {err}")
         check(rel <= SUM_TOL, f"{name} {tag}: partial-sum error {rel}")
         record_err(errors, name, err)
+    run = fs.shard_run(problem, spec, mesh, True)
+    crun = fs.shard_run(problem, cspec, mesh, True, ca.CA_BUFFERS)
+    check_serial(sr, tag, {"A sharded": (part_k, run),
+                           "B sharded": ((d_k, z_k), run),
+                           "C sharded": (c_k[4].T, crun),
+                           "D sharded": (rr_k, crun)}, errors)
 
     points, cpoints = spec.m_blk * cv.cols, cspec.m_blk * ccv.cols
     c_out = tuple(torch.zeros_like(rc) for _ in range(4))
@@ -481,6 +597,91 @@ def check_sharded_kernels(M: int, N: int, fc, ca, fs, mesh, results: dict,
     ]
 
 
+def check_sweeps(problem, bn, fc, sr, results: dict, errors: dict,
+                 setup: dict):
+    """Phase 3 for kernels A and B, or A′ and B′ on a column-blocked canvas
+    (``canvas_spec(problem, bn=bn)``): the wrappers against the plain
+    versions of the canvas's kernels, on seeded content, and kernel S on
+    their partials in the canvas's runs. Records the host seconds of the
+    canvases' first build in ``setup`` and returns the functions that time
+    the two kernels, whose bytes and bound count the grid's interior on a
+    blocked canvas (``fused_cg.sweep_points``): its padding is reported on a
+    line of its own."""
+    t0 = time.perf_counter()
+    cv, cs, cw, g, rhs, sc2, _ = fc.build_canvases(problem, "cuda", bn=bn)
+    torch.cuda.synchronize()
+    setup[(problem, bn)] = time.perf_counter() - t0
+    M, N = problem.M, problem.N
+    rng = np.random.default_rng(M + N)
+    blocked = bool(cv.cg)
+    names = (("direction_stencil_blocked", "fused_update_blocked") if blocked
+             else ("direction_stencil", "fused_update"))
+    a_plain = (fc.direction_and_stencil_blocked_plain if blocked
+               else fc.direction_and_stencil_plain)
+    b_plain = (fc.fused_update_blocked_plain if blocked
+               else fc.fused_update_plain)
+    tag = f"{M}x{N}" + (f"-bn{cv.bn}" if blocked and M != WIDE["M"] else "")
+
+    def content_random():
+        x = np.zeros((cv.rows, cv.cols), np.float32)
+        x[fc.HALO : fc.HALO + M - 1, cv.cg + 1 : cv.cg + N] = (
+            rng.standard_normal((M - 1, N - 1), dtype=np.float32))
+        return torch.tensor(x, device="cuda")
+
+    z, p, w0, r0 = (content_random() for _ in range(4))
+    beta = torch.tensor(0.37, dtype=torch.float32, device="cuda")
+    alpha = torch.tensor(0.21, dtype=torch.float32, device="cuda")
+    pn_k, ap_k, part_k = fc.direction_and_stencil(cv, beta, z, p, cs, cw, g)
+    pn_p, ap_p = torch.zeros_like(z), torch.zeros_like(z)
+    part_p = a_plain(cv, beta, z, p, cs, cw, g, pn_p, ap_p)
+    w_k, r_k, w_p, r_p = w0.clone(), r0.clone(), w0.clone(), r0.clone()
+    _, _, d_k, z_k = fc.fused_update(cv, alpha, pn_k, ap_k, sc2, w_k, r_k)
+    d_p, z_p = b_plain(cv, alpha, pn_k, ap_k, sc2, w_p, r_p)
+    torch.cuda.synchronize()
+
+    def max_err(pairs) -> float:
+        return max(float((a - b).abs().max()) for a, b in pairs)
+
+    checks = {
+        names[0]: (max_err([(pn_k, pn_p), (ap_k, ap_p)]),
+                   rel_err(part_k.double().sum(), part_p.double().sum())),
+        names[1]: (max_err([(w_k, w_p), (r_k, r_p)]),
+                   max(rel_err(d_k.double().sum(), d_p.double().sum()),
+                       rel_err(z_k.double().sum(), z_p.double().sum()))),
+    }
+    for name, (err, rel) in checks.items():
+        print(f"kernel {name} {tag} (canvas {cv.rows}x{cv.cols}, bn "
+              f"{cv.bn}, ncb {cv.ncb}): max_abs_err={err!r} (tol "
+              f"{FIELD_TOL}) partial_sum_rel_err={rel!r} (tol {SUM_TOL})",
+              flush=True)
+        check(err <= FIELD_TOL, f"{name} {tag}: max abs error {err}")
+        check(rel <= SUM_TOL, f"{name} {tag}: partial-sum error {rel}")
+        record_err(errors, name, err)
+    run = fc.serial_run(cv, M - 1)
+    check_serial(sr, f"{tag} (canvas {cv.rows}x{cv.cols})",
+                 {names[0]: (part_k, run), names[1]: ((d_k, z_k), run)},
+                 errors)
+
+    points = fc.sweep_points(problem, cv)
+    if blocked:
+        swept = (cv.rows - 2 * fc.HALO) * (cv.cols - 2 * cv.cg)
+        print(f"blocked padding {tag}: " + json.dumps({
+            "canvas": [cv.rows, cv.cols], "bn": cv.bn, "ncb": cv.ncb,
+            "swept_points": swept, "content_points": points,
+            "swept_over_content": swept / points}), flush=True)
+    return [
+        timer(results, names[0], tag,
+              lambda: fc.direction_and_stencil(cv, beta, z, p, cs, cw, g,
+                                               out=(pn_k, ap_k)),
+              lambda: a_plain(cv, beta, z, p, cs, cw, g, pn_p, ap_p),
+              100, 5, points),
+        timer(results, names[1], tag,
+              lambda: fc.fused_update(cv, alpha, pn_k, ap_k, sc2, w_k, r_k),
+              lambda: b_plain(cv, alpha, pn_k, ap_k, sc2, w_p, r_p),
+              100, 5, points),
+    ]
+
+
 def driven_steps(needed: int, cap: int, check_every: int) -> int:
     """Steps ``solvers.pcg.drive`` runs for a solve whose state is done
     after ``needed`` steps: up to the next read of ``done``, at most
@@ -488,8 +689,30 @@ def driven_steps(needed: int, cap: int, check_every: int) -> int:
     return min(cap, -(-needed // check_every) * check_every)
 
 
+def chunk_steps(start: int, done_at: int, cap: int, chunk: int,
+                check_every: int, per_step: int = 1) -> int:
+    """Steps ``drive`` runs over a chunked solve (``run_chunked``) from
+    iteration ``start`` that stops at ``done_at`` (its converged count, or
+    its cap): each chunk runs to min(k + chunk, cap) in steps of
+    ``per_step`` iterations (pairs on the CA path), or up to the first read
+    of ``done`` after ``done_at``."""
+    k, total = start, 0
+    while k < min(done_at, cap):
+        steps = -(-(min(k + chunk, cap) - k) // per_step)
+        ran = driven_steps(-(-(done_at - k) // per_step), steps, check_every)
+        total += ran
+        k = min(k + ran * per_step, done_at)
+    return total
+
+
 def single_counts(counts: dict) -> dict:
-    return {k: v for k, v in counts.items() if not k.endswith("_sharded")}
+    """The counts of the single-device full-width forms."""
+    return {k: v for k, v in counts.items()
+            if not k.endswith(("_sharded", "_blocked"))}
+
+
+def blocked_counts(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if k.endswith("_blocked")}
 
 
 def sharded_counts(counts: dict) -> dict:
@@ -515,6 +738,12 @@ def solve_line(name: str, problem, r, seconds: float, l2, extra=None):
 
 
 def main() -> None:
+    started = time.perf_counter()
+
+    def elapsed(phase: str) -> None:
+        print(f"elapsed after {phase}: "
+              f"{time.perf_counter() - started:.1f} s", flush=True)
+
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     root = os.path.dirname(os.path.abspath(__file__))
@@ -525,13 +754,30 @@ def main() -> None:
         from poisson_tpu_torch.ops import _build, ca_cg as ca
         from poisson_tpu_torch.ops import fused_cg as fc
         from poisson_tpu_torch.ops import resident as rs
+        from poisson_tpu_torch.ops import serial as sr
         from poisson_tpu_torch.parallel import ca_sharded as cs_
         from poisson_tpu_torch.parallel import fused_sharded as fs
         from poisson_tpu_torch.parallel.mesh import make_solver_mesh
+        from poisson_tpu_torch.solvers import checkpoint as ck
         from poisson_tpu_torch.solvers.pcg import CHECK_EVERY, pcg_solve
         from poisson_tpu_torch.solvers.refine import refined_solve
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout): {e}")
+    modules = (fc, ca, rs, sr)
+
+    def reset_counts() -> None:
+        for module in modules:
+            module.reset_launch_counts()
+
+    def expect_counts(path: str, want: dict) -> None:
+        """Every kernel launched exactly as often as ``want`` says since
+        the last ``reset_counts()``, and the kernels it leaves out never."""
+        got = {k: v for m in modules for k, v in m.launch_counts().items()}
+        print(f"launches on {path}: {json.dumps(got)}", flush=True)
+        for name, n in got.items():
+            check(n == want.get(name, 0), f"{path}: {name} launched {n} "
+                                          f"times, expected "
+                                          f"{want.get(name, 0)}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -560,17 +806,31 @@ def main() -> None:
     mesh = make_solver_mesh(["cuda:0"] * (SHARD_GRID[0] * SHARD_GRID[1]),
                             grid=SHARD_GRID)
     timers = [t for M, N in GRIDS
-              for t in check_kernels(M, N, fc, ca, results, errors)]
+              for t in check_kernels(M, N, fc, ca, sr, results, errors)]
     timers += [t for M, N in GRIDS
-               for t in check_sharded_kernels(M, N, fc, ca, fs, mesh,
+               for t in check_sharded_kernels(M, N, fc, ca, fs, sr, mesh,
                                               results, errors)]
+    # A′ and B′ on the 2400×3200 canvas with bn=1024 and on the wide
+    # probe's auto-blocked canvas; A and B on the wide probe's full width.
+    wide = Problem(**WIDE)
+    setup: dict = {}
+    for p, bn in ((Problem(M=2400, N=3200), 1024), (wide, None), (wide, 0)):
+        timers += check_sweeps(p, bn, fc, sr, results, errors, setup)
     counts: dict = {}
 
+    def no_serial(path: str) -> None:
+        """A path that is not in the serial-reduce mode launches no S."""
+        n = sr.launch_counts()["serial_sum"]
+        check(n == 0, f"{path}: kernel S launched {n} times outside the "
+                      "serial-reduce mode")
+
+    elapsed("kernels vs plain")
     # --- the fused path (kernels A, B). Counts zeroed just before, read
     # just after.
     big = Problem(M=2400, N=3200)
     fc.build_canvases(big, "cuda")          # set-up, outside the timed solve
     fc.reset_launch_counts()
+    sr.reset_launch_counts()
     fused = fc.fused_cg_solve(FLAGSHIP)     # warm-up solve
     flag_times = []
     for _ in range(REPEATS):
@@ -578,6 +838,9 @@ def main() -> None:
         flag_times.append(s)
     big_r, big_s = timed(lambda: fc.fused_cg_solve(big))
     counts.update(single_counts(fc.launch_counts()))
+    no_serial("fused")
+    check(not any(blocked_counts(fc.launch_counts()).values()),
+          "fused: a column-blocked kernel was launched at full width")
 
     iters = int(fused.iterations)
     diff = float(fused.diff)
@@ -612,6 +875,7 @@ def main() -> None:
     print(f"launches on the fused path: {json.dumps(fc.launch_counts())} "
           f"for {total_iters} iterations", flush=True)
 
+    elapsed("fused")
     # --- the resident path (kernel R): one launch per solve.
     fp64 = {FLAGSHIP: w64}
     for M, N, _ in RESIDENT_GRIDS:
@@ -620,6 +884,7 @@ def main() -> None:
         if p not in fp64:
             fp64[p] = pcg_solve(p, dtype=torch.float64, device="cuda")
     rs.reset_launch_counts()
+    sr.reset_launch_counts()
     res_runs = {}
     for M, N, _ in RESIDENT_GRIDS:
         p = Problem(M=M, N=N)
@@ -627,6 +892,7 @@ def main() -> None:
         res_runs[p] = [timed(lambda: rs.resident_cg_solve(p))
                        for _ in range(REPEATS)]
     counts.update(rs.launch_counts())
+    no_serial("resident")
     check(counts["resident_solve"] == (1 + REPEATS) * len(RESIDENT_GRIDS),
           f"resident_solve: {counts['resident_solve']} launches, expected "
           "one per solve")
@@ -664,9 +930,11 @@ def main() -> None:
     print(f"launches on the resident path: {json.dumps(rs.launch_counts())} "
           f"for {(1 + REPEATS) * len(RESIDENT_GRIDS)} solves", flush=True)
 
+    elapsed("resident")
     # --- the communication-avoiding path (kernels C, D).
     mid = Problem(M=400, N=600)
     ca.reset_launch_counts()
+    sr.reset_launch_counts()
     ca_runs = {}
     for p in (mid, FLAGSHIP):
         ca.ca_cg_solve(p)                              # warm-up
@@ -674,6 +942,7 @@ def main() -> None:
                       for _ in range(REPEATS)]
     ca_big, ca_big_s = timed(lambda: ca.ca_cg_solve(big))
     counts.update(single_counts(ca.launch_counts()))
+    no_serial("ca")
     pairs = 0
     for p, expected in ((mid, 546), (FLAGSHIP, 989)):
         r, s = min(ca_runs[p], key=lambda rs_: rs_[1])
@@ -708,6 +977,7 @@ def main() -> None:
     print(f"launches on the CA path: {json.dumps(ca.launch_counts())} for "
           f"{pairs} pairs", flush=True)
 
+    elapsed("ca")
     # --- the sharded paths on the 2×2 mesh of one card: kernels A and B's
     # sharded forms (fused-sharded), C and D's (ca-sharded). Counts zeroed
     # just before each path, read just after; each shard launches each form
@@ -723,6 +993,7 @@ def main() -> None:
             ("ca-sharded", ca, cs_.ca_cg_solve_sharded, cs_.RING, 2,
              ca.PASSES_PER_PAIR / 2)):
         module.reset_launch_counts()
+        sr.reset_launch_counts()
         steps = 0
         for M, N, expected, allowance in SHARDED_EXPECTED:
             p = Problem(M=M, N=N)
@@ -754,6 +1025,7 @@ def main() -> None:
             steps += (runs + (p != big)) * driven_steps(
                 -(-k // per_step), cap_steps, CHECK_EVERY)
         launched = module.launch_counts()
+        no_serial(path)
         print(f"launches on the {path} path: {json.dumps(launched)} for "
               f"{steps} steps on {shards} shards", flush=True)
         check(not any(single_counts(launched).values()),
@@ -781,14 +1053,17 @@ def main() -> None:
         print("sharded 2x1 across two cards: not run "
               f"({torch.cuda.device_count()} card visible)", flush=True)
 
+    elapsed("sharded")
     # --- mixed-precision refinement to the fp64 floor at 400×600, over the
     # fused backend (kernels A, B) and the resident one (kernel R, one
     # launch per inner solve). Its own counts, zeroed just before.
     for backend, module in (("fused", fc), ("resident", rs)):
         module.reset_launch_counts()
+        sr.reset_launch_counts()
         ref, ref_s = timed(lambda: refined_solve(mid, tol=REFINE_TOL,
                                                  backend=backend))
         launched = single_counts(module.launch_counts())
+        no_serial(f"refine {backend}")
         inner = list(ref.inner_iterations)
         norms = list(ref.residual_norms)
         print(f"refine {backend} 400x600: " + json.dumps({
@@ -807,13 +1082,208 @@ def main() -> None:
             check(n >= least, f"refine {backend}: {name} launched {n} "
                               f"times, fewer than {least}")
 
+    elapsed("refine")
+    # --- the column-blocked fused path (kernels A′, B′): A and B never run.
+    full = ("direction_and_stencil", "fused_update")
+    blk = ("direction_and_stencil_blocked", "fused_update_blocked")
+    cd = ("basis_sweep", "pair_update")
+    steps = 0
+    for M, N, bn, *_ in BLOCKED_EXPECTED:       # set-up, outside the timing
+        fc.build_canvases(Problem(M=M, N=N), "cuda", bn=bn)
+    reset_counts()
+    for M, N, bn, expected, allowance, runs in BLOCKED_EXPECTED:
+        p = Problem(M=M, N=N)
+        if runs > 1:
+            fc.fused_cg_solve(p, bn=bn)                 # warm-up
+        times = [timed(lambda: fc.fused_cg_solve(p, bn=bn))
+                 for _ in range(runs)]
+        r, sec = min(times, key=lambda rs_: rs_[1])
+        k = int(r.iterations)
+        check(abs(k - expected) <= allowance,
+              f"blocked {M}x{N} bn={bn}: {k} iterations, expected {expected}"
+              + (f" +- {allowance}" if allowance else ""))
+        check(float(r.diff) < 1e-6, f"blocked {M}x{N}: diff {float(r.diff)}")
+        cv = fc.canvas_spec(p, bn=bn)
+        extra = {"bn": bn, "ncb": cv.ncb, "canvas": [cv.rows, cv.cols],
+                 "seconds_each": [t for _, t in times]}
+        if p in fp64:
+            gap = float((r.w.double() - fp64[p].w).abs().max())
+            check(gap <= ITERATE_TOL,
+                  f"blocked {M}x{N}: iterate {gap} from the fp64 solve")
+            extra["max_diff_vs_fp64"] = gap
+        l2 = l2_error_host(p, r.w)
+        check(np.isfinite(l2), f"blocked {M}x{N}: non-finite iterate")
+        extra["achieved_gbps"] = (14 * fc.sweep_points(p, cv) * 4 * k / sec
+                                  / 1e9)
+        solve_line("blocked", p, r, sec, l2, extra)
+        steps += (runs + (runs > 1)) * driven_steps(k, p.iteration_cap,
+                                                    CHECK_EVERY)
+    expect_counts(f"the blocked path ({steps} steps)",
+                  {name: steps for name in blk})
+    counts.update({name: steps for name in blk})
+
+    elapsed("blocked")
+    # --- the serial-reduce mode (kernel S) at 800×1200 on five paths, every
+    # count zeroed just before each and checked exactly just after. S sums
+    # A's partials in one launch and B's two in another, per step and per
+    # shard; C's twelve and D's one per pair.
+    steps = driven_steps(989, FLAGSHIP.iteration_cap, CHECK_EVERY)
+    pair_steps = driven_steps(-(-989 // 2), (FLAGSHIP.iteration_cap + 1) // 2,
+                              CHECK_EVERY)
+    counts["serial_sum"] = 0
+    for path, solve, names, n in (
+            ("fused", lambda: fc.fused_cg_solve(FLAGSHIP, serial=True), full,
+             steps),
+            ("blocked bn=256", lambda: fc.fused_cg_solve(FLAGSHIP, bn=256,
+                                                         serial=True), blk,
+             steps),
+            ("ca", lambda: ca.ca_cg_solve(FLAGSHIP, serial=True), cd,
+             pair_steps),
+            ("fused-sharded", lambda: fs.fused_cg_solve_sharded(
+                FLAGSHIP, mesh, serial=True),
+             tuple(f"{k}_sharded" for k in full), shards * steps),
+            ("ca-sharded", lambda: cs_.ca_cg_solve_sharded(
+                FLAGSHIP, mesh, serial=True),
+             tuple(f"{k}_sharded" for k in cd), shards * pair_steps)):
+        reset_counts()
+        r, sec = timed(solve)
+        k = int(r.iterations)
+        check(k == 989, f"serial {path} 800x1200: {k} iterations")
+        check(float(r.diff) < 1e-6, f"serial {path}: diff {float(r.diff)}")
+        gap = float((r.w.double() - w64.w).abs().max())
+        check(gap <= ITERATE_TOL, f"serial {path}: iterate {gap} from fp64")
+        expect_counts(f"the serial {path} path",
+                      {**{name: n for name in names}, "serial_sum": 2 * n})
+        counts["serial_sum"] += 2 * n
+        solve_line(f"serial {path}", FLAGSHIP, r, sec,
+                   l2_error_host(FLAGSHIP, r.w),
+                   {"max_diff_vs_fp64": gap, "serial_sum_launches": 2 * n})
+
+    elapsed("serial")
+    # --- the wide probe: 200 iterations at 1024×16384 on the auto-blocked
+    # canvas (A′, B′) and at full width (A, B).
+    probe = {}
+    for label, bn in (("blocked", None), ("full-width", 0)):
+        cv = fc.canvas_spec(wide, bn=bn)
+        fc.build_canvases(wide, "cuda", bn=bn)     # set-up, outside the timing
+        fc.fused_cg_solve(wide, bn=bn)              # warm-up
+        reset_counts()
+        r, sec = timed(lambda: fc.fused_cg_solve(wide, bn=bn))
+        k = int(r.iterations)
+        check(k == WIDE["max_iter"], f"wide {label}: {k} iterations")
+        check(bool(torch.isfinite(r.w).all()), f"wide {label}: non-finite")
+        expect_counts(f"the wide probe {label}",
+                      {name: k for name in (blk if cv.cg else full)})
+        probe[label] = (r, {
+            "canvas": [cv.rows, cv.cols], "bn": cv.bn, "ncb": cv.ncb,
+            "seconds": sec, "us_per_iter": sec / k * 1e6,
+            "setup_s": setup[(wide, bn)]})
+    (wb, rec_b), (wf, rec_f) = probe["blocked"], probe["full-width"]
+    rel = float((wb.w - wf.w).abs().max() / wf.w.abs().max())
+    print("wide probe 1024x16384: " + json.dumps({
+        "blocked": rec_b, "full_width": rec_f,
+        "blocked_over_full_width": rec_b["us_per_iter"] / rec_f["us_per_iter"],
+        "iterate_rel_diff": rel}), flush=True)
+    check(rel <= WIDE_TOL, f"wide probe: iterates differ by {rel} relative")
+
+    elapsed("wide probe")
+    # --- checkpoint drills at 800×1200, in a directory of the checkout
+    # that is removed afterwards.
+    ckdir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=root)
+    try:
+        capped = dataclasses.replace(FLAGSHIP, max_iter=CKPT_CAP)
+
+        def path_of(name: str) -> str:
+            return os.path.join(ckdir, f"{name}.npz")
+
+        def counted(label: str, solve, problem, names, start: int = 0,
+                    per_step: int = 1):
+            """``solve(problem, path, chunk)`` with every count zeroed just
+            before it; each of ``names`` must be launched exactly once per
+            step its chunks drive from iteration ``start``, and nothing
+            else."""
+            reset_counts()
+            r = solve(problem, path_of(label.split()[0]), chunk=CKPT_CHUNK)
+            n = chunk_steps(start, int(r.iterations), problem.iteration_cap,
+                            CKPT_CHUNK, CHECK_EVERY, per_step)
+            expect_counts(f"drill {label}", {name: n for name in names})
+            return r
+
+        def capped_write(name: str, solve, names, per_step: int = 1) -> None:
+            part = counted(f"{name} write", solve, capped, names,
+                           per_step=per_step)
+            check(int(part.iterations) == CKPT_CAP
+                  and os.path.exists(path_of(name)),
+                  f"drill {name}: capped run gave {int(part.iterations)} "
+                  "iterations or left no file")
+
+        def resume(name: str):
+            return counted(f"{name} resume", fc.fused_cg_solve_checkpointed,
+                           FLAGSHIP, full, CKPT_CAP)
+
+        drills = {}
+        one = counted("chunks", fc.fused_cg_solve_checkpointed, FLAGSHIP,
+                      full)
+        drills["chunks"] = (one, torch.equal(one.w, fused.w))
+        capped_write("resume", fc.fused_cg_solve_checkpointed, full)
+        got = resume("resume")
+        drills["resume"] = (got, torch.equal(got.w, fused.w))
+        capped_write("blocked", lambda p, f, chunk:
+                     fc.fused_cg_solve_checkpointed(p, f, chunk, bn=256), blk)
+        drills["blocked_to_full_width"] = (resume("blocked"), None)
+        capped_write("ca", ca.ca_cg_solve_checkpointed, cd, per_step=2)
+        drills["ca_to_fused"] = (resume("ca"), None)
+        for name, (r, bitwise) in drills.items():
+            k = int(r.iterations)
+            gap = float((r.w.double() - w64.w).abs().max())
+            print(f"checkpoint drill {name} 800x1200: " + json.dumps({
+                "iterations": k, "bitwise_vs_one_shot": bitwise,
+                "max_diff_vs_fp64": gap}), flush=True)
+            check(k == 989, f"drill {name}: {k} iterations")
+            check(bitwise is not False,
+                  f"drill {name}: iterate differs from the one-shot solve")
+            check(gap <= ITERATE_TOL, f"drill {name}: iterate {gap} from fp64")
+        leftovers = sorted(f for f in os.listdir(ckdir)
+                           if f.split(".")[0] in ("chunks", "resume"))
+        check(not leftovers, f"converged drills left files: {leftovers}")
+        # One checkpoint write at 2400×3200: the device→host copy of the
+        # portable state and the sealed, atomic .npz write.
+        cv, *_, rhs, _, _ = fc.build_canvases(big, "cuda")
+        state = fc._fused_init(big, cv, rhs)
+        fp = ck._fingerprint(big, "float32", True)
+        writes = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save_state(path_of("big"), fc._fused_to_pcg_state(big, cv,
+                                                                  state), fp)
+            writes.append(time.perf_counter() - t0)
+        check(ck.load_state(path_of("big"), fp) is not None,
+              "2400x3200 checkpoint does not read back")
+        print("checkpoint write 2400x3200: " + json.dumps({
+            "seconds_each": writes,
+            "file_bytes": os.path.getsize(path_of("big"))}), flush=True)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    elapsed("checkpoint drills")
     for time_it in timers:
         time_it()
+
+    # A′ and B′ against A and B at the wide probe (device µs per launch).
+    wide_us = {name: results[name]["1024x16384"]["ms"] * 1e3
+               for name in ("direction_stencil", "fused_update",
+                            "direction_stencil_blocked",
+                            "fused_update_blocked")}
+    print(f"wide probe kernels 1024x16384 (device us per launch): "
+          f"{json.dumps(wide_us)}", flush=True)
 
     # Where one flagship solve's time goes: device time by kernel against
     # the host's wall clock (profiled, so the wall includes its overhead).
     for path, solve in (
-            ("fused", fc.fused_cg_solve), ("ca", ca.ca_cg_solve),
+            ("fused", fc.fused_cg_solve),
+            ("blocked", lambda p: fc.fused_cg_solve(p, bn=256)),
+            ("ca", ca.ca_cg_solve),
             ("fused-sharded", lambda p: fs.fused_cg_solve_sharded(p, mesh)),
             ("ca-sharded", lambda p: cs_.ca_cg_solve_sharded(p, mesh))):
         prof, prof_wall = profile_kernels(lambda: solve(FLAGSHIP))
@@ -831,6 +1301,7 @@ def main() -> None:
                             for k, (n, us) in top],
         }), flush=True)
 
+    elapsed("timers and profiles")
     line = []
     for name, kernel in KERNELS.items():
         rec = results[name]
@@ -844,7 +1315,7 @@ def main() -> None:
             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],
-            "library_ms": None,
+            "library_ms": main_rec["library_ms"],
             "timing": main_rec["timing"], "shape": tags[0],
         }
         for tag in tags[1:]:

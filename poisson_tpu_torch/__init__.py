@@ -9,12 +9,17 @@ tolerance. It imports ``torch`` and ``numpy``, never ``jax`` or
 - ``models``   — host fp64 setup: fictitious-domain coefficients, RHS,
                  analytic solution.
 - ``ops``      — the plain stencil operators (``stencil``); the fused
-                 two-sweep canvas iteration with its CUDA kernels A and B
+                 two-sweep canvas iteration with its CUDA kernels A and B,
+                 and A′ and B′ on the column-blocked canvas of wide grids
                  (``fused_cg``); the whole solve in one launch of kernel R
                  (``resident``); the communication-avoiding pair iteration
-                 with kernels C and D (``ca_cg``). Sources in ``ops/csrc``.
-- ``solvers``  — the plain PyTorch PCG solver (``solvers.pcg``) and
-                 mixed-precision refinement (``solvers.refine``).
+                 with kernels C and D (``ca_cg``); kernel S, the ordered
+                 and compensated sum of the serial-reduce mode
+                 (``serial``). Sources in ``ops/csrc``.
+- ``solvers``  — the plain PyTorch PCG solver (``solvers.pcg``),
+                 mixed-precision refinement (``solvers.refine``) and
+                 checkpointed, chunked solves in the JAX package's file
+                 format (``solvers.checkpoint``).
 - ``parallel`` — the device mesh, halo exchange and mesh-order sums, and
                  the sharded fused and CA solves, which run the kernels'
                  sharded (banded, masked) forms on every shard.
@@ -27,13 +32,20 @@ mesh of CPU devices for the sharded solves); without a card they raise.
 """
 
 from poisson_tpu_torch.config import FLAGSHIP, Problem
-from poisson_tpu_torch.ops.ca_cg import ca_cg_solve
-from poisson_tpu_torch.ops.fused_cg import fused_cg_solve
+from poisson_tpu_torch.ops.ca_cg import ca_cg_solve, ca_cg_solve_checkpointed
+from poisson_tpu_torch.ops.fused_cg import (
+    fused_cg_solve,
+    fused_cg_solve_checkpointed,
+)
 from poisson_tpu_torch.ops.resident import resident_cg_solve
 from poisson_tpu_torch.parallel import (
     ca_cg_solve_sharded,
     fused_cg_solve_sharded,
     make_solver_mesh,
+)
+from poisson_tpu_torch.solvers.checkpoint import (
+    pcg_solve_checkpointed,
+    pcg_solve_chunked,
 )
 from poisson_tpu_torch.solvers.pcg import PCGResult, pcg_solve
 from poisson_tpu_torch.solvers.refine import RefineResult, refined_solve
@@ -41,6 +53,8 @@ from poisson_tpu_torch.solvers.refine import RefineResult, refined_solve
 __version__ = "0.1.0"
 
 __all__ = ["FLAGSHIP", "Problem", "PCGResult", "RefineResult", "ca_cg_solve",
-           "ca_cg_solve_sharded", "fused_cg_solve", "fused_cg_solve_sharded",
-           "make_solver_mesh", "pcg_solve", "refined_solve",
+           "ca_cg_solve_checkpointed", "ca_cg_solve_sharded",
+           "fused_cg_solve", "fused_cg_solve_checkpointed",
+           "fused_cg_solve_sharded", "make_solver_mesh", "pcg_solve",
+           "pcg_solve_checkpointed", "pcg_solve_chunked", "refined_solve",
            "resident_cg_solve", "__version__"]

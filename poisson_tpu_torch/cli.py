@@ -14,6 +14,14 @@ fp64; for fp32 it picks ``fused-sharded`` when more than one card is
 visible or ``--mesh`` is given, and ``fused`` otherwise, as the JAX CLI
 picks its sharded and single-device fused paths
 (``poisson_tpu/cli.py:361-377``).
+
+``--bm``/``--bn`` choose the fused path's canvas (``--bn`` a column-blocked
+one, with kernels A′ and B′; a grid wide enough takes it on its own);
+``--serial-reduce`` sums the reduction partials of every fused backend with
+kernel S, in the JAX package's serial order; ``--checkpoint PATH`` runs the
+``torch``, ``fused`` or ``ca`` solve in chunks of ``--chunk`` iterations,
+saving its state to PATH after each and resuming from it, in the file
+format both packages read.
 """
 
 from __future__ import annotations
@@ -84,6 +92,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "near-square over the visible cards; one shard per "
                         "card on cuda, every shard on the CPU with "
                         "--device cpu)")
+    p.add_argument("--bm", type=int, default=None,
+                   help="strip height of the fused or ca canvas (a "
+                        "multiple of 8; default: one strip, or the JAX "
+                        "strip height on a column-blocked canvas)")
+    p.add_argument("--bn", type=int, default=None,
+                   help="fused backend: column-block width (a multiple of "
+                        "128), 0 forces full width; default: blocked only "
+                        "for very wide grids")
+    p.add_argument("--serial-reduce", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="fused, ca and the sharded backends: sum the "
+                        "reduction partials with kernel S, ordered and "
+                        "Kahan-compensated as the JAX package's serial "
+                        "kernels (default off)")
+    p.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="torch, fused and ca: save the solver state to PATH "
+                        "every --chunk iterations and resume from it; "
+                        "removed on convergence, kept on a cap-hit")
+    p.add_argument("--chunk", type=int, default=200,
+                   help="iterations per checkpoint chunk (default 200)")
+    p.add_argument("--keep-last", type=int, default=2,
+                   help="checkpoint generations kept (default 2)")
     p.add_argument("--json", action="store_true",
                    help="one JSON line instead of a table")
     return p
@@ -113,6 +143,39 @@ def pick_backend(backend: str, dtype: str, visible: int = 1,
         raise SystemExit(f"--mesh shards the fp32 sharded backends "
                          f"({', '.join(SHARDED_BACKENDS)}), not {backend}")
     return backend
+
+
+SERIAL_BACKENDS = ("fused", "ca", "fused-sharded", "ca-sharded")
+
+
+def check_flags(args, backend: str) -> None:
+    """Every geometry, reduction and checkpoint flag must reach the backend
+    that was picked, as in the JAX CLI (``poisson_tpu/cli.py:538-544,
+    2003-2045``); anything else raises."""
+    if args.bn is not None and backend != "fused":
+        raise SystemExit(f"--bn applies to the single-device fused backend "
+                         f"(resolved backend: {backend})")
+    if args.bm is not None and backend not in ("fused", "ca"):
+        raise SystemExit(f"--bm shapes the fused and ca canvases "
+                         f"(resolved backend: {backend})")
+    if args.serial_reduce is not None and backend not in SERIAL_BACKENDS:
+        raise SystemExit(f"--serial-reduce/--no-serial-reduce applies to the "
+                         f"fused backends ({', '.join(SERIAL_BACKENDS)}), "
+                         f"not {backend}")
+    if args.chunk < 1:
+        raise SystemExit(f"--chunk must be >= 1, got {args.chunk}")
+    if args.checkpoint is None:
+        return
+    if backend == "resident":
+        raise SystemExit(
+            "--backend resident runs the whole solve in one kernel launch; "
+            "there is no chunk boundary to checkpoint at — use --backend "
+            "fused (the portable format resumes across backends)")
+    if backend in SHARDED_BACKENDS:
+        raise SystemExit(
+            f"--backend {backend} has no checkpointed driver yet (ROADMAP "
+            "Queue 1 item 12); --backend fused, ca or torch resume the same "
+            "file")
 
 
 def build_mesh(args, visible: int):
@@ -159,12 +222,19 @@ def main(argv=None) -> int:
     visible = visible_devices(args.device)
     backend = pick_backend(args.backend, args.dtype, visible, args.mesh)
 
+    check_flags(args, backend)
+
     from poisson_tpu_torch.analysis import l2_error_host
-    from poisson_tpu_torch.ops.ca_cg import PASSES_PER_PAIR, ca_cg_solve
+    from poisson_tpu_torch.ops.ca_cg import (
+        PASSES_PER_PAIR,
+        ca_cg_solve,
+        ca_cg_solve_checkpointed,
+    )
     from poisson_tpu_torch.ops.fused_cg import (
-        HALO,
         canvas_spec,
         fused_cg_solve,
+        fused_cg_solve_checkpointed,
+        sweep_points,
     )
     from poisson_tpu_torch.ops.resident import (
         refuse_above_budget,
@@ -178,6 +248,7 @@ def main(argv=None) -> int:
         RING,
         ca_cg_solve_sharded,
     )
+    from poisson_tpu_torch.solvers.checkpoint import pcg_solve_checkpointed
     from poisson_tpu_torch.solvers.pcg import (
         FLAG_CONVERGED,
         FLAG_NAMES,
@@ -193,8 +264,26 @@ def main(argv=None) -> int:
         except ValueError as e:
             raise SystemExit(f"--backend resident: {e}") from None
     device = resolve_device(args.device)
-    solvers = {"fused": fused_cg_solve, "resident": resident_cg_solve,
-               "ca": ca_cg_solve}
+    serial = bool(args.serial_reduce)
+    ckpt = dict(chunk=args.chunk, keep_last=args.keep_last)
+    # (canvas of the solve, the solve) of each single-device kernel path.
+    solvers = {
+        "fused": (lambda: canvas_spec(problem, args.bm, args.bn), lambda: (
+            fused_cg_solve_checkpointed(
+                problem, args.checkpoint, bm=args.bm, bn=args.bn,
+                serial=serial, device=device, **ckpt)
+            if args.checkpoint else
+            fused_cg_solve(problem, device=device, bm=args.bm, bn=args.bn,
+                           serial=serial))),
+        "resident": (lambda: canvas_spec(problem, bn=0),
+                     lambda: resident_cg_solve(problem, device=device)),
+        "ca": (lambda: canvas_spec(problem, args.bm, 0), lambda: (
+            ca_cg_solve_checkpointed(problem, args.checkpoint, bm=args.bm,
+                                     serial=serial, device=device, **ckpt)
+            if args.checkpoint else
+            ca_cg_solve(problem, device=device, bm=args.bm,
+                        serial=serial))),
+    }
     sharded = {"fused-sharded": (fused_cg_solve_sharded, 1),
                "ca-sharded": (ca_cg_solve_sharded, RING)}
     # Canvas passes per iteration of the streaming paths; the resident solve
@@ -202,19 +291,27 @@ def main(argv=None) -> int:
     passes = {"fused": FUSED_PASSES_PER_ITER, "ca": PASSES_PER_PAIR / 2,
               "fused-sharded": FUSED_PASSES_PER_ITER,
               "ca-sharded": PASSES_PER_PAIR / 2}
-    # Centre points every sweep covers: the canvas's, or all the shards'.
+    # Points whose bytes every sweep must move: the canvas's band (the
+    # grid's interior on a column-blocked canvas), or all the shards' bands.
     points = None
     mesh = None
     if backend in solvers:
-        run = lambda: solvers[backend](problem, device=device)
-        cv = canvas_spec(problem)
-        points = (cv.rows - 2 * HALO) * cv.cols
+        canvas, run = solvers[backend]
+        try:
+            cv = canvas()
+        except ValueError as e:
+            raise SystemExit(f"--backend {backend}: {e}") from None
+        points = sweep_points(problem, cv)
     elif backend in sharded:
         mesh = build_mesh(args, visible)
         solve, ring = sharded[backend]
-        run = lambda: solve(problem, mesh)
+        run = lambda: solve(problem, mesh, serial=serial)
         spec = shard_spec(problem, mesh.px, mesh.py, ring)
         points = mesh.size * spec.m_blk * spec.cv.cols
+    elif args.checkpoint:
+        run = lambda: pcg_solve_checkpointed(problem, args.checkpoint,
+                                             dtype=args.dtype, device=device,
+                                             **ckpt)
     else:
         run = lambda: pcg_solve(problem, dtype=args.dtype, device=device)
 
@@ -223,14 +320,18 @@ def main(argv=None) -> int:
     if device.type == "cuda" and backend in passes:
         bytes_per_iter = int(passes[backend] * points * 4)
 
+    # A checkpointed solve resumes from its own file, so a timed re-run of
+    # a capped one would run no iteration: it runs once, and that is timed.
+    repeats = 0 if args.checkpoint else args.repeat
     timer = PhaseTimer(device)
     with timer.phase("first_solve"):   # builds kernels and canvases
         result = run()
-    for i in range(args.repeat):
+    for i in range(repeats):
         with timer.phase(f"solve_{i}"):
             result = run()
     first = timer.times["first_solve"]
-    best = min(timer.times[f"solve_{i}"] for i in range(args.repeat))
+    best = min((timer.times[f"solve_{i}"] for i in range(repeats)),
+               default=first)
 
     iters = int(result.iterations)
     flag = int(result.flag)

@@ -12,7 +12,13 @@ import numpy as np
 import torch
 
 from poisson_tpu_torch.config import Problem
-from poisson_tpu_torch.ops.fused_cg import HALO, LANE, Canvas
+from poisson_tpu_torch.ops.fused_cg import (
+    HALO,
+    LANE,
+    TILE_COLS,
+    TILE_ROWS,
+    Canvas,
+)
 from poisson_tpu_torch.utils.platform import resolve_device
 
 
@@ -27,15 +33,16 @@ def canvases_from_reference(cv_fields: dict, cs, cw, g, rhs, sc2, sc_int,
     """The port's (cv, cS, cW, g, rhs, sc2, sc_int) from the arrays of
     ``poisson_tpu.ops.pallas_cg.build_canvases``.
 
-    ``cv_fields`` is the JAX ``Canvas._asdict()``; it must be full width
-    (no column blocking), which is the only layout the port's kernels take.
-    Arrays may be JAX arrays or numpy; they are copied as fp32 tensors to
-    ``device`` (default ``cuda``)."""
-    if cv_fields.get("cg", 0) or cv_fields.get("ncb", 1) != 1:
-        raise ValueError("only full-width canvases carry across (cg == 0)")
-    cv = Canvas(bm=cv_fields["bm"], nb=cv_fields["nb"],
-                rows=cv_fields["rows"], cols=cv_fields["cols"])
-    if cv.cols % LANE or (cv.rows - 2 * HALO) % 8:
+    ``cv_fields`` is the JAX ``Canvas._asdict()``: full width, or column
+    blocked (``cg`` guard columns, ``ncb`` blocks of ``bn`` columns), which
+    the port's kernels A′ and B′ take. Arrays may be JAX arrays or numpy;
+    they are copied as fp32 tensors to ``device`` (default ``cuda``)."""
+    cv = Canvas(**{f: cv_fields[f] for f in Canvas._fields if f in cv_fields})
+    blocked_ok = cv.cols == 2 * cv.cg + cv.ncb * cv.bn and not (
+        cv.bm % TILE_ROWS or cv.bn % TILE_COLS)
+    if (cv.cols % LANE or (cv.rows - 2 * HALO) % 8
+            or cv.rows != cv.nb * cv.bm + 2 * HALO
+            or (cv.cg and (cv.cg != LANE or not blocked_ok))):
         raise ValueError(f"canvas geometry {cv} is not the port's layout")
     dev = resolve_device(device)
     tensors = [torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)

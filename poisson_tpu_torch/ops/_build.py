@@ -95,6 +95,7 @@ def build(names) -> None:
 
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I64 = ctypes.c_longlong
 _I32_OUT = ctypes.POINTER(_I32)
 
 # The C entries of each library: symbol → (argument types, return type).
@@ -125,6 +126,22 @@ ENTRIES = {
         # cs cw g rhs sc2 w r p0 p1 ap part k diff zr | h1h2 norm_w delta |
         # cap rows cols halo blocks device | stream
         "resident_cg_solve": ([_PTR] * 14 + [_F32] * 3 + [_I32] * 6 + [_PTR],
+                              _I32),
+    },
+    "blocked_cg": {
+        "blocked_cg_layout": ([_I32_OUT] * 3, None),
+        # beta z p cs cw g pn ap part | rows cols halo cg bm bn nb ncb device
+        # | stream
+        "blocked_cg_direction_stencil": ([_PTR] * 9 + [_I32] * 9 + [_PTR],
+                                         _I32),
+        # alpha p ap sc2 w r diff_part zr_part | cols halo cg bm bn nb ncb
+        # device | stream
+        "blocked_cg_update": ([_PTR] * 8 + [_I32] * 8 + [_PTR], _I32),
+    },
+    "serial_sum": {
+        "serial_sum_threads": ([], _I32),
+        # src out | n elem_stride vec_stride run | vectors device | stream
+        "serial_sum_launch": ([_PTR] * 2 + [_I64] * 4 + [_I32] * 2 + [_PTR],
                               _I32),
     },
 }

@@ -24,12 +24,14 @@ A pair stops after its first inner step when that step converged, when the
 second is degenerate, or when the cap allows one more iteration only, so
 odd counts (989, 2449) come out exact.
 
-Canvas and layout: the fused path's (``ops.fused_cg``), one full-width
-strip. The Pallas drivers' ``bm``, ``parallel`` and ``serial`` knobs shape
-the TPU grid of strips and have no meaning on one strip, so they are not
-taken here (the Kahan serial-reduce layout is still to be ported).
-Kernel C's partials are per (TILE_H × TILE_W) tile of the band, kernel D's
-per BLOCK consecutive band points, as kernel B's. The sharded CA solve
+Canvas and layout: the fused path's full-width canvas (``ops.fused_cg``),
+one strip unless ``bm`` asks for the JAX strip layout; the Pallas drivers'
+``parallel`` knob shapes the TPU grid only and is not taken. Kernel C's
+partials are per (TILE_H × TILE_W) tile of the band, kernel D's per BLOCK
+consecutive band points, as kernel B's; both put a strip's partials in a
+row, which is what the serial-reduce mode (``serial=True``) sums with
+kernel S, one run per JAX strip of ``strip_height(cols, M−1, 16)`` rows
+(kernel C holds 16 strip buffers on the TPU). The sharded CA solve
 (``parallel.ca_sharded``) calls each kernel's sharded form: C with pn formed
 two rows past the centre on each side, both with a column mask on the
 unweighted sums.
@@ -58,6 +60,7 @@ from poisson_tpu_torch.ops.fused_cg import (
     _block_partials,
     _check_operands,
     _shift_col_plus,
+    _solution,
     _stream,
     build_canvases,
     check_colmask,
@@ -65,7 +68,17 @@ from poisson_tpu_torch.ops.fused_cg import (
     launch_counts as _launch_counts,
     live_band,
     n_partials,
+    partial_sums,
+    pcg_state_to_pending,
+    pending_to_pcg_state,
     reset_launch_counts as _reset_launch_counts,
+    serial_run,
+)
+from poisson_tpu_torch.ops.serial import serial_sum
+from poisson_tpu_torch.solvers.checkpoint import (
+    _fingerprint,
+    load_state,
+    run_chunked,
 )
 from poisson_tpu_torch.solvers.pcg import (
     CHECK_EVERY,
@@ -82,6 +95,7 @@ N_COEFS = 8   # kernel D: [c_p, a2, a2a1, α₁, β₁, only1, 0, 0]
 # Canvas passes of one pair: C reads p_prev, r, cS, cW, γ, sc² and writes
 # pn, t1, t2, t3; D reads pn, t1, t2, t3, x, r and writes x, r, p₁.
 PASSES_PER_PAIR = 19
+CA_BUFFERS = 16   # strip buffers kernel C holds on the TPU (its strip height)
 
 
 def _shift_col_minus(u):
@@ -392,12 +406,26 @@ def _ca_init(problem: Problem, cv: Canvas, rhs) -> _CAState:
     )
 
 
-def _make_ca_body(problem: Problem, cv: Canvas, cs, cw, g, sc2):
+def gram_sum(gram, run: int | None):
+    """The (12,) Gram vector of kernel C's (tiles, 12) partials: summed over
+    the tiles, or by kernel S in the serial-reduce mode (one launch for the
+    twelve)."""
+    return torch.sum(gram, dim=0) if run is None else serial_sum(gram.T, run)
+
+
+def ca_run(problem: Problem, cv: Canvas, serial) -> int | None:
+    """Kernel S's run length on the CA canvas when ``serial`` is true."""
+    return serial_run(cv, problem.M - 1, CA_BUFFERS) if serial else None
+
+
+def _make_ca_body(problem: Problem, cv: Canvas, cs, cw, g, sc2,
+                  run: int | None = None):
     """One CA pair (kernels C + D) as a state→state function. A state that
     is done or has reached the cap is frozen: kernel D gets zero
     coefficients, so x and r keep their values, and the rest of the state
     is kept, so the count is exact however many pairs run between two reads
-    of ``done`` (``drive`` counts pairs, not iterations)."""
+    of ``done`` (``drive`` counts pairs, not iterations). ``run`` selects
+    the serial-reduce mode."""
     h1h2 = _f32(problem.h1 * problem.h2, cs.device)
     cap = problem.iteration_cap
     # Kernel outputs, allocated zeroed once: their guard rows stay zero.
@@ -408,12 +436,12 @@ def _make_ca_body(problem: Problem, cv: Canvas, cs, cw, g, sc2):
         live = (~s.done) & (s.k < cap)
         pn, t1, t2, t3, gram = basis_sweep(cv, s.beta, s.pprev, s.r, cs, cw,
                                            g, sc2, out=scratch)
-        gsum = torch.sum(gram, dim=0) * h1h2
+        gsum = gram_sum(gram, run) * h1h2
         d = pair_scalars(problem, s.rr, s.k, gsum)
         coefs = torch.where(live, d.coefs, 0.0)
         x, r, p1, rr_part = pair_update(cv, coefs, pn, t1, t2, t3, s.x, s.r,
                                         out=p1_buf)
-        rr2 = torch.sum(rr_part) * h1h2
+        rr2 = partial_sums((rr_part,), run)[0] * h1h2
         # p₁ is pn when only step 1 was applied (kernel D's only1 slot); its
         # buffer is not pn's, which the next sweep writes while reading it.
         # A frozen state never reads it to any effect (its coefficients are
@@ -427,28 +455,79 @@ def _make_ca_body(problem: Problem, cv: Canvas, cs, cw, g, sc2):
 
 
 def _ca_solve(problem: Problem, cv: Canvas, cs, cw, g, rhs, sc2,
-              check_every: int = CHECK_EVERY) -> _CAState:
+              check_every: int = CHECK_EVERY,
+              run: int | None = None) -> _CAState:
     """The CA solve on given canvases (all on one device). A pair advances
     k by at most 2, so (cap + 1) // 2 pairs always reach the cap."""
-    body = _make_ca_body(problem, cv, cs, cw, g, sc2)
+    body = _make_ca_body(problem, cv, cs, cw, g, sc2, run)
     return drive(body, _ca_init(problem, cv, rhs),
                  (problem.iteration_cap + 1) // 2, check_every)
 
 
 def ca_cg_solve(problem: Problem, device=None, rhs_gate=None,
-                check_every: int = CHECK_EVERY) -> PCGResult:
+                check_every: int = CHECK_EVERY, bm: int | None = None,
+                serial: bool | None = None) -> PCGResult:
     """Single-device solve on the communication-avoiding path (fp32, scaled
     system): the counterpart of ``poisson_tpu.ops.pallas_ca.ca_cg_solve``,
     with the same golden counts as the fused path in 19 canvas passes per
     two iterations instead of 28. Runs on ``cuda`` unless ``device='cpu'``
     is asked for (plain versions). ``rhs_gate``, if given, multiplies the
-    right-hand side (1.0 leaves the solve bit-identical)."""
-    cv, cs, cw, g, rhs, sc2, sc_int = build_canvases(problem, device)
+    right-hand side (1.0 leaves the solve bit-identical); ``bm`` is the
+    strip height of the full-width canvas; ``serial`` sums the partials
+    with kernel S (off by default)."""
+    cv, cs, cw, g, rhs, sc2, sc_int = build_canvases(problem, device, bm, 0)
     if rhs_gate is not None:
         rhs = rhs * torch.as_tensor(rhs_gate, dtype=rhs.dtype,
                                     device=rhs.device)
-    s = _ca_solve(problem, cv, cs, cw, g, rhs, sc2, check_every)
-    M, N = problem.M, problem.N
-    y = s.x[HALO : HALO + M - 1, 1:N]
-    w = F.pad(y * sc_int, (1, 1, 1, 1))
-    return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.rr)
+    s = _ca_solve(problem, cv, cs, cw, g, rhs, sc2, check_every,
+                  ca_run(problem, cv, serial))
+    return PCGResult(w=_solution(problem, cv, s.x, sc_int), iterations=s.k,
+                     diff=s.diff, residual_dot=s.rr)
+
+
+def ca_cg_solve_checkpointed(problem: Problem, checkpoint_path: str,
+                             chunk: int = 200, bm: int | None = None,
+                             serial: bool | None = None,
+                             keep_checkpoint: bool = False,
+                             keep_last: int = 2, device=None,
+                             check_every: int = CHECK_EVERY) -> PCGResult:
+    """CA solve with its state saved every ``chunk`` iterations and resumed
+    from ``checkpoint_path``: the counterpart of
+    ``pallas_ca.ca_cg_solve_checkpointed``, in the portable format of every
+    checkpointed solver (``solvers.checkpoint``), so a CA file resumes on
+    the fused path and the other way round. The pending pair (p_prev, β)
+    is stored as the direction d = r + β·p_prev and resumed as
+    p_prev := d − r, β := 1. A chunk runs pairs until k reaches
+    min(k + chunk, cap), so it may overshoot by one iteration; only the
+    global cap cuts a pair short."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    cv, cs, cw, g, rhs, sc2, sc_int = build_canvases(problem, device, bm, 0)
+    fp = _fingerprint(problem, "float32", True)
+    saved = load_state(checkpoint_path, fp, keep_last=keep_last)
+    if saved is None:
+        s = _ca_init(problem, cv, rhs)
+    else:
+        f = pcg_state_to_pending(problem, cv, saved, rhs.device)
+        s = _CAState(k=f["k"], done=f["done"], x=f["sol"], r=f["r"],
+                     pprev=f["pend"], rr=f["zr"], beta=f["beta"],
+                     diff=f["diff"])
+    body = _make_ca_body(problem, cv, cs, cw, g, sc2,
+                         ca_run(problem, cv, serial))
+    cap = problem.iteration_cap
+
+    def advance(st: _CAState) -> _CAState:
+        # Pairs to reach min(k + chunk, cap): non-final pairs add 2.
+        stop_at = min(int(st.k) + chunk, cap)
+        return drive(body, st, -(-(stop_at - int(st.k)) // 2), check_every)
+
+    s = run_chunked(
+        s, advance=advance,
+        to_portable=lambda st: pending_to_pcg_state(
+            problem, cv, k=st.k, done=st.done, sol=st.x, r=st.r,
+            pend=st.pprev, beta=st.beta, zr=st.rr, diff=st.diff),
+        path=checkpoint_path, fingerprint=fp, cap=cap,
+        keep_checkpoint=keep_checkpoint, keep_last=keep_last,
+    )
+    return PCGResult(w=_solution(problem, cv, s.x, sc_int), iterations=s.k,
+                     diff=s.diff, residual_dot=s.rr)

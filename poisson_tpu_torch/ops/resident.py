@@ -60,7 +60,7 @@ RESIDENT_BUDGET_BYTES = 40_000_000
 
 def resident_canvas(problem: Problem) -> Canvas:
     """Single-strip canvas covering the whole interior (the fused path's)."""
-    return canvas_spec(problem)
+    return canvas_spec(problem, bn=0)
 
 
 def resident_bytes(problem: Problem) -> int:
@@ -166,7 +166,7 @@ def resident_cg_solve(problem: Problem, device=None,
     ``device='cpu'`` is asked for (plain version). Raises ``ValueError``
     above the residency budget (:func:`fits_resident`)."""
     refuse_above_budget(problem)
-    cv, cs, cw, g, rhs, sc2, sc_int = build_canvases(problem, device)
+    cv, cs, cw, g, rhs, sc2, sc_int = build_canvases(problem, device, bn=0)
     if rhs_gate is not None:
         rhs = rhs * torch.as_tensor(rhs_gate, dtype=rhs.dtype,
                                     device=rhs.device)
@@ -183,7 +183,7 @@ def resident_cg_solve_rhs(problem: Problem, rhs_grid64, device=None):
 
     Returns ``(w64, iterations)`` with w accumulated on the host in fp64."""
     refuse_above_budget(problem)
-    cv, cs, cw, g, _, sc2, sc_int = build_canvases(problem, device)
+    cv, cs, cw, g, _, sc2, sc_int = build_canvases(problem, device, bn=0)
     rhs = scaled_rhs_canvas(problem, cv, rhs_grid64, cs.device)
     w, k, _, _ = resident_solve(problem, cv, cs, cw, g, rhs, sc2)
-    return canvas_to_w64(problem, w, sc_int), int(k)
+    return canvas_to_w64(problem, cv, w, sc_int), int(k)

@@ -33,6 +33,7 @@ import torch
 
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.ops.ca_cg import (
+    CA_BUFFERS,
     _CAState,
     assemble_pair_state,
     basis_sweep,
@@ -47,6 +48,7 @@ from poisson_tpu_torch.parallel.fused_sharded import (
     gather_owned,
     owned_sum_of_squares,
     shard_canvases,
+    shard_run,
     shard_spec,
 )
 from poisson_tpu_torch.parallel.halo import (
@@ -103,12 +105,12 @@ def _ca_sharded_init(problem: Problem, spec: ShardSpec, mesh: Mesh,
 
 
 def _make_ca_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
-                          canvases: ShardCanvases):
+                          canvases: ShardCanvases, run: int | None = None):
     """One CA pair on every shard as a state→state function
     (``pallas_ca_sharded._make_ca_shard_body``). A state that is done or has
     reached the cap is frozen, as in ``ops.ca_cg._make_ca_body``: kernel D
     gets zero coefficients, so x and r keep their values, and the scalars
-    are kept."""
+    are kept. ``run`` selects the serial-reduce mode."""
     cv = spec.cv
     f = canvases
     cap = problem.iteration_cap
@@ -127,13 +129,13 @@ def _make_ca_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
                              f.cw[i], f.g[i], f.sc2[i], out=scratch[i],
                              band=band, colmask=f.colmask[i])
                  for i in shards]
-        gsum = mesh_sum([c[4] for c in swept], mesh) * h1h2
+        gsum = mesh_sum([c[4] for c in swept], mesh, run) * h1h2
         d = pair_scalars(problem, s.rr, s.k, gsum)
         coefs = replicate(torch.where(live, d.coefs, 0.0), mesh)
         parts = [pair_update(cv, coefs[i], *swept[i][:4], s.x[i], s.r[i],
                              out=p1_bufs[i], colmask=f.colmask[i])[3]
                  for i in shards]
-        rr2 = mesh_sum(parts, mesh) * h1h2
+        rr2 = mesh_sum(parts, mesh, run) * h1h2
         exchange_ring2(s.r, spec, mesh)
         exchange_ring2(p1_bufs, spec, mesh)
         new = assemble_pair_state(problem, s, d, s.x, s.r, p1_bufs, rr2)
@@ -146,26 +148,29 @@ def _make_ca_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
 
 def _ca_sharded_solve(problem: Problem, spec: ShardSpec, mesh: Mesh,
                       canvases: ShardCanvases, rhs,
-                      check_every: int = CHECK_EVERY) -> _CAState:
+                      check_every: int = CHECK_EVERY,
+                      run: int | None = None) -> _CAState:
     """The sharded CA solve on given shard canvases. A pair advances k by at
     most 2, so (cap + 1) // 2 pairs always reach the cap."""
-    body = _make_ca_sharded_body(problem, spec, mesh, canvases)
+    body = _make_ca_sharded_body(problem, spec, mesh, canvases, run)
     s = _ca_sharded_init(problem, spec, mesh, canvases, rhs)
     return drive(body, s, (problem.iteration_cap + 1) // 2, check_every)
 
 
 def ca_cg_solve_sharded(problem: Problem, mesh: Mesh | None = None,
                         rhs_gate=None,
-                        check_every: int = CHECK_EVERY) -> PCGResult:
+                        check_every: int = CHECK_EVERY,
+                        serial: bool | None = None) -> PCGResult:
     """Sharded solve on the communication-avoiding path (fp32, scaled
     system): the counterpart of ``poisson_tpu.parallel.pallas_ca_sharded
     .ca_cg_solve_sharded``, with the same counts as every other path.
     ``mesh`` defaults to every visible card; a mesh of CPU devices runs the
-    kernels' plain versions. ``rhs_gate`` as in
+    kernels' plain versions. ``rhs_gate`` and ``serial`` as in
     :func:`~poisson_tpu_torch.parallel.fused_sharded.fused_cg_solve_sharded`."""
     mesh = make_solver_mesh() if mesh is None else mesh
     spec, canvases = shard_canvases(problem, mesh, RING)
     s = _ca_sharded_solve(problem, spec, mesh, canvases,
-                          gated_rhs(canvases, rhs_gate), check_every)
+                          gated_rhs(canvases, rhs_gate), check_every,
+                          shard_run(problem, spec, mesh, serial, CA_BUFFERS))
     x = gather_owned(problem, spec, mesh, s.x, canvases.sc_int)
     return PCGResult(w=x, iterations=s.k, diff=s.diff, residual_dot=s.rr)

@@ -52,6 +52,7 @@ from poisson_tpu_torch.ops.fused_cg import (
     direction_and_stencil,
     fused_update,
     scaled_stencil_fields,
+    serial_run,
 )
 from poisson_tpu_torch.parallel.halo import (
     mesh_sum,
@@ -270,13 +271,24 @@ def _sharded_init(problem: Problem, spec: ShardSpec, mesh: Mesh,
     )
 
 
+def shard_run(problem: Problem, spec: ShardSpec, mesh: Mesh, serial,
+              buffers: int = 12) -> int | None:
+    """Kernel S's run length on each shard when ``serial`` is true: the
+    partials of one JAX shard strip of ``strip_height(cols, ⌈(M−1)/px⌉,
+    buffers)`` rows (``pallas_sharded.py:86``, ``pallas_ca_sharded.py:96``)."""
+    if not serial:
+        return None
+    return serial_run(spec.cv, -(-(problem.M - 1) // mesh.px), buffers)
+
+
 def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
-                       canvases: ShardCanvases):
+                       canvases: ShardCanvases, run: int | None = None):
     """One sharded fused iteration as a state→state function
     (``pallas_sharded._make_shard_body``). A done state is frozen, as in
     ``ops.fused_cg._make_fused_body``: α is forced to 0, so w and r keep
     their values (the halo exchange of an unchanged r changes nothing), and
-    k, ζ, β and diff keep theirs."""
+    k, ζ, β and diff keep theirs. ``run`` selects the serial-reduce mode
+    (:func:`~poisson_tpu_torch.parallel.halo.mesh_sum`)."""
     cv = spec.cv
     f = canvases
     f32 = dict(dtype=torch.float32, device=mesh.lead)
@@ -293,7 +305,7 @@ def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
                                        out=(s.spare[i], s.ap[i]), band=band,
                                        colmask=f.colmask[i])
                  for i in shards]
-        denom = mesh_sum([part for _, _, part in swept], mesh) * h1h2
+        denom = mesh_sum([part for _, _, part in swept], mesh, run) * h1h2
         degenerate = torch.abs(denom) < _DENOM_TOL
         alpha = torch.where(degenerate | s.done, 0.0,
                             s.zr / torch.where(degenerate, 1.0, denom))
@@ -302,9 +314,14 @@ def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
                                 f.sc2[i], s.w[i], s.r[i],
                                 colmask=f.colmask[i])
                    for i in shards]
-        diff = torch.abs(alpha) * torch.sqrt(
-            mesh_sum([u[2] for u in updated], mesh) * norm_w)
-        zr_new = mesh_sum([u[3] for u in updated], mesh) * h1h2
+        if run is None:
+            diff_sum = mesh_sum([u[2] for u in updated], mesh)
+            zr_sum = mesh_sum([u[3] for u in updated], mesh)
+        else:
+            diff_sum, zr_sum = mesh_sum([u[2:] for u in updated], mesh,
+                                        run).unbind()
+        diff = torch.abs(alpha) * torch.sqrt(diff_sum * norm_w)
+        zr_new = zr_sum * h1h2
         exchange_r_halo(s.r, spec, mesh)
         live = ~s.done
         return _ShardedState(
@@ -323,25 +340,29 @@ def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
 
 def _sharded_solve(problem: Problem, spec: ShardSpec, mesh: Mesh,
                    canvases: ShardCanvases, rhs,
-                   check_every: int = CHECK_EVERY) -> _ShardedState:
+                   check_every: int = CHECK_EVERY,
+                   run: int | None = None) -> _ShardedState:
     """The sharded fused solve on given shard canvases."""
-    body = _make_sharded_body(problem, spec, mesh, canvases)
+    body = _make_sharded_body(problem, spec, mesh, canvases, run)
     s = _sharded_init(problem, spec, mesh, canvases, rhs)
     return drive(body, s, problem.iteration_cap, check_every)
 
 
 def fused_cg_solve_sharded(problem: Problem, mesh: Mesh | None = None,
                            rhs_gate=None,
-                           check_every: int = CHECK_EVERY) -> PCGResult:
+                           check_every: int = CHECK_EVERY,
+                           serial: bool | None = None) -> PCGResult:
     """Sharded solve on the fused path (fp32, scaled system): the
     counterpart of ``poisson_tpu.parallel.pallas_sharded
     .pallas_cg_solve_sharded``. ``mesh`` defaults to every visible card
     (:func:`~poisson_tpu_torch.parallel.mesh.make_solver_mesh`); a mesh of
     CPU devices runs the kernels' plain versions. ``rhs_gate``, if given,
-    multiplies the right-hand side (1.0 leaves the solve bit-identical)."""
+    multiplies the right-hand side (1.0 leaves the solve bit-identical);
+    ``serial`` sums each shard's partials with kernel S (off by default)."""
     mesh = make_solver_mesh() if mesh is None else mesh
     spec, canvases = shard_canvases(problem, mesh, 1)
     s = _sharded_solve(problem, spec, mesh, canvases,
-                       gated_rhs(canvases, rhs_gate), check_every)
+                       gated_rhs(canvases, rhs_gate), check_every,
+                       shard_run(problem, spec, mesh, serial))
     w = gather_owned(problem, spec, mesh, s.w, canvases.sc_int)
     return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.zr)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from poisson_tpu_torch.ops.serial import serial_sum
 from poisson_tpu_torch.parallel.mesh import X_AXIS, Y_AXIS, Mesh
 
 
@@ -75,11 +76,24 @@ def exchange_halos(blocks, mesh: Mesh) -> None:
     shift_up(blocks, mesh, Y_AXIS, (everything, 1), (everything, -1))
 
 
-def mesh_sum(partials, mesh: Mesh) -> torch.Tensor:
+def _shard_sum(part, run):
+    if run is None:
+        return torch.sum(part, dim=0)
+    if isinstance(part, torch.Tensor) and part.dim() == 2:
+        return serial_sum(part.T, run)      # kernel C's (tiles, 12) Gram
+    return serial_sum(part, run)
+
+
+def mesh_sum(partials, mesh: Mesh, run: int | None = None) -> torch.Tensor:
     """Σ over shards of Σ over each shard's partials (along dim 0), on the
-    lead device, summed in mesh order."""
+    lead device, summed in mesh order.
+
+    With ``run`` (the serial-reduce mode) each shard's partials go through
+    kernel S on its own device first, as each JAX shard Kahan-sums its
+    strips before the ``psum``; a shard's entry may then also be a sequence
+    of partials vectors, summed by one launch into a vector of sums."""
     lead = mesh.lead
-    per_shard = [torch.sum(p, dim=0).to(lead) for p in partials]
+    per_shard = [_shard_sum(p, run).to(lead) for p in partials]
     return torch.sum(torch.stack(per_shard), dim=0)
 
 

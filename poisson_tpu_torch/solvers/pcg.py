@@ -55,6 +55,7 @@ FLAG_CONVERGED = 1   # ‖Δw‖ < δ
 FLAG_BREAKDOWN = 2   # |(Ap, p)| below the degenerate-direction guard
 FLAG_NONFINITE = 3   # NaN/Inf reached the residual or update norm
 FLAG_STAGNATED = 4   # no best-‖Δw‖ improvement for a full stagnation window
+FLAG_DEADLINE = 5    # a chunked solve's deadline expired (result only)
 
 FLAG_NAMES = {
     FLAG_NONE: "running",
@@ -62,6 +63,7 @@ FLAG_NAMES = {
     FLAG_BREAKDOWN: "breakdown",
     FLAG_NONFINITE: "nonfinite",
     FLAG_STAGNATED: "stagnated",
+    FLAG_DEADLINE: "deadline",
 }
 
 
@@ -293,10 +295,20 @@ def resolve_scaled(scaled, dtype_name: str) -> bool:
     return bool(scaled)
 
 
-def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
-              check_every: int = CHECK_EVERY) -> PCGResult:
-    """Single-device plain solve. ``device`` defaults to ``cuda`` (raises
-    without a card); setup runs on the host in fp64 and is cast once."""
+class SolveSetup(NamedTuple):
+    """The plain solve's operands on one device."""
+
+    ops: PCGOps
+    rhs: torch.Tensor
+    aux: torch.Tensor   # D (unscaled) or D^{-1/2} (scaled), zero ring
+    dtype_name: str
+    scaled: bool
+
+
+def solve_setup(problem: Problem, dtype=None, scaled=None,
+                device=None) -> SolveSetup:
+    """Host fp64 setup cast once to the state precision on ``device``
+    (default ``cuda``; raises without a card), and the backend bundle."""
     dev = resolve_device(device)
     dtype_name = resolve_dtype(dtype)
     use_scaled = resolve_scaled(scaled, dtype_name)
@@ -305,10 +317,18 @@ def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
                       for x in host_fields64(problem, use_scaled))
     ops = (scaled_single_device_ops(problem, a, b, aux) if use_scaled
            else single_device_ops(problem, a, b, aux))
-    s = pcg_loop(ops, rhs, delta=problem.delta,
+    return SolveSetup(ops, rhs, aux, dtype_name, use_scaled)
+
+
+def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
+              check_every: int = CHECK_EVERY) -> PCGResult:
+    """Single-device plain solve. ``device`` defaults to ``cuda`` (raises
+    without a card); setup runs on the host in fp64 and is cast once."""
+    setup = solve_setup(problem, dtype, scaled, device)
+    s = pcg_loop(setup.ops, setup.rhs, delta=problem.delta,
                  max_iter=problem.iteration_cap,
                  weighted_norm=problem.weighted_norm,
                  h1=problem.h1, h2=problem.h2, check_every=check_every)
-    w = s.w * aux if use_scaled else s.w
+    w = s.w * setup.aux if setup.scaled else s.w
     return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.zr,
                      flag=s.flag)

@@ -17,6 +17,7 @@ for grids within the residency budget, kernel R's
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -71,17 +72,29 @@ def _fields(problem: Problem):
 
 def refined_solve(problem: Problem, tol: float = 1e-10,
                   max_refinements: int = 8, backend: str = "fused",
-                  device=None) -> RefineResult:
+                  device=None, bm: int | None = None, bn: int | None = None,
+                  serial: bool | None = None) -> RefineResult:
     """Solve A w = B to relative scaled-system residual ``tol`` with fp32
     inner solves on ``device`` (default ``cuda``) and fp64 host residuals.
 
     Stops when the relative residual is at most ``tol`` or after
     ``max_refinements`` correction passes. ``backend`` is ``"fused"`` or
-    ``"resident"`` (grids within the residency budget only)."""
+    ``"resident"`` (grids within the residency budget only). ``bm``, ``bn``
+    and ``serial`` reach the fused inner solver (``fused_cg_solve_rhs``);
+    the resident solve has one fixed geometry and refuses them, as the JAX
+    package's ``refined_solve`` does."""
     if backend not in INNER_SOLVERS:
         raise ValueError(f"unknown refine backend {backend!r}; expected one "
                          f"of {sorted(INNER_SOLVERS)}")
-    inner_solve = INNER_SOLVERS[backend]
+    if backend == "resident":
+        if bm is not None or bn is not None or serial:
+            raise ValueError(
+                "bm/bn/serial shape the fused streaming kernels; the "
+                "resident backend has a fixed single-strip geometry")
+        inner_solve = INNER_SOLVERS[backend]
+    else:
+        inner_solve = functools.partial(INNER_SOLVERS[backend], bm=bm, bn=bn,
+                                        serial=serial)
     a64, b64, rhs64, sc64 = _fields(problem)
     bt_norm = _weighted_norm(problem, sc64 * rhs64)   # ‖b̃‖
     if bt_norm == 0.0:

@@ -15,9 +15,9 @@ import torch
 
 import poisson_tpu_torch
 from poisson_tpu_torch.config import Problem
-from poisson_tpu_torch.ops import ca_cg, fused_cg, resident
+from poisson_tpu_torch.ops import ca_cg, fused_cg, resident, serial
 from poisson_tpu_torch.parallel import ca_sharded, fused_sharded, mesh
-from poisson_tpu_torch.solvers import pcg, refine
+from poisson_tpu_torch.solvers import checkpoint, pcg, refine
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "poisson_tpu_torch"
@@ -76,9 +76,10 @@ def test_no_module_imports_jax_or_the_reference():
     assert not offenders
     modules = [m.name for m in pkgutil.walk_packages(
         poisson_tpu_torch.__path__, "poisson_tpu_torch.")]
-    for name in ("ops.fused_cg", "ops.resident", "ops.ca_cg",
-                 "solvers.refine", "parallel.mesh", "parallel.halo",
-                 "parallel.fused_sharded", "parallel.ca_sharded"):
+    for name in ("ops.fused_cg", "ops.resident", "ops.ca_cg", "ops.serial",
+                 "solvers.refine", "solvers.checkpoint", "parallel.mesh",
+                 "parallel.halo", "parallel.fused_sharded",
+                 "parallel.ca_sharded"):
         assert f"poisson_tpu_torch.{name}" in modules
 
 
@@ -92,9 +93,16 @@ def test_no_module_imports_jax_or_the_reference():
     lambda: mesh.make_solver_mesh(),
     lambda: fused_sharded.fused_cg_solve_sharded(Problem(M=10, N=10)),
     lambda: ca_sharded.ca_cg_solve_sharded(Problem(M=10, N=10)),
+    lambda: fused_cg.fused_cg_solve_checkpointed(Problem(M=10, N=10),
+                                                 "unused.npz"),
+    lambda: ca_cg.ca_cg_solve_checkpointed(Problem(M=10, N=10), "unused.npz"),
+    lambda: checkpoint.pcg_solve_checkpointed(Problem(M=10, N=10),
+                                              "unused.npz"),
 ], ids=["fused_cg_solve", "pcg_solve", "build_canvases", "resident_cg_solve",
         "ca_cg_solve", "refined_solve", "make_solver_mesh",
-        "fused_cg_solve_sharded", "ca_cg_solve_sharded"])
+        "fused_cg_solve_sharded", "ca_cg_solve_sharded",
+        "fused_cg_solve_checkpointed", "ca_cg_solve_checkpointed",
+        "pcg_solve_checkpointed"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -103,18 +111,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry,
 
 
 def test_cpu_solve_launches_no_kernel():
-    for module in (fused_cg, ca_cg, resident):
+    for module in (fused_cg, ca_cg, resident, serial):
         module.reset_launch_counts()
     for solve in (fused_cg.fused_cg_solve, ca_cg.ca_cg_solve,
                   resident.resident_cg_solve):
         assert int(solve(Problem(M=40, N=40), device="cpu").iterations) == 50
+    for kwargs in (dict(bn=128), dict(serial=True)):
+        r = fused_cg.fused_cg_solve(Problem(M=40, N=40), device="cpu",
+                                    **kwargs)
+        assert int(r.iterations) == 50
     assert fused_cg.launch_counts() == {
         "direction_and_stencil": 0, "direction_and_stencil_sharded": 0,
-        "fused_update": 0, "fused_update_sharded": 0}
+        "direction_and_stencil_blocked": 0,
+        "fused_update": 0, "fused_update_sharded": 0,
+        "fused_update_blocked": 0}
     assert ca_cg.launch_counts() == {"basis_sweep": 0, "pair_update": 0,
                                      "basis_sweep_sharded": 0,
                                      "pair_update_sharded": 0}
     assert resident.launch_counts() == {"resident_solve": 0}
+    assert serial.launch_counts() == {"serial_sum": 0}
 
 
 @pytest.mark.parametrize("extra,backend", [
