@@ -8,7 +8,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every CUDA source in ``poisson_tpu_torch/ops/csrc`` for
    ``sm_90a``, one ``nvcc`` each, all at once, with their times and
-   ``ptxas`` reports;
+   ``ptxas`` reports, and one "ptxas redesign" line (registers, shared
+   memory, spill bytes) for each kernel redesigned for the card: R, which
+   must not spill, and both forms of C;
 3. each kernel against its plain PyTorch version on the card, on the same
    seeded canvases with nonzero β and coefficients, at 800×1200 (the
    flagship) and at 2400×3200 (the largest published grid): max abs error of
@@ -27,7 +29,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    D at both grids in the serial mode's runs, on those of the sharded
    forms in a shard's runs, and on those of A′ and B′ in a blocked tile's
    runs; the blocked canvases' padding (points swept against the grid's
-   interior, which their bytes and bounds count);
+   interior, which their bytes and bounds count); kernel C's fields exactly
+   (0.0) and its strip × segment geometry at each shape; kernel R against
+   its plain version after 20 iterations at two grids whose state does not
+   all fit on chip (100×8000: sc² and w in device memory; 270×3800: those
+   and points past the registers), relative iterate gap ≤ 1e-5;
 4. the paths, each with every launch count set to 0 just before it and
    read just after, all before any profiler session:
    - the fused path, ``fused_cg_solve`` (kernels A and B): a warm-up and
@@ -39,7 +45,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    - the resident path, ``resident_cg_solve`` (kernel R, one launch per
      solve) at 40×40, 400×600 and 800×1200 (the grids its budget admits):
      50, 546 and 989 iterations, iterates within 1e-6 of kernel R's plain
-     version run on the card and within 1e-5 of the plain fp64 solve;
+     version run on the card and within 1e-5 of the plain fp64 solve; its
+     geometry (one block per SM, what stays in device memory);
    - the communication-avoiding path, ``ca_cg_solve`` (kernels C and D):
      546 at 400×600, exactly 989 at 800×1200 with an iterate within 1e-5 of
      the fp64 solve, 2449 ± 1 at 2400×3200;
@@ -80,7 +87,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events, and for kernel S ``torch.sum`` over the same partials
-   as its library yardstick), bytes and bounds, and a profile of one
+   as its library yardstick), bytes and bounds, kernel R's device µs per
+   iteration beside its solve's, kernel C's two forms against their bound
+   at both grids and both shard sizes, and a profile of one
    flagship solve on the fused, blocked, CA, sharded fused and sharded CA
    paths;
 6. a ``kernels`` JSON line (twelve kernels), then the ``ok`` JSON line last.
@@ -206,6 +215,49 @@ WIDE = dict(M=1024, N=16384, delta=1e-30, max_iter=200)
 WIDE_TOL = 1e-4      # blocked vs full-width iterate after 200 iterations
 CKPT_CHUNK = 200     # checkpoint drills: iterations per chunk
 CKPT_CAP = 500       # the capped run the drills resume
+# The kernels redesigned for the card in the fifth slice, by library.
+REDESIGNED = {"resident_cg": ("resident_kernel",),
+              "ca_cg": ("basis_sweep_kernel", "basis_sweep_sharded")}
+# Grids at which kernel R keeps part of its state in device memory: sc² and
+# w off chip (one row of 8064 columns per block), and also points past the
+# registers (three rows of 3840); 20 iterations that never converge, few
+# enough that the two sum orders have not drifted apart.
+RESIDENT_FALLBACKS = [dict(M=100, N=8000, delta=1e-30, max_iter=20),
+                      dict(M=270, N=3800, delta=1e-30, max_iter=20)]
+FALLBACK_TOL = 1e-5  # R vs its plain version after 20 iterations, relative
+
+
+def ptxas_report(log: str, symbol: str) -> dict | None:
+    """Registers, shared memory, stack frame and spill bytes of the CUDA
+    kernel ``symbol`` from ``nvcc -Xptxas -v`` output (mangled names carry
+    the identifier's length before it; a local array the compiler could not
+    keep in registers shows as stack frame, not as spills)."""
+    mangled = f"{len(symbol)}{symbol}"
+    current, rec = None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        if current is None or mangled not in current:
+            continue
+        rec = rec or {"function": current}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rec["stack_frame_bytes"] = int(m.group(1))
+            rec["spill_store_bytes"] = int(m.group(2))
+            rec["spill_load_bytes"] = int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rec["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return rec
 
 
 def fail(message: str) -> None:
@@ -422,6 +474,10 @@ def check_kernels(M: int, N: int, fc, ca, sr, results: dict, errors: dict):
         check(err <= FIELD_TOL, f"{name} {tag}: max abs error {err}")
         check(rel <= SUM_TOL, f"{name} {tag}: partial-sum error {rel}")
         record_err(errors, name, err)
+    check(checks["basis_sweep"][0] == 0.0,
+          f"basis_sweep {tag}: fields not bit for bit with the plain version")
+    print(f"kernel basis_sweep {tag} geometry: " + json.dumps(
+        ca.sweep_geometry(cv, *ca.sweep_card(0))._asdict()), flush=True)
 
     # Kernel S on the partials of A (one vector), B (two rows of one
     # buffer), C (twelve, strided) and D, in the runs of the serial mode:
@@ -558,6 +614,11 @@ def check_sharded_kernels(M: int, N: int, fc, ca, fs, sr, mesh,
         check(err <= FIELD_TOL, f"{name} {tag}: max abs error {err}")
         check(rel <= SUM_TOL, f"{name} {tag}: partial-sum error {rel}")
         record_err(errors, name, err)
+    check(checks["basis_sweep_sharded"][0] == 0.0,
+          f"basis_sweep_sharded {tag}: fields not bit for bit with the plain "
+          "version")
+    print(f"kernel basis_sweep_sharded {tag} geometry: " + json.dumps(
+        ca.sweep_geometry(ccv, *ca.sweep_card(0))._asdict()), flush=True)
     run = fs.shard_run(problem, spec, mesh, True)
     crun = fs.shard_run(problem, cspec, mesh, True, ca.CA_BUFFERS)
     check_serial(sr, tag, {"A sharded": (part_k, run),
@@ -682,6 +743,30 @@ def check_sweeps(problem, bn, fc, sr, results: dict, errors: dict,
     ]
 
 
+def check_resident_fallback(problem, fc, rs, errors: dict) -> None:
+    """Kernel R at a grid whose state does not all fit on chip (the layout
+    leaves a field or some points in device memory) against its plain
+    version, after the problem's iteration cap."""
+    cv, cs, cw, g, rhs, sc2, _ = fc.build_canvases(problem, "cuda")
+    lay = rs.resident_layout(cv, *rs.card_geometry(0))
+    w, k, _, _ = rs.resident_solve(problem, cv, cs, cw, g, rhs, sc2)
+    wp, kp, _, _ = rs.resident_solve_plain(problem, cv, cs, cw, g, rhs, sc2)
+    torch.cuda.synchronize()
+    rel = float((w - wp).abs().max() / wp.abs().max())
+    print(f"kernel resident_solve {problem.M}x{problem.N} fallback: " +
+          json.dumps({"iterations": int(k), "plain_iterations": int(kp),
+                      "fields_in_device_memory": [
+                          f for f, o in zip(rs.FIELDS, lay.offsets) if o < 0],
+                      "points_past_registers": lay.points_per_thread
+                      - lay.reg_points, "blocks": lay.blocks,
+                      "iterate_rel_diff": rel}), flush=True)
+    check(int(k) == int(kp) == problem.iteration_cap,
+          f"resident fallback {problem.M}x{problem.N}: {int(k)} / {int(kp)} "
+          "iterations")
+    check(rel <= FALLBACK_TOL, f"resident fallback {problem.M}x{problem.N}: "
+                               f"iterate {rel} from its plain version")
+
+
 def driven_steps(needed: int, cap: int, check_every: int) -> int:
     """Steps ``solvers.pcg.drive`` runs for a solve whose state is done
     after ``needed`` steps: up to the next read of ``done``, at most
@@ -799,6 +884,21 @@ def main() -> None:
         for line in kernels.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    for name, symbols in REDESIGNED.items():
+        for symbol in symbols:
+            if not libs[name].log:
+                print(f"ptxas redesign {symbol}: not reported (an existing "
+                      "build was loaded)", flush=True)
+                continue
+            rec = ptxas_report(libs[name].log, symbol)
+            check(rec is not None and "registers" in rec,
+                  f"no ptxas report for {symbol} in the {name} build")
+            print(f"ptxas redesign {symbol}: {json.dumps(rec)}", flush=True)
+            if symbol == "resident_kernel":
+                check(rec.get("spill_store_bytes", 0) == 0
+                      and rec.get("spill_load_bytes", 0) == 0
+                      and rec.get("stack_frame_bytes", 0) == 0,
+                      f"{symbol} spills registers: {rec}")
 
     results: dict = {}
     errors: dict = {}
@@ -824,6 +924,8 @@ def main() -> None:
         check(n == 0, f"{path}: kernel S launched {n} times outside the "
                       "serial-reduce mode")
 
+    for kw in RESIDENT_FALLBACKS:
+        check_resident_fallback(Problem(**kw), fc, rs, errors)
     elapsed("kernels vs plain")
     # --- the fused path (kernels A, B). Counts zeroed just before, read
     # just after.
@@ -885,7 +987,7 @@ def main() -> None:
             fp64[p] = pcg_solve(p, dtype=torch.float64, device="cuda")
     rs.reset_launch_counts()
     sr.reset_launch_counts()
-    res_runs = {}
+    res_runs, res_iters = {}, {}
     for M, N, _ in RESIDENT_GRIDS:
         p = Problem(M=M, N=N)
         rs.resident_cg_solve(p)                       # warm-up
@@ -919,6 +1021,18 @@ def main() -> None:
         solve_line("resident", p, r, s, l2_error_host(p, r.w), {
             "seconds_each": [t for _, t in res_runs[p]],
             "max_diff_vs_plain": vs_plain, "max_diff_vs_fp64": vs_fp64})
+        lay = rs.resident_layout(cv, *rs.card_geometry(0))
+        sms = rs.card_geometry(0)[0]
+        print(f"resident geometry {M}x{N}: " + json.dumps({
+            "sms": sms, "blocks": lay.blocks, "rows_per_block": lay.rmax,
+            "smem_bytes": lay.smem_bytes,
+            "fields_in_device_memory": [
+                f for f, o in zip(rs.FIELDS, lay.offsets) if o < 0],
+            "points_per_thread": lay.points_per_thread,
+            "points_in_registers": lay.reg_points}), flush=True)
+        check(lay.blocks == min(sms, cv.rows - 2 * fc.HALO),
+              f"resident {M}x{N}: {lay.blocks} blocks on {sms} SMs")
+        res_iters[f"{M}x{N}"] = (k, s / k * 1e6)
         points = band_points(fc, cv)
         timers.append(timer(
             results, "resident_solve", f"{M}x{N}",
@@ -1270,6 +1384,19 @@ def main() -> None:
     for time_it in timers:
         time_it()
 
+    # Kernel R per iteration (device time of the whole launch over its
+    # count) beside its solve's, and kernel C's two forms against their
+    # bound at both grids and both shard sizes.
+    print("resident per iteration (us): " + json.dumps({
+        tag: {"kernel": results["resident_solve"][tag]["ms"] * 1e3 / k,
+              "solve": solve_us}
+        for tag, (k, solve_us) in res_iters.items()}), flush=True)
+    print("basis sweep share of bound: " + json.dumps({
+        f"{name} {tag}": {"us": rec["ms"] * 1e3,
+                          "bound_us": rec["bound_ms"] * 1e3,
+                          "share": rec["bound_ms"] / rec["ms"]}
+        for name in ("basis_sweep", "basis_sweep_sharded")
+        for tag, rec in results[name].items()}), flush=True)
     # A′ and B′ against A and B at the wide probe (device µs per launch).
     wide_us = {name: results[name]["1024x16384"]["ms"] * 1e3
                for name in ("direction_stencil", "fused_update",

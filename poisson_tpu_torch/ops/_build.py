@@ -112,21 +112,25 @@ ENTRIES = {
         "fused_cg_update": ([_PTR] * 9 + [_I32] * 4 + [_PTR], _I32),
     },
     "ca_cg": {
-        "ca_cg_layout": ([_I32_OUT] * 3, None),
+        "ca_cg_layout": ([_I32_OUT] * 4, None),
+        # device, out: SM count, kernel C's blocks per SM
+        "ca_cg_sweep_occupancy": ([_I32, _I32_OUT, _I32_OUT], _I32),
         # beta pprev r cs cw g sc2 colmask pn t1 t2 t3 gram | rows cols halo
-        # lo hi device | stream
-        "ca_cg_basis_sweep": ([_PTR] * 13 + [_I32] * 6 + [_PTR], _I32),
+        # lo hi seg_h device | stream
+        "ca_cg_basis_sweep": ([_PTR] * 13 + [_I32] * 7 + [_PTR], _I32),
         # coefs pn t1 t2 t3 colmask x r p1 rr_part | cols halo blocks device
         # | stream
         "ca_cg_pair_update": ([_PTR] * 10 + [_I32] * 4 + [_PTR], _I32),
     },
     "resident_cg": {
-        # device, out: blocks
-        "resident_cg_grid": ([_I32, _I32_OUT], _I32),
-        # cs cw g rhs sc2 w r p0 p1 ap part k diff zr | h1h2 norm_w delta |
-        # cap rows cols halo blocks device | stream
-        "resident_cg_solve": ([_PTR] * 14 + [_F32] * 3 + [_I32] * 6 + [_PTR],
-                              _I32),
+        "resident_cg_layout": ([_I32_OUT] * 4, None),
+        # device, out: SM count, shared memory a block may opt in to
+        "resident_cg_device": ([_I32, _I32_OUT, _I32_OUT], _I32),
+        # cs cw g rhs sc2 w r ap xch spill part k diff zr | h1h2 norm_w
+        # delta | cap rows cols halo off_pn off_cs off_cw off_g off_sc2
+        # off_w spill_stride smem_bytes blocks device | stream
+        "resident_cg_solve": ([_PTR] * 14 + [_F32] * 3 + [_I32] * 14
+                              + [_PTR], _I32),
     },
     "blocked_cg": {
         "blocked_cg_layout": ([_I32_OUT] * 3, None),

@@ -26,9 +26,12 @@ odd counts (989, 2449) come out exact.
 
 Canvas and layout: the fused path's full-width canvas (``ops.fused_cg``),
 one strip unless ``bm`` asks for the JAX strip layout; the Pallas drivers'
-``parallel`` knob shapes the TPU grid only and is not taken. Kernel C's
-partials are per (TILE_H × TILE_W) tile of the band, kernel D's per BLOCK
-consecutive band points, as kernel B's; both put a strip's partials in a
+``parallel`` knob shapes the TPU grid only and is not taken. Kernel C
+marches each block down a STRIP_W-column strip of a segment of band rows
+(:func:`sweep_geometry`, which sizes the segments to fill the card and
+which the CPU tests check); its partials are per (TILE_H × TILE_W) tile of
+the band, in :func:`n_tiles` order whatever the segments, kernel D's per
+BLOCK consecutive band points, as kernel B's; both put a strip's partials in a
 row, which is what the serial-reduce mode (``serial=True``) sums with
 kernel S, one run per JAX strip of ``strip_height(cols, M−1, 16)`` rows
 (kernel C holds 16 strip buffers on the TPU). The sharded CA solve
@@ -88,9 +91,15 @@ from poisson_tpu_torch.solvers.pcg import (
 )
 
 N_GRAM = 12   # a1 b1 e f g h | wpp wpr wpt wrr wrt wtt
-TILE_H = 8    # kernel C: band rows per block
-TILE_W = 32   # kernel C: columns per block
+TILE_H = 8    # kernel C: band rows per Gram tile (one set of partials)
+TILE_W = 32   # kernel C: columns per Gram tile (one warp)
 N_COEFS = 8   # kernel D: [c_p, a2, a2a1, α₁, β₁, only1, 0, 0]
+STRIP_W = 128  # kernel C: columns per block, which marches down its rows
+# The H100's SM count and kernel C's blocks per SM there (30,464 B of
+# shared memory and 128 threads each), for the geometry the tests check on
+# the CPU; on the card the wrapper queries both.
+H100_SMS = 132
+SWEEP_BLOCKS_PER_SM = 7
 
 # Canvas passes of one pair: C reads p_prev, r, cS, cW, γ, sc² and writes
 # pn, t1, t2, t3; D reads pn, t1, t2, t3, x, r and writes x, r, p₁.
@@ -121,6 +130,39 @@ def _stencil(pn, cs, cw, g, lo: int, hi: int):
 def n_tiles(cv: Canvas) -> int:
     """Kernel C's blocks: the band cut into TILE_H × TILE_W tiles."""
     return (cv.rows - 2 * HALO) // TILE_H * (cv.cols // TILE_W)
+
+
+class SweepGeometry(NamedTuple):
+    """Kernel C's grid: ``strips`` × ``segs`` blocks; block (s, g) owns the
+    columns s·STRIP_W + [0, STRIP_W) of the band rows g·seg_h + [0, seg_h)
+    (the last segment may be shorter), in whole TILE_H × TILE_W tiles."""
+
+    strips: int
+    seg_h: int
+    segs: int
+
+    @property
+    def blocks(self) -> int:
+        return self.strips * self.segs
+
+
+def sweep_geometry(cv: Canvas, sms: int = H100_SMS,
+                   per_sm: int = SWEEP_BLOCKS_PER_SM) -> SweepGeometry:
+    """Kernel C's strips and segments on a card of ``sms`` SMs that hold
+    ``per_sm`` of its blocks each: the shortest segments (a multiple of
+    TILE_H rows) whose grid the card holds at once, so that every shape
+    fills the card in one wave. Past its segment a block forms pn on 5
+    rows and t1 on 2, little beside the centre rows' t2, t3 and twelve
+    warp sums, so short segments cost little."""
+    if cv.cols % STRIP_W:
+        raise ValueError(f"canvas width {cv.cols} is not a multiple of "
+                         f"{STRIP_W}")
+    strips = cv.cols // STRIP_W
+    tile_rows = (cv.rows - 2 * HALO) // TILE_H
+    max_segs = max(1, sms * per_sm // strips)
+    seg_tiles = -(-tile_rows // max_segs)
+    return SweepGeometry(strips=strips, seg_h=seg_tiles * TILE_H,
+                         segs=-(-tile_rows // seg_tiles))
 
 
 def _tile_partials(x):
@@ -186,13 +228,27 @@ def pair_update_plain(cv: Canvas, coefs, pn, t1, t2, t3, x, r, p1,
 def _kernels():
     """The built library, checked to use this module's partial layouts."""
     kernels = load_kernels("ca_cg")
-    got = [ctypes.c_int() for _ in range(3)]
+    got = [ctypes.c_int() for _ in range(4)]
     kernels.lib.ca_cg_layout(*(ctypes.byref(v) for v in got))
     layout = tuple(v.value for v in got)
-    if layout != (TILE_H, TILE_W, BLOCK):
+    if layout != (TILE_H, TILE_W, BLOCK, STRIP_W):
         raise RuntimeError(f"{kernels.path.name} has layout {layout}; this "
-                           f"module expects {(TILE_H, TILE_W, BLOCK)}")
+                           f"module expects "
+                           f"{(TILE_H, TILE_W, BLOCK, STRIP_W)}")
     return kernels
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_card(device_index: int) -> tuple[int, int]:
+    """(SM count, kernel C's blocks per SM) on this card."""
+    kernels = _kernels()
+    sms, per_sm = ctypes.c_int(), ctypes.c_int()
+    check(kernels, kernels.lib.ca_cg_sweep_occupancy(
+        device_index, ctypes.byref(sms), ctypes.byref(per_sm)),
+        "basis_sweep occupancy query")
+    if per_sm.value < 1:
+        raise RuntimeError("basis_sweep: no block fits on an SM")
+    return sms.value, per_sm.value
 
 
 def _distinct(names: dict, what: str) -> None:
@@ -230,13 +286,20 @@ def basis_sweep(cv: Canvas, beta, pprev, r, cs, cw, g, sc2, out=None,
                                  (lo, hi), colmask)
         return (*outs, gram)
     kernels = _kernels()
+    geo = sweep_geometry(cv, *sweep_card(dev.index or 0))
+    staged = dict(pprev=pprev, r=r, cs=cs, cw=cw, g=g, sc2=sc2)
+    for name, t in staged.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(kernel C copies its rows 16 bytes at a time)")
     gram = torch.empty((n_tiles(cv), N_GRAM), dtype=torch.float32,
                        device=dev)
     code = kernels.lib.ca_cg_basis_sweep(
         beta.data_ptr(), pprev.data_ptr(), r.data_ptr(), cs.data_ptr(),
         cw.data_ptr(), g.data_ptr(), sc2.data_ptr(), mask_ptr, pn.data_ptr(),
         t1.data_ptr(), t2.data_ptr(), t3.data_ptr(), gram.data_ptr(),
-        cv.rows, cv.cols, HALO, lo, hi, dev.index or 0, _stream(dev),
+        cv.rows, cv.cols, HALO, lo, hi, geo.seg_h, dev.index or 0,
+        _stream(dev),
     )
     check(kernels, code, "basis_sweep launch")
     count_launch(basis_sweep, colmask)

@@ -26,20 +26,44 @@
 // Bound on the H100: memory. C reads p_prev, r, cS, cW, g, sc2 and writes
 // pn, t1, t2, t3 (10 canvas passes) for about 71 flops per point; D reads
 // pn, t1, t2, t3, x, r and writes x, r, p1 (9 passes) for about 18. Both
-// are far below the ~20 flops per byte where the fp32 rate (67 TFLOP/s)
-// would bind: at 800 x 1200 C moves 41 MB (12.2 us at 3.35 TB/s), D 37 MB.
+// are below the ~20 flops per byte where the fp32 rate (67 TFLOP/s) would
+// bind: at 800 x 1200 C moves 41 MB (12.2 us at 3.35 TB/s), D 37 MB. C
+// also issues many instructions per point (three stencils, twelve products
+// and their sums across the warp), and its shuffles and shared-memory loads
+// share one pipe per SM, so it only nears the memory bound when its loads
+// overlap its arithmetic and its sums take few shuffles.
 //
-// Design of C. t2 at a point needs t1 at its four neighbours, and t1 needs
-// pn at radius 2, so a block must never read t1 or pn from global memory
-// that another block writes in the same launch. Each block owns a tile of
-// kTileH x kTileW band points. It forms pn = r + beta p_prev into shared
-// memory over the tile plus a halo of 2 (zero off the live band and beyond
-// the canvas edge), then t1 into shared memory over the tile plus a halo of
-// 1, then t2 and t3 on the tile. t1 in the halo is recomputed by the same
-// device function, in the same order, as the block that owns it, so it is
-// the same bits. Reading r, p_prev and the coefficients a second time in
-// the halo costs L2 traffic, not HBM traffic: the tiles are 32 columns wide
-// (128-byte rows per warp) and neighbouring tiles run close together.
+// Design of C: a row-marching sweep. t2 at a point needs t1 at its four
+// neighbours and t1 needs pn at radius 2, so a block must never read t1 or
+// pn from global memory that another block writes in the same launch. A
+// block owns a strip of kStripW columns (one thread each, warp w the w-th
+// 32-column Gram tile) and a segment of seg_h band rows (a multiple of 8,
+// chosen by the wrapper so that the grid fills the card,
+// ca_cg.sweep_geometry), and marches down it one row at a time. At step j
+// it stages input row L = seg0 - 2 + j (r, p_prev, cS, cW, g, sc2 over the
+// strip plus 4 columns each side) and, from rows already staged, forms pn
+// on row L and t2, t3 and the Gram products on row L - 3, then, after one
+// barrier, t1 on row L - 1: two barriers per row.
+//   - inputs arrive by cp.async, kAhead rows ahead of the row computed, in
+//     a ring of kAhead + 5 rows (t3 reads r four rows back), so a row's
+//     loads overlap the arithmetic of the rows before it; each input is
+//     read from global memory once per strip, plus 4 staged columns on each
+//     side and the 5 rows past a segment (from L2);
+//   - pn and t1 live in rings of four rows; the rings are powers of two,
+//     indexed by a mask, since a thread computes one point per step and
+//     every instruction of the step counts per point; the coefficients t1
+//     loads for its row stay in registers for t2 and t3 two steps later,
+//     so each is read from shared memory once per point;
+//   - pn on the two halo columns each side, and t1 on one, are formed by
+//     four lanes of one warp and two of another; t1 on a segment's edge
+//     rows and on the halo columns is recomputed by the same device
+//     function, in the same order, as the block that owns it, so it is the
+//     same bits;
+//   - loops walk rows and fixed column offsets: no division per point.
+// Partials keep the (tiles, 12) layout, one set per 8 x 32 tile in
+// n_tiles order, formed with the same bits: each row's 32 lanes summed in
+// warp_sum's tree (sum_lanes does the twelve at once), then the 8 row sums
+// added in row order.
 //
 // Design of D: elementwise, one thread per band point, coefficients read
 // through a device pointer (the host reads nothing), x and r updated in
@@ -52,19 +76,38 @@
 // and every field agrees with them bit for bit; only the per-block sums
 // differ, in their order of summation.
 //
-// Reductions: each block writes its partials (12 for C in the order
-// a1 b1 e f g h | wpp wpr wpt wrr wrt wtt, one for D) with warp shuffles and
-// one shared-memory slot per warp, summed in a fixed order. No atomics.
+// Reductions: each block writes its partials (12 per Gram tile for C in the
+// order a1 b1 e f g h | wpp wpr wpt wrr wrt wtt, one per block for D) with
+// warp shuffles, summed in a fixed order. No atomics.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileW = 32;                 // C: tile columns (one warp)
-constexpr int kTileH = 8;                  // C: tile rows (one per warp)
-constexpr int kThreads = kTileW * kTileH;  // 256 threads per block, C and D
+constexpr int kTileW = 32;                 // C: Gram tile columns (one warp)
+constexpr int kTileH = 8;                  // C: Gram tile rows
+constexpr int kThreads = 256;              // D: threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kGram = 12;
+
+// Kernel C's row march.
+constexpr int kStripW = 128;               // block columns, one thread each
+constexpr int kSweepThreads = kStripW;
+constexpr int kPad = 4;                    // staged columns each side (16 B)
+constexpr int kRowW = kStripW + 2 * kPad;  // floats per staged row
+constexpr int kAhead = 3;                  // rows in flight past the one used
+// The input ring: rows L - 4 .. L + kAhead, the oldest read by t3 on the
+// centre row L - 3; a thread refills the slot of row L - 5 before the
+// step's first barrier, when every thread has left the phase that read it.
+constexpr int kSlots = kAhead + 5;
+constexpr int kRing = 4;                   // pn and t1 rows kept (3 in use)
+static_assert((kSlots & (kSlots - 1)) == 0 && (kRing & (kRing - 1)) == 0,
+              "rings are indexed by a mask");
+constexpr int kInputs = 6;                 // r, p_prev, cS, cW, g, sc2
+constexpr int kChunks = kRowW / 4;         // 16-byte copies per staged row
+constexpr int kCopies = kInputs * kChunks; // copies per ring slot
+constexpr int kCopiesPerThread = (kCopies + kSweepThreads - 1) / kSweepThreads;
+enum { kR, kP, kCS, kCW, kG, kSC2 };
 
 // Difference-form stencil of pallas_ca._stencil, in its order:
 //   cS_{i+1} (c - n) + cS_i (c - s) + cW_{j+1} (c - e) + cW_j (c - w) + g c
@@ -85,26 +128,86 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Kernel C. Block (bx, by) owns canvas rows halo + by*kTileH + [0, kTileH)
-// and columns bx*kTileW + [0, kTileW); thread (ty, tx) = (tid / 32, tid % 32)
-// owns one point of it. pn = r + beta p_prev is live on the rows [lo, hi):
-// the centre rows on one device; on a shard the band is widened by two rows
-// on each side (lo = halo - 2, hi = rows - halo + 2), so pn is real on the
-// width-2 halo ring, whose r and p_prev hold the neighbours' values, and t1
-// next to the shard's edge reads them, not zeros
+// Kernel C. Block (bx, by) owns columns bx*kStripW + [0, kStripW) and band
+// rows halo + by*seg_h + [0, seg_h) (the last segment ends at the band's
+// end); thread t owns column c0 + t. pn = r + beta p_prev is live on the
+// rows [lo, hi): the centre rows on one device; on a shard the band is
+// widened by two rows on each side (lo = halo - 2, hi = rows - halo + 2), so
+// pn is real on the width-2 halo ring, whose r and p_prev hold the
+// neighbours' values, and t1 next to the shard's edge reads them, not zeros
 // (poisson_tpu/parallel/pallas_ca_sharded.py:212-220). When kMasked, the six
 // unweighted Gram products are multiplied by colmask[col] before they are
 // summed; the weighted six need no mask, since a shard's sc2 is zero outside
 // the points it owns.
-constexpr int kPw = kTileW + 4, kPh = kTileH + 4;  // pn: halo 2
-constexpr int kTw = kTileW + 2, kTh = kTileH + 2;  // t1, r: halo 1
+// The twelve warp sums of one row at once: a transposed xor butterfly over
+// sixteen slots (the last four zero). At the step of offset 2H each lane
+// keeps half of its slots, by that bit of its lane, and adds its partner's
+// copy of them, so after four steps lane l holds slot l >> 1 summed over
+// the 16 lanes that share its bit 0, and the last step adds lane l ^ 1.
+// Every slot is summed over the same pairs, level by level, as warp_sum's
+// shfl_down tree sums it into lane 0, and a + b rounds as b + a, so each
+// sum has warp_sum's bits, in 16 shuffles for the twelve instead of 60.
+// Shuffles and shared-memory loads share one pipe, which bounds this
+// kernel from L2. Each step is its own instantiation, so every index is a
+// constant and x stays in registers (ptxas: no stack frame).
+template <int H>
+__device__ __forceinline__ void fold(float (&x)[16], int lane) {
+  const bool upper = (lane & (2 * H)) != 0;
+#pragma unroll
+  for (int q = 0; q < H; ++q) {
+    const float keep = upper ? x[q + H] : x[q];
+    const float send = upper ? x[q] : x[q + H];
+    x[q] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 2 * H));
+  }
+}
 
-struct BasisShared {
-  float pn[kPh][kPw];
-  float t1[kTh][kTw];
-  float r[kTh][kTw];
-  float slots[kGram][kWarps];
+__device__ __forceinline__ float sum_lanes(const float (&v)[kGram]) {
+  const int lane = threadIdx.x & 31;
+  float x[16];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) x[q] = q < kGram ? v[q] : 0.0f;
+  fold<8>(x, lane);
+  fold<4>(x, lane);
+  fold<2>(x, lane);
+  fold<1>(x, lane);
+  return __fadd_rn(x[0], __shfl_xor_sync(0xffffffffu, x[0], 1));
+}
+
+struct SweepShared {
+  float in[kSlots][kInputs][kRowW];   // staged rows, column c0 - kPad + x
+  float pn[kRing][kRowW];             // pn rows, same columns
+  float t1[kRing][kRowW];             // t1 rows, same columns
 };
+
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  // A copy past the canvas edge reads nothing and fills zeros.
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_wait_ahead() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead) : "memory");
+}
+
+__device__ __forceinline__ const float* input_field(
+    int f, const float* r, const float* pprev, const float* cs,
+    const float* cw, const float* g, const float* sc2) {
+  switch (f) {
+    case kR: return r;
+    case kP: return pprev;
+    case kCS: return cs;
+    case kCW: return cw;
+    case kG: return g;
+    default: return sc2;
+  }
+}
 
 template <bool kMasked>
 __device__ __forceinline__ void basis_sweep_body(
@@ -113,112 +216,172 @@ __device__ __forceinline__ void basis_sweep_body(
     const float* __restrict__ cw, const float* __restrict__ g,
     const float* __restrict__ sc2, const float* __restrict__ colmask,
     float* __restrict__ pn, float* __restrict__ t1, float* __restrict__ t2,
-    float* __restrict__ t3, float* __restrict__ gram, int cols, int halo,
-    int lo, int hi, BasisShared& sh) {
-  auto& s_pn = sh.pn;
-  auto& s_t1 = sh.t1;
-  auto& s_r = sh.r;
-  auto& slots = sh.slots;
-
-  const int tid = threadIdx.x;
-  const int row0 = halo + blockIdx.y * kTileH;
-  const int col0 = blockIdx.x * kTileW;
+    float* __restrict__ t3, float* __restrict__ gram, int rows, int cols,
+    int halo, int lo, int hi, int seg_h, SweepShared& sh) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.x * kStripW;
+  const int seg0 = halo + blockIdx.y * seg_h;
+  const int seg1 = min(seg0 + seg_h, rows - halo);
+  const int first = seg0 - 2;          // first staged row
+  const int steps = seg1 - seg0 + 5;   // staged rows: seg0 - 2 .. seg1 + 2
+  const int col = c0 + tid;
+  const int x = kPad + tid;            // the thread's column in a staged row
   const float beta = *beta_ptr;
+  const float m = kMasked ? colmask[col] : 1.0f;
+  const int tiles_per_row = cols / kTileW;
 
-  // pn over the tile plus 2: zero off the live band and beyond the edges.
-  // Rows row0 - 2 .. row0 + kTileH + 1 lie inside the canvas (halo >= 2),
-  // and so does the band (the wrapper checks halo - 2 <= lo, hi <= rows -
-  // halo + 2).
-  for (int i = tid; i < kPh * kPw; i += kThreads) {
-    const int lr = i / kPw, lc = i % kPw;
-    const int row = row0 - 2 + lr, col = col0 - 2 + lc;
-    float v = 0.0f;
-    if (row >= lo && row < hi && col >= 0 && col < cols) {
-      const long long k = static_cast<long long>(row) * cols + col;
-      v = __fadd_rn(r[k], __fmul_rn(beta, pprev[k]));
+  // The thread's copies of each staged row: field, column, and whether the
+  // column lies on the canvas (a chunk lies wholly on or off it).
+  const float* src[kCopiesPerThread];
+  int dst[kCopiesPerThread];
+  bool live[kCopiesPerThread], on[kCopiesPerThread];
+#pragma unroll
+  for (int k = 0; k < kCopiesPerThread; ++k) {
+    const int q = tid + k * kSweepThreads;
+    const int f = q / kChunks, ch = q - f * kChunks;
+    const int c = c0 - kPad + 4 * ch;
+    live[k] = q < kCopies;
+    on[k] = c >= 0 && c < cols;
+    src[k] = input_field(live[k] ? f : 0, r, pprev, cs, cw, g, sc2)
+             + (on[k] ? c : 0);
+    dst[k] = f * kRowW + 4 * ch;
+  }
+  // Row first + j goes to ring slot j & (kSlots - 1); the rows' offsets
+  // advance by one row per step.
+  long long src_off = static_cast<long long>(first) * cols;
+  auto stage = [&](int j) {
+    if (j < steps) {
+      float* slot = &sh.in[j & (kSlots - 1)][0][0];
+#pragma unroll
+      for (int k = 0; k < kCopiesPerThread; ++k)
+        if (live[k]) copy16(slot + dst[k], src[k] + src_off, on[k]);
     }
-    s_pn[lr][lc] = v;
-  }
-  // r over the tile plus 1, as stored (guard rows hold zeros, a shard's
-  // halo rows its neighbours' values).
-  for (int i = tid; i < kTh * kTw; i += kThreads) {
-    const int lr = i / kTw, lc = i % kTw;
-    const int row = row0 - 1 + lr, col = col0 - 1 + lc;
-    s_r[lr][lc] = (col >= 0 && col < cols)
-                      ? r[static_cast<long long>(row) * cols + col] : 0.0f;
-  }
-  __syncthreads();
-
-  // t1 = A~ pn over the tile plus 1 (guard rows included, as the Pallas
-  // kernel computes it on center +/- 1 rows); zero beyond the canvas edge,
-  // which is what t2's column shifts bring in.
-  for (int i = tid; i < kTh * kTw; i += kThreads) {
-    const int lr = i / kTw, lc = i % kTw;
-    const int row = row0 - 1 + lr, col = col0 - 1 + lc;
-    float v = 0.0f;
-    if (col >= 0 && col < cols) {
-      const long long k = static_cast<long long>(row) * cols + col;
-      const int pr = lr + 1, pc = lc + 1;
-      v = stencil(s_pn[pr][pc], s_pn[pr + 1][pc], s_pn[pr - 1][pc],
-                  s_pn[pr][pc + 1], s_pn[pr][pc - 1], cs[k + cols], cs[k],
-                  col + 1 < cols ? cw[k + 1] : 0.0f, cw[k], g[k]);
-    }
-    s_t1[lr][lc] = v;
-  }
-  __syncthreads();
-
-  const int ty = tid / kTileW, tx = tid % kTileW;
-  const int row = row0 + ty, col = col0 + tx;
-  const long long k = static_cast<long long>(row) * cols + col;
-  const float cs_n = cs[k + cols], cs_c = cs[k], cw_c = cw[k], gk = g[k];
-  const float cw_e = col + 1 < cols ? cw[k + 1] : 0.0f;
-  const int y = ty + 1, x = tx + 1;
-  const float p = s_pn[ty + 2][tx + 2];
-  const float a = s_t1[y][x];
-  const float b = stencil(a, s_t1[y + 1][x], s_t1[y - 1][x], s_t1[y][x + 1],
-                          s_t1[y][x - 1], cs_n, cs_c, cw_e, cw_c, gk);
-  const float rc = s_r[y][x];
-  const float c = stencil(rc, s_r[y + 1][x], s_r[y - 1][x], s_r[y][x + 1],
-                          s_r[y][x - 1], cs_n, cs_c, cw_e, cw_c, gk);
-  pn[k] = p;
-  t1[k] = a;
-  t2[k] = b;
-  t3[k] = c;
-
-  const float w2 = sc2[k];
-  float v[kGram] = {
-      __fmul_rn(p, a),                       // a1 = <pn, t1>
-      __fmul_rn(a, a),                       // b1 = <t1, t1>
-      __fmul_rn(rc, a),                      // e  = <r, t1>
-      __fmul_rn(rc, c),                      // f  = <r, t3>
-      __fmul_rn(a, c),                       // g  = <t1, t3>
-      __fmul_rn(a, b),                       // h  = <t1, t2>
-      __fmul_rn(__fmul_rn(p, p), w2),        // wpp
-      __fmul_rn(__fmul_rn(p, rc), w2),       // wpr
-      __fmul_rn(__fmul_rn(p, a), w2),        // wpt
-      __fmul_rn(__fmul_rn(rc, rc), w2),      // wrr
-      __fmul_rn(__fmul_rn(rc, a), w2),       // wrt
-      __fmul_rn(__fmul_rn(a, a), w2),        // wtt
+    src_off += cols;
+    copy_commit();             // one group per step, empty or not
   };
-  if (kMasked) {
-    const float m = colmask[col];
+
+  for (int j = 0; j < kAhead; ++j) stage(j);
+  // The coefficients of t1's row, carried to the step whose centre row it
+  // is: set a for row L - 3 (used at step j), set b for row L - 2.
+  float a_cs_n = 0.0f, a_cs_c = 0.0f, a_cw_c = 0.0f, a_cw_e = 0.0f;
+  float a_g = 0.0f;
+  float b_cs_n = 0.0f, b_cs_c = 0.0f, b_cw_c = 0.0f, b_cw_e = 0.0f;
+  float b_g = 0.0f;
+  float acc = 0.0f;
+  long long out_k = static_cast<long long>(seg0) * cols + col;
+
+  // Step j (row L = first + j), two phases between barriers: pn on row L
+  // and the centre row L - 3, then t1 on row L - 1. Ring slots: input row
+  // first + i in slot i & (kSlots - 1), pn and t1 row first + i in slot
+  // i & (kRing - 1).
+  for (int j = 0; j < steps; ++j) {
+    stage(j + kAhead);
+    copy_wait_ahead();         // this thread's copies of row j have landed
+    __syncthreads();           // ... and every thread's; t1 of row L - 2 too
+    const int L = first + j;
+    const float (*in)[kRowW] = sh.in[j & (kSlots - 1)];
+
+    // pn on row L: every thread its column (on the canvas), four lanes of
+    // warp 2 the halo columns c0 - 2, c0 - 1, c0 + kStripW, c0 + kStripW + 1
+    // (zero past the canvas edge).
+    const bool row_live = L >= lo && L < hi;
+    float* pn_l = sh.pn[j & (kRing - 1)];
+    pn_l[x] = row_live ? __fadd_rn(in[kR][x], __fmul_rn(beta, in[kP][x]))
+                       : 0.0f;
+    if (warp == 2 && lane < 4) {
+      const int xx = lane < 2 ? kPad - 2 + lane : kPad + kStripW + lane - 2;
+      const int c = c0 - kPad + xx;
+      pn_l[xx] = (row_live && c >= 0 && c < cols)
+                     ? __fadd_rn(in[kR][xx], __fmul_rn(beta, in[kP][xx]))
+                     : 0.0f;
+    }
+
+    // t2, t3 and the Gram products on the centre row L - 3, from t1 on rows
+    // L - 4 .. L - 2 and the coefficients t1 loaded for the row.
+    if (j >= 5) {
+      const int row = L - 3;
+      const float* tc = sh.t1[(j - 3) & (kRing - 1)];
+      const float* tn = sh.t1[(j - 2) & (kRing - 1)];
+      const float* ts = sh.t1[(j - 4) & (kRing - 1)];
+      const float (*in_r)[kRowW] = sh.in[(j - 3) & (kSlots - 1)];
+      const float* rc_row = in_r[kR];
+      const float* rn_row = sh.in[(j - 2) & (kSlots - 1)][kR];
+      const float* rs_row = sh.in[(j - 4) & (kSlots - 1)][kR];
+      const float p = sh.pn[(j - 3) & (kRing - 1)][x];
+      const float a = tc[x];
+      const float b = stencil(a, tn[x], ts[x], tc[x + 1], tc[x - 1], a_cs_n,
+                              a_cs_c, a_cw_e, a_cw_c, a_g);
+      const float rc = rc_row[x];
+      const float c = stencil(rc, rn_row[x], rs_row[x], rc_row[x + 1],
+                              rc_row[x - 1], a_cs_n, a_cs_c, a_cw_e, a_cw_c,
+                              a_g);
+      pn[out_k] = p;
+      t1[out_k] = a;
+      t2[out_k] = b;
+      t3[out_k] = c;
+      out_k += cols;
+
+      const float w2 = in_r[kSC2][x];
+      float v[kGram] = {
+          __fmul_rn(p, a),                       // a1 = <pn, t1>
+          __fmul_rn(a, a),                       // b1 = <t1, t1>
+          __fmul_rn(rc, a),                      // e  = <r, t1>
+          __fmul_rn(rc, c),                      // f  = <r, t3>
+          __fmul_rn(a, c),                       // g  = <t1, t3>
+          __fmul_rn(a, b),                       // h  = <t1, t2>
+          __fmul_rn(__fmul_rn(p, p), w2),        // wpp
+          __fmul_rn(__fmul_rn(p, rc), w2),       // wpr
+          __fmul_rn(__fmul_rn(p, a), w2),        // wpt
+          __fmul_rn(__fmul_rn(rc, rc), w2),      // wrr
+          __fmul_rn(__fmul_rn(rc, a), w2),       // wrt
+          __fmul_rn(__fmul_rn(a, a), w2),        // wtt
+      };
+      if (kMasked) {
 #pragma unroll
-    for (int j = 0; j < kGram / 2; ++j) v[j] = __fmul_rn(v[j], m);
-  }
-  const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int j = 0; j < kGram; ++j) {
-    const float s = warp_sum(v[j]);
-    if (lane == 0) slots[j][warp] = s;
-  }
-  __syncthreads();
-  if (tid < kGram) {
-    float s = slots[tid][0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) s = __fadd_rn(s, slots[tid][w]);
-    const long long blk = static_cast<long long>(blockIdx.y) * gridDim.x
-                          + blockIdx.x;
-    gram[blk * kGram + tid] = s;
+        for (int q = 0; q < kGram / 2; ++q) v[q] = __fmul_rn(v[q], m);
+      }
+      // A tile's sums: each row's 32 lanes summed (sum_lanes, warp_sum's
+      // tree), the 8 rows added in order; lane 2q holds sum q.
+      const int tile_row = (row - seg0) & (kTileH - 1);
+      const float s = sum_lanes(v);
+      acc = tile_row == 0 ? s : __fadd_rn(acc, s);
+      if (tile_row == kTileH - 1 && (lane & 1) == 0 && lane < 2 * kGram) {
+        const long long tile = static_cast<long long>((row - halo) / kTileH)
+                               * tiles_per_row + c0 / kTileW + warp;
+        gram[tile * kGram + (lane >> 1)] = acc;
+      }
+    }
+    a_cs_n = b_cs_n;
+    a_cs_c = b_cs_c;
+    a_cw_c = b_cw_c;
+    a_cw_e = b_cw_e;
+    a_g = b_g;
+    __syncthreads();           // pn of row L
+    if (j < 2 || j == steps - 1) continue;   // the last step needs no t1
+
+    // t1 on row L - 1 (from pn on rows L - 2 .. L): every thread its
+    // column, two lanes of warp 3 the halo columns c0 - 1 and c0 + kStripW
+    // (zero past the canvas edge, which is what t2's shifts bring in).
+    const float (*in_c)[kRowW] = sh.in[(j - 1) & (kSlots - 1)];   // L - 1
+    const float* pc = sh.pn[(j - 1) & (kRing - 1)];
+    const float* pns = sh.pn[(j - 2) & (kRing - 1)];
+    float* t1_c = sh.t1[(j - 1) & (kRing - 1)];
+    b_cs_n = in[kCS][x];
+    b_cs_c = in_c[kCS][x];
+    b_cw_c = in_c[kCW][x];
+    b_cw_e = in_c[kCW][x + 1];
+    b_g = in_c[kG][x];
+    t1_c[x] = stencil(pc[x], pn_l[x], pns[x], pc[x + 1], pc[x - 1], b_cs_n,
+                      b_cs_c, b_cw_e, b_cw_c, b_g);
+    if (warp == 3 && lane < 2) {
+      const int xx = lane == 0 ? kPad - 1 : kPad + kStripW;
+      const int c = c0 - kPad + xx;
+      t1_c[xx] = (c >= 0 && c < cols)
+                     ? stencil(pc[xx], pn_l[xx], pns[xx], pc[xx + 1],
+                               pc[xx - 1], in[kCS][xx], in_c[kCS][xx],
+                               in_c[kCW][xx + 1], in_c[kCW][xx], in_c[kG][xx])
+                     : 0.0f;
+    }
   }
 }
 
@@ -273,7 +436,7 @@ __device__ __forceinline__ void pair_update_body(
 // The single-device forms and the sharded (masked) forms are separate
 // kernels with names neither of which contains the other, so a profiler
 // trace tells them apart by name.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSweepThreads)
 basis_sweep_kernel(const float* __restrict__ beta,
                    const float* __restrict__ pprev,
                    const float* __restrict__ r,
@@ -283,13 +446,13 @@ basis_sweep_kernel(const float* __restrict__ beta,
                    const float* __restrict__ sc2, float* __restrict__ pn,
                    float* __restrict__ t1, float* __restrict__ t2,
                    float* __restrict__ t3, float* __restrict__ gram,
-                   int cols, int halo, int lo, int hi) {
-  __shared__ BasisShared sh;
+                   int rows, int cols, int halo, int lo, int hi, int seg_h) {
+  __shared__ __align__(16) SweepShared sh;
   basis_sweep_body<false>(beta, pprev, r, cs, cw, g, sc2, nullptr, pn, t1,
-                          t2, t3, gram, cols, halo, lo, hi, sh);
+                          t2, t3, gram, rows, cols, halo, lo, hi, seg_h, sh);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSweepThreads)
 basis_sweep_sharded(const float* __restrict__ beta,
                     const float* __restrict__ pprev,
                     const float* __restrict__ r,
@@ -300,11 +463,11 @@ basis_sweep_sharded(const float* __restrict__ beta,
                     const float* __restrict__ colmask,
                     float* __restrict__ pn, float* __restrict__ t1,
                     float* __restrict__ t2, float* __restrict__ t3,
-                    float* __restrict__ gram, int cols, int halo, int lo,
-                    int hi) {
-  __shared__ BasisShared sh;
+                    float* __restrict__ gram, int rows, int cols, int halo,
+                    int lo, int hi, int seg_h) {
+  __shared__ __align__(16) SweepShared sh;
   basis_sweep_body<true>(beta, pprev, r, cs, cw, g, sc2, colmask, pn, t1,
-                         t2, t3, gram, cols, halo, lo, hi, sh);
+                         t2, t3, gram, rows, cols, halo, lo, hi, seg_h, sh);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -339,11 +502,31 @@ pair_update_sharded(const float* __restrict__ coefs,
 
 extern "C" {
 
-// The partial layouts the Python side must reproduce.
-void ca_cg_layout(int* tile_rows, int* tile_cols, int* threads) {
+// The layouts the Python side must reproduce: C's Gram tile and strip,
+// D's block.
+void ca_cg_layout(int* tile_rows, int* tile_cols, int* threads,
+                  int* strip_cols) {
   *tile_rows = kTileH;
   *tile_cols = kTileW;
   *threads = kThreads;
+  *strip_cols = kStripW;
+}
+
+// The card's SM count and how many blocks of kernel C (either form) one SM
+// holds at once, from which ca_cg.sweep_geometry sizes the segments.
+int ca_cg_sweep_occupancy(int device, int* sms, int* per_sm) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int a = 0, b = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &a, basis_sweep_kernel, kSweepThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &b, basis_sweep_sharded, kSweepThreads, 0);
+  *per_sm = a < b ? a : b;
+  return static_cast<int>(err);
 }
 
 const char* ca_cg_error_string(int code) {
@@ -358,19 +541,22 @@ int ca_cg_basis_sweep(const float* beta, const float* pprev, const float* r,
                       const float* cs, const float* cw, const float* g,
                       const float* sc2, const float* colmask, float* pn,
                       float* t1, float* t2, float* t3, float* gram, int rows,
-                      int cols, int halo, int lo, int hi, int device,
-                      cudaStream_t stream) {
+                      int cols, int halo, int lo, int hi, int seg_h,
+                      int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(cols / kTileW, (rows - 2 * halo) / kTileH);
+  const int band = rows - 2 * halo;
+  if (seg_h <= 0 || seg_h % kTileH || cols % kStripW || band % kTileH)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(cols / kStripW, (band + seg_h - 1) / seg_h);
   if (colmask == nullptr) {
-    basis_sweep_kernel<<<grid, kThreads, 0, stream>>>(
-        beta, pprev, r, cs, cw, g, sc2, pn, t1, t2, t3, gram, cols, halo, lo,
-        hi);
+    basis_sweep_kernel<<<grid, kSweepThreads, 0, stream>>>(
+        beta, pprev, r, cs, cw, g, sc2, pn, t1, t2, t3, gram, rows, cols,
+        halo, lo, hi, seg_h);
   } else {
-    basis_sweep_sharded<<<grid, kThreads, 0, stream>>>(
-        beta, pprev, r, cs, cw, g, sc2, colmask, pn, t1, t2, t3, gram, cols,
-        halo, lo, hi);
+    basis_sweep_sharded<<<grid, kSweepThreads, 0, stream>>>(
+        beta, pprev, r, cs, cw, g, sc2, colmask, pn, t1, t2, t3, gram, rows,
+        cols, halo, lo, hi, seg_h);
   }
   return static_cast<int>(cudaGetLastError());
 }
