@@ -9,8 +9,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build of every CUDA source in ``poisson_tpu_torch/ops/csrc`` for
    ``sm_90a``, one ``nvcc`` each, all at once, with their times and
    ``ptxas`` reports, and one "ptxas redesign" line (registers, shared
-   memory, spill bytes) for each kernel redesigned for the card: R, which
-   must not spill, and both forms of C;
+   memory, stack frame, spill bytes) for each kernel redesigned for the
+   card: R and S, which must not spill, and both forms of C;
 3. each kernel against its plain PyTorch version on the card, on the same
    seeded canvases with nonzero β and coefficients, at 800×1200 (the
    flagship) and at 2400×3200 (the largest published grid): max abs error of
@@ -28,7 +28,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against its plain version, bit for bit, on the partials of A, B, C and
    D at both grids in the serial mode's runs, on those of the sharded
    forms in a shard's runs, and on those of A′ and B′ in a blocked tile's
-   runs; the blocked canvases' padding (points swept against the grid's
+   runs, each with its ``serial.serial_plan``; the blocked canvases' padding (points swept against the grid's
    interior, which their bytes and bounds count); kernel C's fields exactly
    (0.0) and its strip × segment geometry at each shape; kernel R against
    its plain version after 20 iterations at two grids whose state does not
@@ -77,6 +77,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the auto-blocked canvas (A′, B′) and once at full width (A, B): µs per
      iteration of each, the host setup seconds of each canvas, and the
      relative difference of the two iterates (≤ 1e-4);
+   - the plain sharded solve, ``pcg_solve_sharded`` (no kernel), on the
+     2×2 mesh at 400×600 and 800×1200: fp64 Jacobi and fp32 scaled with
+     host setup and fp64 with device setup, 546 and 989 exactly, the fp64
+     iterates within 1e-10 and the fp32 one within 1e-5 of the plain fp64
+     single-device solve, device setup the host setup's count, no kernel
+     launched;
    - checkpoint drills at 800×1200 (``fused_cg_solve_checkpointed``,
      ``ca_cg_solve_checkpointed``): chunks of 200 give 989 and the one-shot
      iterate bit for bit; a run capped at 500 and resumed gives the same;
@@ -84,12 +90,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      on the fused path give 989; every count zeroed before each solve and
      its kernels launched exactly once per step its chunks drive; and the
      seconds of one checkpoint write at 2400×3200;
+   - the same drills on the 2×2 mesh for ``sharded``, ``fused-sharded``
+     and ``ca-sharded`` (``*_sharded_checkpointed``): chunks of 200 bit for
+     bit with the one-shot solve, a run capped at 500 and resumed gives 989
+     (the fused one bit for bit), a single-device fused file resumes on the
+     mesh, and chunked serial solves bit for bit with the one-shot serial
+     ones; each sharded kernel form launched once per shard and driven
+     step, S twice (8 per step on the fused path), nothing else; and one
+     checkpoint write per backend;
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events, and for kernel S ``torch.sum`` over the same partials
    as its library yardstick), bytes and bounds, kernel R's device µs per
    iteration beside its solve's, kernel C's two forms against their bound
-   at both grids and both shard sizes, and a profile of one
+   at both grids and both shard sizes, kernel S beside ``torch.sum`` (with
+   its chain's latency bound at the card's clock), and a profile of one
    flagship solve on the fused, blocked, CA, sharded fused and sharded CA
    paths;
 6. a ``kernels`` JSON line (twelve kernels), then the ``ok`` JSON line last.
@@ -101,6 +116,7 @@ beside it), it exits non-zero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -215,9 +231,18 @@ WIDE = dict(M=1024, N=16384, delta=1e-30, max_iter=200)
 WIDE_TOL = 1e-4      # blocked vs full-width iterate after 200 iterations
 CKPT_CHUNK = 200     # checkpoint drills: iterations per chunk
 CKPT_CAP = 500       # the capped run the drills resume
-# The kernels redesigned for the card in the fifth slice, by library.
+# The kernels redesigned for the card (R and C in the fifth slice, S in the
+# sixth), by library; those in NO_SPILL must report no spill and no stack
+# frame.
 REDESIGNED = {"resident_cg": ("resident_kernel",),
-              "ca_cg": ("basis_sweep_kernel", "basis_sweep_sharded")}
+              "ca_cg": ("basis_sweep_kernel", "basis_sweep_sharded"),
+              "serial_sum": ("serial_sum_kernel",)}
+NO_SPILL = ("resident_kernel", "serial_sum_kernel")
+# The plain sharded solve (no kernel of the port) on the 2x2 mesh: fp64
+# Jacobi and fp32 scaled with host setup, fp64 with device setup, exact
+# counts; fp64 iterate vs the plain single-device fp64 solve on the card.
+PLAIN_SHARDED = [(400, 600, 546), (800, 1200, 989)]
+SHARDED_FP64_TOL = 1e-10
 # Grids at which kernel R keeps part of its state in device memory: sc² and
 # w off chip (one row of 8064 columns per block), and also points past the
 # registers (three rows of 3840); 20 iterations that never converge, few
@@ -402,11 +427,41 @@ def check_serial(sr, tag: str, inputs: dict, errors: dict) -> None:
         torch.cuda.synchronize()
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
         err = float((got - want).abs().max())
+        x, interleaved = sr.kernel_layout(sr._as_vectors(parts)[0])
+        plan = sr.serial_plan(x.shape[1], x.shape[0], n, interleaved)
         print(f"kernel serial_sum {tag} on {label}'s partials (run {n}): "
-              f"bitwise={same} max_abs_err={err!r}", flush=True)
+              f"bitwise={same} max_abs_err={err!r} plan "
+              f"{json.dumps(plan._asdict())}", flush=True)
         check(same, f"serial_sum {tag} on {label}'s partials: not bit for "
                     f"bit with its plain version ({err})")
         record_err(errors, "serial_sum", err)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (MHz), from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi clocks: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+# Latency of one dependent fp32 add on Hopper, in cycles: the floor under
+# every link of kernel S's chain (its shuffles and shared-memory loads take
+# longer).
+FADD_CYCLES = 4
+
+
+def serial_chain_bound(sr, parts, run: int) -> dict:
+    """Kernel S's latency bound on ``parts`` in runs of ``run``: the
+    dependent adds its result waits for (a lane's run, the five tree
+    levels, four per Kahan link) at FADD_CYCLES each, at the card's maximum
+    clock."""
+    x, _ = sr.kernel_layout(sr._as_vectors(parts)[0])
+    ops = -(-run // 32) + 2 * 5 + 4 * -(-x.shape[1] // run)
+    return {"chain_dependent_adds": ops,
+            "chain_bound_us": ops * FADD_CYCLES / sm_clock_mhz()}
 
 
 def check_kernels(M: int, N: int, fc, ca, sr, results: dict, errors: dict):
@@ -491,6 +546,9 @@ def check_kernels(M: int, N: int, fc, ca, sr, results: dict, errors: dict):
     c_out = tuple(torch.zeros_like(z) for _ in range(4))
     p1_out = torch.zeros_like(z)
     gram_t = c_k[4].T
+    chains = results.setdefault("serial_chain", {})
+    chains[tag] = serial_chain_bound(sr, part_k, run)
+    chains[f"{tag}-C"] = serial_chain_bound(sr, gram_t, ca_run)
     return [
         timer(results, "serial_sum", tag,
               lambda: sr.serial_sum(part_k, run),
@@ -841,10 +899,16 @@ def main() -> None:
         from poisson_tpu_torch.ops import resident as rs
         from poisson_tpu_torch.ops import serial as sr
         from poisson_tpu_torch.parallel import ca_sharded as cs_
+        from poisson_tpu_torch.parallel import checkpoint_sharded as cks
         from poisson_tpu_torch.parallel import fused_sharded as fs
+        from poisson_tpu_torch.parallel import pcg_sharded as ps
         from poisson_tpu_torch.parallel.mesh import make_solver_mesh
         from poisson_tpu_torch.solvers import checkpoint as ck
-        from poisson_tpu_torch.solvers.pcg import CHECK_EVERY, pcg_solve
+        from poisson_tpu_torch.solvers.pcg import (
+            CHECK_EVERY,
+            init_state,
+            pcg_solve,
+        )
         from poisson_tpu_torch.solvers.refine import refined_solve
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout): {e}")
@@ -894,7 +958,7 @@ def main() -> None:
             check(rec is not None and "registers" in rec,
                   f"no ptxas report for {symbol} in the {name} build")
             print(f"ptxas redesign {symbol}: {json.dumps(rec)}", flush=True)
-            if symbol == "resident_kernel":
+            if symbol in NO_SPILL:
                 check(rec.get("spill_store_bytes", 0) == 0
                       and rec.get("spill_load_bytes", 0) == 0
                       and rec.get("stack_frame_bytes", 0) == 0,
@@ -1100,6 +1164,7 @@ def main() -> None:
     for p in (mid, FLAGSHIP, big):       # set-up, outside the timed solves
         fs.shard_canvases(p, mesh, 1)
         fs.shard_canvases(p, mesh, cs_.RING)
+    mesh_oneshot = {}    # the flagship iterate of each sharded path
     # (path, kernels' module, solve, halo ring, iterations per step, canvas
     # passes per iteration)
     for path, module, solve, ring, per_step, passes in (
@@ -1135,6 +1200,8 @@ def main() -> None:
             nbytes = passes * shards * spec.m_blk * spec.cv.cols * 4
             extra["achieved_gbps"] = nbytes * k / sec / 1e9
             solve_line(path, p, r, sec, l2, extra)
+            if p == FLAGSHIP:
+                mesh_oneshot[path] = r.w
             cap_steps = (p.iteration_cap + per_step - 1) // per_step
             steps += (runs + (p != big)) * driven_steps(
                 -(-k // per_step), cap_steps, CHECK_EVERY)
@@ -1168,6 +1235,42 @@ def main() -> None:
               f"({torch.cuda.device_count()} card visible)", flush=True)
 
     elapsed("sharded")
+    # --- the plain sharded solve (``parallel.pcg_sharded``, the JAX CLI's
+    # ``sharded`` backend: plain PyTorch, no kernel of the port) on the 2×2
+    # mesh: fp64 Jacobi and fp32 scaled with host setup, and fp64 with
+    # device setup, whose fields equal the host's bit for bit (fp32 device
+    # setup solves a perturbed problem in both packages: ROADMAP Queue 3).
+    # Counts zeroed before, every kernel's read after: none may launch.
+    reset_counts()
+    for M, N, expected in PLAIN_SHARDED:
+        p = Problem(M=M, N=N)
+        ps.pcg_solve_sharded(p, mesh)                   # warm-up
+        host_k = {}
+        for dtype, fields_on in (("float64", "host"), ("float32", "host"),
+                                 ("float64", "device")):
+            r, sec = timed(lambda: ps.pcg_solve_sharded(
+                p, mesh, dtype=getattr(torch, dtype), setup=fields_on))
+            k, label = int(r.iterations), f"sharded {dtype} {fields_on}"
+            check(k == expected and int(r.flag) == 1,
+                  f"{label} {M}x{N}: {k} iterations (flag {int(r.flag)}), "
+                  f"expected {expected}")
+            gap = float((r.w.double() - fp64[p].w).abs().max())
+            tol = SHARDED_FP64_TOL if dtype == "float64" else ITERATE_TOL
+            check(gap <= tol, f"{label} {M}x{N}: iterate {gap} from the "
+                              f"plain fp64 solve (tol {tol})")
+            if fields_on == "host":
+                host_k[dtype] = k
+            else:
+                check(k == host_k[dtype], f"{label} {M}x{N}: {k} iterations,"
+                                          f" host setup {host_k[dtype]}")
+            solve_line(label, p, r, sec, l2_error_host(p, r.w),
+                       {"mesh": f"{mesh.px}x{mesh.py}",
+                        "max_diff_vs_fp64": gap})
+            if p == FLAGSHIP and (dtype, fields_on) == ("float64", "host"):
+                mesh_oneshot["sharded"] = r.w
+    expect_counts("the plain sharded path", {})
+
+    elapsed("plain sharded")
     # --- mixed-precision refinement to the fp64 floor at 400×600, over the
     # fused backend (kernels A, B) and the resident one (kernel R, one
     # launch per inner solve). Its own counts, zeroed just before.
@@ -1245,6 +1348,7 @@ def main() -> None:
     pair_steps = driven_steps(-(-989 // 2), (FLAGSHIP.iteration_cap + 1) // 2,
                               CHECK_EVERY)
     counts["serial_sum"] = 0
+    serial_oneshot = {}
     for path, solve, names, n in (
             ("fused", lambda: fc.fused_cg_solve(FLAGSHIP, serial=True), full,
              steps),
@@ -1272,6 +1376,7 @@ def main() -> None:
         solve_line(f"serial {path}", FLAGSHIP, r, sec,
                    l2_error_host(FLAGSHIP, r.w),
                    {"max_diff_vs_fp64": gap, "serial_sum_launches": 2 * n})
+        serial_oneshot[path] = r.w
 
     elapsed("serial")
     # --- the wide probe: 200 iterations at 1024×16384 on the auto-blocked
@@ -1377,6 +1482,124 @@ def main() -> None:
         print("checkpoint write 2400x3200: " + json.dumps({
             "seconds_each": writes,
             "file_bytes": os.path.getsize(path_of("big"))}), flush=True)
+
+        # --- the sharded checkpoint drills at 800×1200 on the 2×2 mesh:
+        # the plain sharded driver (fp64; fp32 to resume a fused file),
+        # fused-sharded and ca-sharded (also in the serial mode). Every
+        # count zeroed before each solve, read after: each sharded kernel
+        # form once per shard and driven step, S twice per shard and step
+        # in the serial mode, nothing else.
+        def plain_ck(problem, f, chunk, serial=False, dtype=None):
+            return cks.pcg_solve_sharded_checkpointed(problem, mesh, f,
+                                                      chunk=chunk,
+                                                      dtype=dtype)
+
+        mesh_drills = (
+            ("sharded", plain_ck, (), 1),
+            ("fused-sharded", lambda problem, f, chunk, serial=False:
+             fs.fused_cg_solve_sharded_checkpointed(problem, mesh, f, chunk,
+                                                    serial=serial),
+             tuple(f"{k}_sharded" for k in full), 1),
+            ("ca-sharded", lambda problem, f, chunk, serial=False:
+             cs_.ca_cg_solve_sharded_checkpointed(problem, mesh, f, chunk,
+                                                  serial=serial),
+             tuple(f"{k}_sharded" for k in cd), 2))
+        for path, solve_ck, names, per_step in mesh_drills:
+            def drill(label, problem, file, start=0, serial=False, **kw):
+                reset_counts()
+                r = solve_ck(problem, path_of(file), CKPT_CHUNK, serial,
+                             **kw)
+                n = shards * chunk_steps(start, int(r.iterations),
+                                         problem.iteration_cap, CKPT_CHUNK,
+                                         CHECK_EVERY, per_step)
+                want = {name: n for name in names}
+                if serial:
+                    want["serial_sum"] = 2 * n
+                expect_counts(f"mesh drill {path} {label} ({n} shard steps)",
+                              want)
+                return r
+
+            tag = path.replace("-", "_")
+            got = {"chunks": drill("chunks", FLAGSHIP, f"{tag}_chunks")}
+            bitwise = {"chunks": torch.equal(got["chunks"].w,
+                                             mesh_oneshot[path])}
+            part = drill("write", capped, f"{tag}_resume")
+            check(int(part.iterations) == CKPT_CAP
+                  and os.path.exists(path_of(f"{tag}_resume")),
+                  f"mesh drill {path}: capped run gave "
+                  f"{int(part.iterations)} iterations or left no file")
+            got["resume"] = drill("resume", FLAGSHIP, f"{tag}_resume",
+                                  CKPT_CAP)
+            # The fused driver resumes from the stored direction itself;
+            # the CA and plain drivers re-form it (one ulp): counts only.
+            bitwise["resume"] = (torch.equal(got["resume"].w,
+                                             mesh_oneshot[path])
+                                 if path == "fused-sharded" else None)
+            reset_counts()
+            fc.fused_cg_solve_checkpointed(capped, path_of(f"{tag}_fused"),
+                                           CKPT_CHUNK)
+            kw = {"dtype": torch.float32} if path == "sharded" else {}
+            got["from_single_device_fused"] = drill(
+                "from fused", FLAGSHIP, f"{tag}_fused", CKPT_CAP, **kw)
+            bitwise["from_single_device_fused"] = None
+            if path != "sharded":
+                got["serial_chunks"] = drill("serial chunks", FLAGSHIP,
+                                             f"{tag}_serial", serial=True)
+                bitwise["serial_chunks"] = torch.equal(
+                    got["serial_chunks"].w, serial_oneshot[path])
+                counts["serial_sum"] += 2 * shards * chunk_steps(
+                    0, 989, FLAGSHIP.iteration_cap, CKPT_CHUNK, CHECK_EVERY,
+                    per_step)
+            for name, r in got.items():
+                k = int(r.iterations)
+                gap = float((r.w.double() - w64.w).abs().max())
+                print(f"checkpoint drill {path} {name} 800x1200: " +
+                      json.dumps({"iterations": k, "mesh": "2x2",
+                                  "bitwise_vs_one_shot": bitwise[name],
+                                  "max_diff_vs_fp64": gap}), flush=True)
+                check(k == 989, f"mesh drill {path} {name}: {k} iterations")
+                check(bitwise[name] is not False,
+                      f"mesh drill {path} {name}: iterate differs from the "
+                      "one-shot solve")
+                check(gap <= ITERATE_TOL,
+                      f"mesh drill {path} {name}: iterate {gap} from fp64")
+
+        # One checkpoint write per sharded backend at 800×1200: gathering
+        # the shards' owned points and the sealed, atomic .npz write.
+        spec1, sh1 = fs.shard_canvases(FLAGSHIP, mesh, 1)
+        spec2, sh2 = fs.shard_canvases(FLAGSHIP, mesh, cs_.RING)
+        fused_st = fs._sharded_init(FLAGSHIP, spec1, mesh, sh1, sh1.rhs)
+        ca_st = cs_._ca_sharded_init(FLAGSHIP, spec2, mesh, sh2, sh2.rhs)
+        geo = ps.geometry(FLAGSHIP, mesh)
+        fields = ps.sharded_fields(FLAGSHIP, mesh, geo, "float64", False)
+        plain_st = init_state(ps.sharded_ops(FLAGSHIP, mesh, geo, fields,
+                                             False), fields.rhs)
+        fp32 = ck._fingerprint(FLAGSHIP, "float32", True)
+        for path, portable, fp in (
+                ("sharded", lambda: cks.portable_state(FLAGSHIP, mesh, geo,
+                                                       plain_st),
+                 ck._fingerprint(FLAGSHIP, "float64", False)),
+                ("fused-sharded", lambda: fs.sharded_portable(
+                    FLAGSHIP, spec1, mesh, k=fused_st.k, done=fused_st.done,
+                    sol=fused_st.w, r=fused_st.r, pend=fused_st.p,
+                    beta=fused_st.beta, zr=fused_st.zr, diff=fused_st.diff),
+                 fp32),
+                ("ca-sharded", lambda: fs.sharded_portable(
+                    FLAGSHIP, spec2, mesh, k=ca_st.k, done=ca_st.done,
+                    sol=ca_st.x, r=ca_st.r, pend=ca_st.pprev,
+                    beta=ca_st.beta, zr=ca_st.rr, diff=ca_st.diff), fp32)):
+            file = path_of(f"{path.replace('-', '_')}_write")
+            writes = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ck.save_state(file, portable(), fp)
+                writes.append(time.perf_counter() - t0)
+            check(ck.load_state(file, fp) is not None,
+                  f"{path} checkpoint does not read back")
+            print(f"checkpoint write {path} 800x1200 2x2: " + json.dumps({
+                "seconds_each": writes,
+                "file_bytes": os.path.getsize(file)}), flush=True)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
@@ -1397,6 +1620,16 @@ def main() -> None:
                           "share": rec["bound_ms"] / rec["ms"]}
         for name in ("basis_sweep", "basis_sweep_sharded")
         for tag, rec in results[name].items()}), flush=True)
+    # Kernel S beside torch.sum over the same partials (A's one vector, C's
+    # twelve against torch.sum(dim=0)), device µs per launch, both timed
+    # by the profiler in this run, beside S's chain latency bound; the
+    # target is S no slower.
+    print("serial_sum vs torch.sum (device us per launch): " + json.dumps({
+        tag: {"serial_sum": rec["ms"] * 1e3,
+              "torch_sum": rec["library_ms"] * 1e3,
+              "no_slower": rec["ms"] <= rec["library_ms"],
+              **results["serial_chain"][tag]}
+        for tag, rec in results["serial_sum"].items()}), flush=True)
     # A′ and B′ against A and B at the wide probe (device µs per launch).
     wide_us = {name: results[name]["1024x16384"]["ms"] * 1e3
                for name in ("direction_stencil", "fused_update",

@@ -20,9 +20,10 @@ tolerance. It imports ``torch`` and ``numpy``, never ``jax`` or
                  mixed-precision refinement (``solvers.refine``) and
                  checkpointed, chunked solves in the JAX package's file
                  format (``solvers.checkpoint``).
-- ``parallel`` — the device mesh, halo exchange and mesh-order sums, and
-                 the sharded fused and CA solves, which run the kernels'
-                 sharded (banded, masked) forms on every shard.
+- ``parallel`` — the device mesh, halo exchange and mesh-order sums, the
+                 plain sharded solve, and the sharded fused and CA solves,
+                 which run the kernels' sharded (banded, masked) forms on
+                 every shard; each also checkpointed.
 - ``interop``  — carries the JAX package's problem and canvases across as
                  plain data, for the parity tests.
 
@@ -40,8 +41,12 @@ from poisson_tpu_torch.ops.fused_cg import (
 from poisson_tpu_torch.ops.resident import resident_cg_solve
 from poisson_tpu_torch.parallel import (
     ca_cg_solve_sharded,
+    ca_cg_solve_sharded_checkpointed,
     fused_cg_solve_sharded,
+    fused_cg_solve_sharded_checkpointed,
     make_solver_mesh,
+    pcg_solve_sharded,
+    pcg_solve_sharded_checkpointed,
 )
 from poisson_tpu_torch.solvers.checkpoint import (
     pcg_solve_checkpointed,
@@ -54,7 +59,9 @@ __version__ = "0.1.0"
 
 __all__ = ["FLAGSHIP", "Problem", "PCGResult", "RefineResult", "ca_cg_solve",
            "ca_cg_solve_checkpointed", "ca_cg_solve_sharded",
-           "fused_cg_solve", "fused_cg_solve_checkpointed",
-           "fused_cg_solve_sharded", "make_solver_mesh", "pcg_solve",
-           "pcg_solve_checkpointed", "pcg_solve_chunked", "refined_solve",
-           "resident_cg_solve", "__version__"]
+           "ca_cg_solve_sharded_checkpointed", "fused_cg_solve",
+           "fused_cg_solve_checkpointed", "fused_cg_solve_sharded",
+           "fused_cg_solve_sharded_checkpointed", "make_solver_mesh",
+           "pcg_solve", "pcg_solve_checkpointed", "pcg_solve_chunked",
+           "pcg_solve_sharded", "pcg_solve_sharded_checkpointed",
+           "refined_solve", "resident_cg_solve", "__version__"]

@@ -9,19 +9,25 @@ iterations on every shard of a ``--mesh PXxPY`` of cards, with the kernels'
 sharded forms — these five are fp32 only, the counterparts of the JAX CLI's
 ``pallas``, ``pallas-resident``, ``pallas-ca``, ``pallas-sharded`` and
 ``pallas-ca-sharded``. ``torch`` is the plain PyTorch solver (fp64
-Jacobi-PCG or fp32 on the scaled system). ``auto`` picks ``torch`` for
-fp64; for fp32 it picks ``fused-sharded`` when more than one card is
-visible or ``--mesh`` is given, and ``fused`` otherwise, as the JAX CLI
-picks its sharded and single-device fused paths
-(``poisson_tpu/cli.py:361-377``).
+Jacobi-PCG or fp32 on the scaled system) and ``sharded`` the same over the
+mesh (the JAX CLI's ``xla`` and ``sharded``); ``--setup host|device``
+builds the sharded solve's fields on the host in fp64 or on every shard's
+device in the state's dtype.
+
+``auto`` picks as the JAX CLI does (``poisson_tpu/cli.py:359-377``), with
+the card in the TPU's place: with ``--mesh`` or more than one visible card,
+``fused-sharded`` for fp32 with host setup, ``torch`` for ``--checkpoint``
+with ``--setup device`` and no ``--mesh`` (the sharded checkpoint gathers
+on the host), and ``sharded`` otherwise; on one card ``fused`` for fp32 and
+``torch`` for fp64.
 
 ``--bm``/``--bn`` choose the fused path's canvas (``--bn`` a column-blocked
 one, with kernels A′ and B′; a grid wide enough takes it on its own);
 ``--serial-reduce`` sums the reduction partials of every fused backend with
 kernel S, in the JAX package's serial order; ``--checkpoint PATH`` runs the
-``torch``, ``fused`` or ``ca`` solve in chunks of ``--chunk`` iterations,
-saving its state to PATH after each and resuming from it, in the file
-format both packages read.
+solve in chunks of ``--chunk`` iterations, saving its state to PATH after
+each and resuming from it, in the file format both packages read (every
+backend but ``resident``, whose solve is one launch).
 """
 
 from __future__ import annotations
@@ -31,10 +37,10 @@ import sys
 
 from poisson_tpu_torch.config import Problem
 
-BACKENDS = ("auto", "torch", "fused", "resident", "ca", "fused-sharded",
-            "ca-sharded")
+BACKENDS = ("auto", "torch", "fused", "resident", "ca", "sharded",
+            "fused-sharded", "ca-sharded")
 FP32_BACKENDS = ("fused", "resident", "ca", "fused-sharded", "ca-sharded")
-SHARDED_BACKENDS = ("fused-sharded", "ca-sharded")
+SHARDED_BACKENDS = ("sharded", "fused-sharded", "ca-sharded")
 
 # Canvas passes per fused iteration: kernel A reads z, p, cS, cW, γ and
 # writes pn, Ap; kernel B reads p, Ap, sc², w, r and writes w, r.
@@ -82,16 +88,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default; raises without a card) or cpu, "
                         "which runs the kernels' plain versions")
     p.add_argument("--backend", choices=BACKENDS, default="auto",
-                   help="auto: torch for float64; for float32 "
-                        "fused-sharded with more than one card or --mesh, "
-                        "else fused; resident, ca and ca-sharded are the "
-                        "other fp32 paths")
+                   help="auto: with --mesh or more than one card, "
+                        "fused-sharded for float32 with --setup host, "
+                        "torch for --checkpoint with --setup device and no "
+                        "--mesh, else sharded; on one card fused for "
+                        "float32, torch for float64. resident, ca and "
+                        "ca-sharded are the other fp32 paths; torch and "
+                        "sharded the plain solve, on one card or the mesh")
     p.add_argument("--mesh", type=parse_mesh, default=None,
                    metavar="PXxPY",
                    help="shard grid of the sharded backends (default: "
                         "near-square over the visible cards; one shard per "
                         "card on cuda, every shard on the CPU with "
                         "--device cpu)")
+    p.add_argument("--setup", choices=("host", "device"), default="host",
+                   help="sharded field setup: host fp64, or per shard on "
+                        "its device in the state's dtype (--backend sharded "
+                        "only)")
     p.add_argument("--bm", type=int, default=None,
                    help="strip height of the fused or ca canvas (a "
                         "multiple of 8; default: one strip, or the JAX "
@@ -107,9 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "Kahan-compensated as the JAX package's serial "
                         "kernels (default off)")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
-                   help="torch, fused and ca: save the solver state to PATH "
-                        "every --chunk iterations and resume from it; "
-                        "removed on convergence, kept on a cap-hit")
+                   help="every backend but resident: save the solver state "
+                        "to PATH every --chunk iterations and resume from "
+                        "it; removed on convergence, kept on a cap-hit")
     p.add_argument("--chunk", type=int, default=200,
                    help="iterations per checkpoint chunk (default 200)")
     p.add_argument("--keep-last", type=int, default=2,
@@ -129,13 +142,18 @@ def visible_devices(device: str) -> int:
 
 
 def pick_backend(backend: str, dtype: str, visible: int = 1,
-                 mesh=None) -> str:
+                 mesh=None, checkpoint=None, setup: str = "host") -> str:
+    """The backend ``auto`` resolves to, by the JAX CLI's rule
+    (``poisson_tpu/cli.py:359-377``) with the card in the TPU's place; an
+    explicit backend is checked against the dtype and the mesh."""
     if backend == "auto":
-        if dtype != "float32":
-            backend = "torch"
-        else:
-            sharded = visible > 1 or mesh is not None
-            return "fused-sharded" if sharded else "fused"
+        if visible > 1 or mesh is not None:
+            if dtype == "float32" and setup != "device":
+                return "fused-sharded"
+            if checkpoint and setup == "device" and mesh is None:
+                return "torch"
+            return "sharded"
+        return "fused" if dtype == "float32" else "torch"
     if backend in FP32_BACKENDS and dtype != "float32":
         raise SystemExit(f"--backend {backend} is an fp32 path; use "
                          "--backend torch for float64")
@@ -164,6 +182,9 @@ def check_flags(args, backend: str) -> None:
                          f"not {backend}")
     if args.chunk < 1:
         raise SystemExit(f"--chunk must be >= 1, got {args.chunk}")
+    if args.setup == "device" and backend in ("fused-sharded", "ca-sharded"):
+        raise SystemExit(f"--backend {backend} builds its canvases on the "
+                         "host; use --backend sharded for --setup device")
     if args.checkpoint is None:
         return
     if backend == "resident":
@@ -171,11 +192,9 @@ def check_flags(args, backend: str) -> None:
             "--backend resident runs the whole solve in one kernel launch; "
             "there is no chunk boundary to checkpoint at — use --backend "
             "fused (the portable format resumes across backends)")
-    if backend in SHARDED_BACKENDS:
-        raise SystemExit(
-            f"--backend {backend} has no checkpointed driver yet (ROADMAP "
-            "Queue 1 item 12); --backend fused, ca or torch resume the same "
-            "file")
+    if backend == "sharded" and args.setup == "device":
+        raise SystemExit("--checkpoint gathers state on the host; use the "
+                         "default --setup host")
 
 
 def build_mesh(args, visible: int):
@@ -220,7 +239,8 @@ def main(argv=None) -> int:
                       max_iter=args.max_iter,
                       weighted_norm=not args.unweighted_norm)
     visible = visible_devices(args.device)
-    backend = pick_backend(args.backend, args.dtype, visible, args.mesh)
+    backend = pick_backend(args.backend, args.dtype, visible, args.mesh,
+                           args.checkpoint, args.setup)
 
     check_flags(args, backend)
 
@@ -242,12 +262,18 @@ def main(argv=None) -> int:
     )
     from poisson_tpu_torch.parallel.fused_sharded import (
         fused_cg_solve_sharded,
+        fused_cg_solve_sharded_checkpointed,
         shard_spec,
     )
     from poisson_tpu_torch.parallel.ca_sharded import (
         RING,
         ca_cg_solve_sharded,
+        ca_cg_solve_sharded_checkpointed,
     )
+    from poisson_tpu_torch.parallel.checkpoint_sharded import (
+        pcg_solve_sharded_checkpointed,
+    )
+    from poisson_tpu_torch.parallel.pcg_sharded import pcg_solve_sharded
     from poisson_tpu_torch.solvers.checkpoint import pcg_solve_checkpointed
     from poisson_tpu_torch.solvers.pcg import (
         FLAG_CONVERGED,
@@ -284,8 +310,12 @@ def main(argv=None) -> int:
             ca_cg_solve(problem, device=device, bm=args.bm,
                         serial=serial))),
     }
-    sharded = {"fused-sharded": (fused_cg_solve_sharded, 1),
-               "ca-sharded": (ca_cg_solve_sharded, RING)}
+    # (one-shot solve, checkpointed solve, halo ring) of each sharded
+    # kernel path.
+    sharded = {"fused-sharded": (fused_cg_solve_sharded,
+                                 fused_cg_solve_sharded_checkpointed, 1),
+               "ca-sharded": (ca_cg_solve_sharded,
+                              ca_cg_solve_sharded_checkpointed, RING)}
     # Canvas passes per iteration of the streaming paths; the resident solve
     # has no per-iteration device-memory figure (its state stays in L2).
     passes = {"fused": FUSED_PASSES_PER_ITER, "ca": PASSES_PER_PAIR / 2,
@@ -304,10 +334,21 @@ def main(argv=None) -> int:
         points = sweep_points(problem, cv)
     elif backend in sharded:
         mesh = build_mesh(args, visible)
-        solve, ring = sharded[backend]
-        run = lambda: solve(problem, mesh, serial=serial)
+        solve, solve_ck, ring = sharded[backend]
+        run = ((lambda: solve_ck(problem, mesh, args.checkpoint,
+                                 serial=serial, **ckpt))
+               if args.checkpoint else
+               (lambda: solve(problem, mesh, serial=serial)))
         spec = shard_spec(problem, mesh.px, mesh.py, ring)
         points = mesh.size * spec.m_blk * spec.cv.cols
+    elif backend == "sharded":
+        mesh = build_mesh(args, visible)
+        run = ((lambda: pcg_solve_sharded_checkpointed(
+                    problem, mesh, args.checkpoint, dtype=args.dtype,
+                    **ckpt))
+               if args.checkpoint else
+               (lambda: pcg_solve_sharded(problem, mesh, dtype=args.dtype,
+                                          setup=args.setup)))
     elif args.checkpoint:
         run = lambda: pcg_solve_checkpointed(problem, args.checkpoint,
                                              dtype=args.dtype, device=device,

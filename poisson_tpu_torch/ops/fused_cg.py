@@ -855,24 +855,33 @@ def _host(x):
         else np.asarray(x)
 
 
-def pending_to_pcg_state(problem: Problem, cv: Canvas, *, k, done, sol, r,
-                         pend, beta, zr, diff, z=None) -> PCGState:
-    """A pending-β solver state (the fused or the CA loop) → the portable
-    full-grid PCGState, as numpy arrays of the JAX package's types: d =
-    z + β·pend (z = r unless given), z := r (the scaled system), and the
-    verdict fields the fused solvers do not track at their defaults (flag
-    int32 0, best float64 inf, stall int32 0)."""
-    d = (r if z is None else z) + beta * pend
-    r_full = _canvas_to_full(problem, cv, r)
+def portable_state(*, k, done, w, r, d, zr, diff) -> PCGState:
+    """The portable full-grid PCGState of a fused-path solve, as numpy
+    arrays of the JAX package's types, from full grids of the solution w,
+    the residual r and the direction d the next sweep would form: z := r
+    (the scaled system), and the verdict fields the fused solvers do not
+    track at their defaults (flag int32 0, best float64 inf, stall int32
+    0)."""
     return PCGState(
         k=np.asarray(_host(k), np.int32), done=np.asarray(_host(done), bool),
-        w=_canvas_to_full(problem, cv, sol), r=r_full, z=r_full,
-        p=_canvas_to_full(problem, cv, d),
+        w=w, r=r, z=r, p=d,
         zr=np.asarray(_host(zr), np.float32),
         diff=np.asarray(_host(diff), np.float32),
         flag=np.asarray(FLAG_NONE, np.int32), best=np.asarray(np.inf),
         stall=np.asarray(0, np.int32),
     )
+
+
+def pending_to_pcg_state(problem: Problem, cv: Canvas, *, k, done, sol, r,
+                         pend, beta, zr, diff, z=None) -> PCGState:
+    """A pending-β solver state (the fused or the CA loop) → the portable
+    state (:func:`portable_state`), with d = z + β·pend (z = r unless
+    given)."""
+    d = (r if z is None else z) + beta * pend
+    return portable_state(
+        k=k, done=done, w=_canvas_to_full(problem, cv, sol),
+        r=_canvas_to_full(problem, cv, r), d=_canvas_to_full(problem, cv, d),
+        zr=zr, diff=diff)
 
 
 def pcg_state_to_pending(problem: Problem, cv: Canvas, state: PCGState,

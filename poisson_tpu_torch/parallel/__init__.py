@@ -1,12 +1,22 @@
 """Sharded solves over a device mesh (counterpart of
 ``poisson_tpu/parallel``): the mesh (``mesh``), halo exchange and mesh-order
-sums (``halo``), the sharded fused solve with kernels A and B
-(``fused_sharded``) and the sharded CA solve with kernels C and D
-(``ca_sharded``). One host thread drives every shard; a device may hold
-several shards."""
+sums (``halo``), the plain sharded solve (``pcg_sharded``) and its
+checkpointed form (``checkpoint_sharded``), the sharded fused solve with
+kernels A and B (``fused_sharded``) and the sharded CA solve with kernels C
+and D (``ca_sharded``), each of the last two also checkpointed. One host
+thread drives every shard; a device may hold several shards."""
 
-from poisson_tpu_torch.parallel.ca_sharded import ca_cg_solve_sharded
-from poisson_tpu_torch.parallel.fused_sharded import fused_cg_solve_sharded
+from poisson_tpu_torch.parallel.ca_sharded import (
+    ca_cg_solve_sharded,
+    ca_cg_solve_sharded_checkpointed,
+)
+from poisson_tpu_torch.parallel.checkpoint_sharded import (
+    pcg_solve_sharded_checkpointed,
+)
+from poisson_tpu_torch.parallel.fused_sharded import (
+    fused_cg_solve_sharded,
+    fused_cg_solve_sharded_checkpointed,
+)
 from poisson_tpu_torch.parallel.mesh import (
     X_AXIS,
     Y_AXIS,
@@ -14,7 +24,10 @@ from poisson_tpu_torch.parallel.mesh import (
     choose_process_grid,
     make_solver_mesh,
 )
+from poisson_tpu_torch.parallel.pcg_sharded import pcg_solve_sharded
 
 __all__ = ["Mesh", "X_AXIS", "Y_AXIS", "ca_cg_solve_sharded",
-           "choose_process_grid", "fused_cg_solve_sharded",
-           "make_solver_mesh"]
+           "ca_cg_solve_sharded_checkpointed", "choose_process_grid",
+           "fused_cg_solve_sharded", "fused_cg_solve_sharded_checkpointed",
+           "make_solver_mesh", "pcg_solve_sharded",
+           "pcg_solve_sharded_checkpointed"]

@@ -25,6 +25,13 @@ zero outside the owned points, which keeps them out of the weighted ones.
 
 Kernel D writes p₁ = pn itself when a pair applied its first step only, so
 the JAX driver's select (``pallas_ca_sharded.py:229``) has no counterpart.
+
+Checkpointed (:func:`ca_cg_solve_sharded_checkpointed`, the counterpart of
+``pallas_ca_sharded.ca_cg_solve_sharded_checkpointed``): the pending pair
+(p_prev, β) is saved as the direction d = r + β·p_prev in the portable
+format and resumed as p_prev := d − r, β := 1, with r's and p_prev's
+width-2 rings refreshed once, as the single-device CA driver and the JAX
+package resume it.
 """
 
 from __future__ import annotations
@@ -47,9 +54,11 @@ from poisson_tpu_torch.parallel.fused_sharded import (
     gated_rhs,
     gather_owned,
     owned_sum_of_squares,
+    resumed_canvases,
     shard_canvases,
     shard_run,
     shard_spec,
+    sharded_portable,
 )
 from poisson_tpu_torch.parallel.halo import (
     mesh_sum,
@@ -59,6 +68,11 @@ from poisson_tpu_torch.parallel.halo import (
 )
 from poisson_tpu_torch.parallel.mesh import X_AXIS, Y_AXIS, Mesh
 from poisson_tpu_torch.parallel.mesh import make_solver_mesh
+from poisson_tpu_torch.solvers.checkpoint import (
+    _fingerprint,
+    load_state,
+    run_chunked,
+)
 from poisson_tpu_torch.solvers.pcg import CHECK_EVERY, PCGResult, drive
 
 RING = 2   # halo ring width (the s=2 stencil depth) = first owned column
@@ -172,5 +186,55 @@ def ca_cg_solve_sharded(problem: Problem, mesh: Mesh | None = None,
     s = _ca_sharded_solve(problem, spec, mesh, canvases,
                           gated_rhs(canvases, rhs_gate), check_every,
                           shard_run(problem, spec, mesh, serial, CA_BUFFERS))
+    x = gather_owned(problem, spec, mesh, s.x, canvases.sc_int)
+    return PCGResult(w=x, iterations=s.k, diff=s.diff, residual_dot=s.rr)
+
+
+def ca_cg_solve_sharded_checkpointed(problem: Problem, mesh: Mesh | None,
+                                     checkpoint_path: str, chunk: int = 200,
+                                     serial: bool | None = None,
+                                     keep_checkpoint: bool = False,
+                                     keep_last: int = 2,
+                                     check_every: int = CHECK_EVERY
+                                     ) -> PCGResult:
+    """The sharded CA solve with its state saved every ``chunk`` iterations
+    and resumed from ``checkpoint_path``: the counterpart of
+    ``pallas_ca_sharded.ca_cg_solve_sharded_checkpointed``, in the portable
+    format, so a CA file resumes on the fused paths and theirs here. A
+    chunk runs pairs until k reaches min(k + chunk, cap), so it may
+    overshoot by one iteration; only the global cap cuts a pair short, and
+    chunking changes no iterate. ``serial`` as in
+    :func:`ca_cg_solve_sharded`."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    mesh = make_solver_mesh() if mesh is None else mesh
+    spec, canvases = shard_canvases(problem, mesh, RING)
+    fp = _fingerprint(problem, "float32", True)
+    saved = load_state(checkpoint_path, fp, keep_last=keep_last)
+    if saved is None:
+        s = _ca_sharded_init(problem, spec, mesh, canvases, canvases.rhs)
+    else:
+        f = resumed_canvases(problem, spec, mesh, saved, exchange_ring2)
+        s = _CAState(k=f["k"], done=f["done"], x=f["w"], r=f["r"],
+                     pprev=tuple(d - r for d, r in zip(f["d"], f["r"])),
+                     rr=f["zr"], beta=torch.ones_like(f["zr"]),
+                     diff=f["diff"])
+    body = _make_ca_sharded_body(
+        problem, spec, mesh, canvases,
+        shard_run(problem, spec, mesh, serial, CA_BUFFERS))
+    cap = problem.iteration_cap
+
+    def advance(st: _CAState) -> _CAState:
+        # Pairs to reach min(k + chunk, cap): non-final pairs add 2.
+        stop_at = min(int(st.k) + chunk, cap)
+        return drive(body, st, -(-(stop_at - int(st.k)) // 2), check_every)
+
+    s = run_chunked(
+        s, advance=advance,
+        to_portable=lambda st: sharded_portable(
+            problem, spec, mesh, k=st.k, done=st.done, sol=st.x, r=st.r,
+            pend=st.pprev, beta=st.beta, zr=st.rr, diff=st.diff),
+        path=checkpoint_path, fingerprint=fp, cap=cap,
+        keep_checkpoint=keep_checkpoint, keep_last=keep_last)
     x = gather_owned(problem, spec, mesh, s.x, canvases.sc_int)
     return PCGResult(w=x, iterations=s.k, diff=s.diff, residual_dot=s.rr)

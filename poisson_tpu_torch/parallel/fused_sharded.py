@@ -31,6 +31,16 @@ where JAX rounds them to its strip height; the port's canvas is one strip):
 
 Padded rows and columns have zero scaled coefficients and zero right-hand
 side, so p, Ap and r stay zero there through every sweep.
+
+Checkpointed (:func:`fused_cg_solve_sharded_checkpointed`, the counterpart
+of ``pallas_sharded.pallas_cg_solve_sharded_checkpointed``): every chunk
+runs the same step through ``solvers.pcg.drive``, and the state is saved
+in the portable full-grid format (``solvers.checkpoint``) gathered from the
+shards' owned points, with the direction d = r + β·p the next sweep would
+form. A resumed solve scatters w, r and d back with zero rings, refreshes
+the rings of r and d once, and forms its first direction from d itself
+(z := d, p := 0, β := 0), so it continues the solve that wrote the file
+bit for bit; the JAX package resumes as p := d − r, β := 1, one ulp off.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from poisson_tpu_torch.ops.fused_cg import (
     diagonal_residual_canvas,
     direction_and_stencil,
     fused_update,
+    portable_state,
     scaled_stencil_fields,
     serial_run,
 )
@@ -62,9 +73,15 @@ from poisson_tpu_torch.parallel.halo import (
 )
 from poisson_tpu_torch.parallel.mesh import X_AXIS, Y_AXIS, Mesh, block_size
 from poisson_tpu_torch.parallel.mesh import make_solver_mesh
+from poisson_tpu_torch.solvers.checkpoint import (
+    _fingerprint,
+    load_state,
+    run_chunked,
+)
 from poisson_tpu_torch.solvers.pcg import (
     CHECK_EVERY,
     PCGResult,
+    PCGState,
     _DENOM_TOL,
     drive,
 )
@@ -245,6 +262,8 @@ class _ShardedState(NamedTuple):
     done: torch.Tensor   # converged or degenerate (0-d bool, lead device)
     w: tuple             # per-shard canvases from here to ``ap``
     r: tuple
+    z: tuple             # what kernel A forms the direction from: r itself,
+                         # except on the first step of a resumed solve
     p: tuple             # previous direction; β is applied at the top of A
     spare: tuple         # the other half of p's ping-pong pair
     ap: tuple
@@ -260,10 +279,11 @@ def _sharded_init(problem: Problem, spec: ShardSpec, mesh: Mesh,
     lead = mesh.lead
     f32 = dict(dtype=torch.float32, device=lead)
     zeros = lambda: tuple(torch.zeros_like(x) for x in rhs)
+    r = tuple(x.clone() for x in rhs)
     return _ShardedState(
         k=torch.zeros((), dtype=torch.int32, device=lead),
         done=torch.zeros((), dtype=torch.bool, device=lead),
-        w=zeros(), r=tuple(x.clone() for x in rhs), p=zeros(),
+        w=zeros(), r=r, z=r, p=zeros(),
         spare=zeros(), ap=zeros(),
         zr=owned_sum_of_squares(problem, spec, mesh, canvases, rhs),
         beta=torch.zeros((), **f32),
@@ -300,7 +320,7 @@ def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
 
     def body(s: _ShardedState) -> _ShardedState:
         betas = replicate(s.beta, mesh)
-        swept = [direction_and_stencil(cv, betas[i], s.r[i], s.p[i], f.cs[i],
+        swept = [direction_and_stencil(cv, betas[i], s.z[i], s.p[i], f.cs[i],
                                        f.cw[i], f.g[i],
                                        out=(s.spare[i], s.ap[i]), band=band,
                                        colmask=f.colmask[i])
@@ -327,7 +347,8 @@ def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
         return _ShardedState(
             k=s.k + live.to(torch.int32),
             done=s.done | degenerate | (diff < delta),
-            w=s.w, r=s.r, p=tuple(pn for pn, _, _ in swept), spare=s.p,
+            w=s.w, r=s.r, z=s.r, p=tuple(pn for pn, _, _ in swept),
+            spare=s.p,
             ap=s.ap,
             zr=torch.where(live, zr_new, s.zr),
             beta=torch.where(
@@ -364,5 +385,126 @@ def fused_cg_solve_sharded(problem: Problem, mesh: Mesh | None = None,
     s = _sharded_solve(problem, spec, mesh, canvases,
                        gated_rhs(canvases, rhs_gate), check_every,
                        shard_run(problem, spec, mesh, serial))
+    w = gather_owned(problem, spec, mesh, s.w, canvases.sc_int)
+    return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.zr)
+
+
+# --- checkpoint and resume ---------------------------------------------------
+
+
+def gather_full(problem: Problem, spec: ShardSpec, mesh: Mesh,
+                canvases) -> np.ndarray:
+    """Every shard's owned points of ``canvases`` → the full (M+1, N+1)
+    grid, numpy (``pallas_sharded._gather_full``; owned column lj at canvas
+    column ring + lj)."""
+    M, N = problem.M, problem.N
+    full = np.zeros((M + 1, N + 1), np.float32)
+    for s, c in enumerate(canvases):
+        ix, iy = divmod(s, mesh.py)
+        gi0, gj0 = 1 + ix * spec.m_blk, 1 + iy * spec.n_blk
+        nr, nc = min(spec.m_blk, M - gi0), min(spec.n_blk, N - gj0)
+        if nr > 0 and nc > 0:
+            full[gi0 : gi0 + nr, gj0 : gj0 + nc] = c[
+                HALO : HALO + nr, spec.ring : spec.ring + nc].cpu().numpy()
+    return full
+
+
+def scatter_canvases(problem: Problem, spec: ShardSpec, mesh: Mesh,
+                     full) -> tuple:
+    """A full (M+1, N+1) grid → per-shard fp32 canvases on the shards'
+    devices, owned points only: rings and padding zero
+    (``pallas_sharded._scatter_canvases``)."""
+    M, N = problem.M, problem.N
+    full = np.asarray(full, np.float32)
+    out = []
+    for s, dev in enumerate(mesh.devices):
+        ix, iy = divmod(s, mesh.py)
+        gi0, gj0 = 1 + ix * spec.m_blk, 1 + iy * spec.n_blk
+        nr, nc = min(spec.m_blk, M - gi0), min(spec.n_blk, N - gj0)
+        c = np.zeros((spec.cv.rows, spec.cv.cols), np.float32)
+        if nr > 0 and nc > 0:
+            c[HALO : HALO + nr, spec.ring : spec.ring + nc] = full[
+                gi0 : gi0 + nr, gj0 : gj0 + nc]
+        out.append(torch.tensor(c, device=dev))
+    return tuple(out)
+
+
+def sharded_portable(problem: Problem, spec: ShardSpec, mesh: Mesh, *, k,
+                     done, sol, r, pend, beta, zr, diff,
+                     z=None) -> PCGState:
+    """A pending-β sharded state → the portable state: d = z + β·pend on
+    every shard (z = r unless given), gathered with w and r."""
+    d = [(ri if zi is None else zi) + beta.to(ri.device) * pi
+         for ri, zi, pi in zip(r, z or [None] * len(r), pend)]
+    return portable_state(
+        k=k, done=done, w=gather_full(problem, spec, mesh, sol),
+        r=gather_full(problem, spec, mesh, r),
+        d=gather_full(problem, spec, mesh, d), zr=zr, diff=diff)
+
+
+def resumed_canvases(problem: Problem, spec: ShardSpec, mesh: Mesh,
+                     saved: PCGState, exchange) -> dict:
+    """A saved portable state → the shards' w, r and d canvases, with r's
+    and d's rings refreshed by ``exchange`` (in place), and its scalars on
+    the lead device."""
+    lead = mesh.lead
+    f32 = dict(dtype=torch.float32, device=lead)
+    grid = lambda x: np.asarray(x.numpy(), np.float32)
+    r = scatter_canvases(problem, spec, mesh, grid(saved.r))
+    d = scatter_canvases(problem, spec, mesh, grid(saved.p))
+    exchange(r, spec, mesh)
+    exchange(d, spec, mesh)
+    return dict(
+        k=saved.k.to(dtype=torch.int32, device=lead),
+        done=saved.done.to(dtype=torch.bool, device=lead),
+        w=scatter_canvases(problem, spec, mesh, grid(saved.w)), r=r, d=d,
+        zr=torch.tensor(float(saved.zr), **f32),
+        diff=torch.tensor(float(saved.diff), **f32))
+
+
+def fused_cg_solve_sharded_checkpointed(problem: Problem, mesh: Mesh | None,
+                                        checkpoint_path: str,
+                                        chunk: int = 200,
+                                        serial: bool | None = None,
+                                        keep_checkpoint: bool = False,
+                                        keep_last: int = 2,
+                                        check_every: int = CHECK_EVERY
+                                        ) -> PCGResult:
+    """The sharded fused solve with its state saved every ``chunk``
+    iterations and resumed from ``checkpoint_path`` when a trustworthy file
+    for this problem exists: the counterpart of
+    ``pallas_sharded.pallas_cg_solve_sharded_checkpointed``, in the file
+    format of every checkpointed solver of both packages, so a file written
+    on any mesh, on one device or by the JAX package resumes here. A chunk
+    stops at min(k + chunk, cap) exactly, so chunking changes no iterate;
+    the file is removed on convergence unless ``keep_checkpoint``. ``serial``
+    sums the partials with kernel S, as in :func:`fused_cg_solve_sharded`."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    mesh = make_solver_mesh() if mesh is None else mesh
+    spec, canvases = shard_canvases(problem, mesh, 1)
+    fp = _fingerprint(problem, "float32", True)
+    saved = load_state(checkpoint_path, fp, keep_last=keep_last)
+    if saved is None:
+        s = _sharded_init(problem, spec, mesh, canvases, canvases.rhs)
+    else:
+        f = resumed_canvases(problem, spec, mesh, saved, exchange_r_halo)
+        zeros = lambda: tuple(torch.zeros_like(x) for x in f["r"])
+        s = _ShardedState(k=f["k"], done=f["done"], w=f["w"], r=f["r"],
+                          z=f["d"], p=zeros(), spare=zeros(), ap=zeros(),
+                          zr=f["zr"], beta=torch.zeros_like(f["zr"]),
+                          diff=f["diff"])
+    body = _make_sharded_body(problem, spec, mesh, canvases,
+                              shard_run(problem, spec, mesh, serial))
+    cap = problem.iteration_cap
+    s = run_chunked(
+        s,
+        advance=lambda st: drive(body, st, min(chunk, cap - int(st.k)),
+                                 check_every),
+        to_portable=lambda st: sharded_portable(
+            problem, spec, mesh, k=st.k, done=st.done, sol=st.w, r=st.r,
+            pend=st.p, beta=st.beta, zr=st.zr, diff=st.diff, z=st.z),
+        path=checkpoint_path, fingerprint=fp, cap=cap,
+        keep_checkpoint=keep_checkpoint, keep_last=keep_last)
     w = gather_owned(problem, spec, mesh, s.w, canvases.sc_int)
     return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.zr)

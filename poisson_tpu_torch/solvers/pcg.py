@@ -67,6 +67,10 @@ FLAG_NAMES = {
 }
 
 
+def _unchanged(p):
+    return p
+
+
 class PCGOps(NamedTuple):
     """Backend bundle consumed by the PCG loop.
 
@@ -74,12 +78,15 @@ class PCGOps(NamedTuple):
     apply_Dinv: r → D⁻¹r, zero outside the interior
     dot:        (u, v) → weighted inner product h1·h2·Σ u·v
     sqnorm:     u → Σ_interior u², unweighted (the convergence sum)
+    exchange:   p → p with refreshed halos, at the top of every iteration
+                (the identity on one device; ``parallel.pcg_sharded``)
     """
 
     apply_A: Callable
     apply_Dinv: Callable
     dot: Callable
     sqnorm: Callable
+    exchange: Callable = _unchanged
 
 
 class PCGState(NamedTuple):
@@ -156,7 +163,7 @@ def make_pcg_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
     so the loop may run past the stop (see :func:`drive`)."""
 
     def body(s: PCGState) -> PCGState:
-        p = s.p
+        p = ops.exchange(s.p)
         Ap = ops.apply_A(p)
         denom = ops.dot(Ap, p)
         degenerate = denom.abs() < _DENOM_TOL

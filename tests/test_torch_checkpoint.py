@@ -15,6 +15,7 @@ count exactly, with an iterate within 1e-6 of its one-shot iterate (the
 JAX resume forms the direction as r + 1·(d − r), one ulp from d)."""
 
 import dataclasses
+import functools
 import json
 import os
 
@@ -298,15 +299,87 @@ def test_cli_blocked_and_serial_flags(capsys):
 
 @pytest.mark.parametrize("argv,message", [
     (["--backend", "resident", "--checkpoint", "x.npz"], "one kernel launch"),
-    (["--backend", "fused-sharded", "--mesh", "2x2", "--checkpoint",
-      "x.npz"], "Queue 1 item 12"),
-    (["--backend", "ca-sharded", "--mesh", "2x2", "--checkpoint", "x.npz"],
-     "Queue 1 item 12"),
     (["--backend", "ca", "--bn", "128"], "--bn"),
     (["--backend", "resident", "--serial-reduce"], "--serial-reduce"),
     (["--bn", "100"], "multiple of 128"),
-], ids=["resident", "fused_sharded", "ca_sharded", "bn_ca", "serial_resident",
-        "bn_not_lane"])
+], ids=["resident", "bn_ca", "serial_resident", "bn_not_lane"])
 def test_cli_refuses_what_a_backend_does_not_take(argv, message):
     with pytest.raises(SystemExit, match=message):
         cli.main(["40", "40", "--device", "cpu", *argv])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sharded_count(dtype_name):
+    import jax
+    from poisson_tpu.parallel import make_solver_mesh, pcg_solve_sharded
+
+    mesh = make_solver_mesh(jax.devices()[:4], grid=(2, 2))
+    r = pcg_solve_sharded(JaxProblem(M=40, N=40), mesh,
+                          dtype=getattr(jnp, dtype_name))
+    return int(r.iterations)
+
+
+@pytest.mark.parametrize("argv,backend,dtype", [
+    (["--mesh", "2x2", "--checkpoint", "{ck}"], "fused-sharded", "float32"),
+    (["--mesh", "2x2", "--dtype", "float64"], "sharded", "float64"),
+    (["--backend", "sharded", "--mesh", "2x2"], "sharded", "float32"),
+    (["--backend", "sharded", "--mesh", "2x2", "--setup", "device"],
+     "sharded", "float32"),
+    (["--backend", "sharded", "--mesh", "2x2", "--dtype", "float64",
+      "--checkpoint", "{ck}", "--chunk", "7"], "sharded", "float64"),
+    (["--backend", "ca-sharded", "--mesh", "2x2", "--checkpoint", "{ck}",
+      "--serial-reduce"], "ca-sharded", "float32"),
+], ids=["auto_mesh_checkpoint", "auto_mesh_fp64", "sharded",
+        "sharded_device_setup", "sharded_checkpoint", "ca_sharded_checkpoint"])
+def test_cli_mesh_solves_the_jax_cli_runs(tmp_path, capsys, argv, backend,
+                                          dtype):
+    """The JAX CLI's mesh runs (``poisson_tpu/cli.py:359-375``, 514-523):
+    ``auto`` with a mesh and a checkpoint, or a mesh in fp64, and the
+    sharded backends with a checkpoint; each gives the JAX sharded count
+    and removes its converged checkpoint."""
+    ck = str(tmp_path / "ck.npz")
+    rec = _cli([a.format(ck=ck) for a in ["40", "40", *argv]], capsys)
+    assert rec["backend"] == backend and rec["dtype"] == dtype
+    assert rec["iterations"] == _jax_sharded_count(dtype) == 50
+    assert rec["stopped"] is None and rec["mesh"] == [2, 2]
+    assert not os.path.exists(ck)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--backend", "fused-sharded", "--setup", "device"], "--setup device"),
+    (["--backend", "sharded", "--setup", "device", "--checkpoint", "x.npz"],
+     "gathers state on the host"),
+], ids=["fused_sharded_device_setup", "sharded_checkpoint_device_setup"])
+def test_cli_refuses_what_the_jax_cli_refuses(argv, message):
+    with pytest.raises(SystemExit, match=message):
+        cli.main(["40", "40", "--device", "cpu", "--mesh", "2x2", *argv])
+
+
+# JAX backend → the port's, with the card in the TPU's place.
+_JAX_NAMES = {"pallas-sharded": "fused-sharded", "sharded": "sharded",
+              "xla": "torch", "pallas": "fused"}
+PICK_CASES = [(dtype, visible, mesh, checkpoint, setup)
+              for dtype in ("float32", "float64") for visible in (1, 4)
+              for mesh in (None, (2, 2)) for checkpoint in (None, "x.npz")
+              for setup in ("host", "device")]
+
+
+@pytest.mark.parametrize("dtype,visible,mesh,checkpoint,setup", PICK_CASES)
+def test_pick_backend_is_the_jax_choice(monkeypatch, dtype, visible, mesh,
+                                        checkpoint, setup):
+    """``auto`` resolves as the JAX CLI's ``_pick_backend`` does on a host
+    of ``visible`` TPU chips, each JAX backend mapped to its port."""
+    import types
+
+    import jax
+    from poisson_tpu import cli as jax_cli
+
+    chip = types.SimpleNamespace(platform="tpu")
+    monkeypatch.setattr(jax, "devices", lambda *a: [chip] * visible)
+    args = types.SimpleNamespace(
+        backend="auto", resilient=False, geometry=None,
+        preconditioner="jacobi", mesh=mesh, dtype=dtype, setup=setup,
+        checkpoint=checkpoint)
+    want = _JAX_NAMES[jax_cli._pick_backend(args)]
+    assert cli.pick_backend("auto", dtype, visible, mesh, checkpoint,
+                            setup) == want

@@ -16,7 +16,13 @@ import torch
 import poisson_tpu_torch
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.ops import ca_cg, fused_cg, resident, serial
-from poisson_tpu_torch.parallel import ca_sharded, fused_sharded, mesh
+from poisson_tpu_torch.parallel import (
+    ca_sharded,
+    checkpoint_sharded,
+    fused_sharded,
+    mesh,
+    pcg_sharded,
+)
 from poisson_tpu_torch.solvers import checkpoint, pcg, refine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -79,7 +85,8 @@ def test_no_module_imports_jax_or_the_reference():
     for name in ("ops.fused_cg", "ops.resident", "ops.ca_cg", "ops.serial",
                  "solvers.refine", "solvers.checkpoint", "parallel.mesh",
                  "parallel.halo", "parallel.fused_sharded",
-                 "parallel.ca_sharded"):
+                 "parallel.ca_sharded", "parallel.pcg_sharded",
+                 "parallel.checkpoint_sharded"):
         assert f"poisson_tpu_torch.{name}" in modules
 
 
@@ -98,11 +105,21 @@ def test_no_module_imports_jax_or_the_reference():
     lambda: ca_cg.ca_cg_solve_checkpointed(Problem(M=10, N=10), "unused.npz"),
     lambda: checkpoint.pcg_solve_checkpointed(Problem(M=10, N=10),
                                               "unused.npz"),
+    lambda: pcg_sharded.pcg_solve_sharded(Problem(M=10, N=10)),
+    lambda: checkpoint_sharded.pcg_solve_sharded_checkpointed(
+        Problem(M=10, N=10), None, "unused.npz"),
+    lambda: fused_sharded.fused_cg_solve_sharded_checkpointed(
+        Problem(M=10, N=10), None, "unused.npz"),
+    lambda: ca_sharded.ca_cg_solve_sharded_checkpointed(
+        Problem(M=10, N=10), None, "unused.npz"),
 ], ids=["fused_cg_solve", "pcg_solve", "build_canvases", "resident_cg_solve",
         "ca_cg_solve", "refined_solve", "make_solver_mesh",
         "fused_cg_solve_sharded", "ca_cg_solve_sharded",
         "fused_cg_solve_checkpointed", "ca_cg_solve_checkpointed",
-        "pcg_solve_checkpointed"])
+        "pcg_solve_checkpointed", "pcg_solve_sharded",
+        "pcg_solve_sharded_checkpointed",
+        "fused_cg_solve_sharded_checkpointed",
+        "ca_cg_solve_sharded_checkpointed"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -137,6 +154,8 @@ def test_cpu_solve_launches_no_kernel():
     (["--dtype", "float64"], "torch"),
     (["--backend", "resident"], "resident"),
     (["--backend", "ca"], "ca"),
+    (["--backend", "sharded", "--mesh", "2x2", "--dtype", "float64"],
+     "sharded"),
 ])
 def test_cli_solves_on_cpu(extra, backend):
     out = subprocess.run(

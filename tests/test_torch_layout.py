@@ -1,4 +1,4 @@
-"""The launch geometry of kernels R and C, on the CPU.
+"""The launch geometry of kernels R, C and S, on the CPU.
 
 Kernel R (``ops/csrc/resident_cg.cu``) runs one block per SM, each over a
 contiguous range of band rows with its part of the state on chip; kernel C
@@ -8,15 +8,21 @@ of band rows. Both geometries are computed on the host
 check them here, at the shapes the paths launch, for the H100's 132 SMs
 and for a smaller card's 114. A numpy replay of kernel C's row march, in
 the kernel's own indexing, shows that the geometry and its halo rules give
-``basis_sweep_plain``'s fields bit for bit; the kernels themselves run only
-on the card (``chip_smoke.py``)."""
+``basis_sweep_plain``'s fields bit for bit; a numpy replay of kernel S
+(``ops/csrc/serial_sum.cu``) in the geometry of ``serial.serial_plan`` --
+its staging into shared-memory rows, pieces of whole runs or slices of each
+run, the chains dealt to warps and block 0's Kahan walk -- gives
+``serial_sum_plain``'s sums bit for bit. The kernels themselves run only on
+the card (``chip_smoke.py``)."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from poisson_tpu_torch.config import Problem
-from poisson_tpu_torch.ops import ca_cg, fused_cg, resident
+from poisson_tpu_torch.ops import ca_cg, fused_cg, resident, serial
 from poisson_tpu_torch.ops.fused_cg import HALO
 from poisson_tpu_torch.parallel import ca_sharded
 
@@ -281,3 +287,254 @@ def test_row_march_replay_matches_the_plain_version(M, N, widen, sms,
                             torch.tensor(r), cs, cw, g, sc2, *want, (lo, hi))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b.numpy())
+
+
+# --- kernel S -----------------------------------------------------------
+
+
+def _kahan(run_sums):
+    """The Kahan walk over the run sums of each vector (rows), in order."""
+    total = np.zeros(run_sums.shape[0], F32)
+    comp = np.zeros_like(total)
+    for q in range(run_sums.shape[1]):
+        y = run_sums[:, q] - comp
+        t = total + y
+        comp = (t - total) - y
+        total = t
+    return total
+
+
+def _lanes(rows, acc):
+    """Lane l of each row adds the row's elements l, l + 32, ... in order
+    onto ``acc`` (nv, 32); the zero padding of a short last warp row adds
+    +0.0 to a sum that is never -0."""
+    nv, length = rows.shape
+    padded = np.zeros((nv, -(-length // serial.WARP) * serial.WARP), F32)
+    padded[:, :length] = rows
+    for row in padded.reshape(nv, -1, serial.WARP).transpose(1, 0, 2):
+        acc = acc + row
+    return acc
+
+
+def _tree(acc):
+    """The shuffle tree (offsets 16, 8, 4, 2, 1); lane 0's value."""
+    acc = acc.copy()
+    off = serial.WARP // 2
+    while off:
+        acc[:, :off] = acc[:, :off] + acc[:, off : 2 * off]
+        off //= 2
+    return acc[:, 0]
+
+
+def _segment(stage, at, mem, g0, cnt):
+    """One segment copy: ``cnt`` floats from element ``g0`` to the 16-byte
+    aligned stage offset ``at``, shifted by g0 mod 4 (the buffer starts
+    16-byte aligned) so that the body moves in 16-byte copies; returns the
+    shift."""
+    sh = g0 % 4
+    head = min((4 - sh) % 4, cnt)
+    assert at % 4 == 0 and (at + sh + head) % 4 == 0 and (g0 + head) % 4 == 0
+    assert np.isnan(stage[at + sh : at + sh + cnt]).all()   # copied once
+    stage[at + sh : at + sh + cnt] = mem[g0 : g0 + cnt]
+    return sh
+
+
+def _stage(mem, e0, length, nv, vs, interleaved, origin):
+    """The kernel's staging pass over partials [e0, e0 + length) of every
+    vector, vector 0 starting at element ``origin`` of the buffer; returns
+    the stage (NaN where no copy wrote, so a stray read shows), the offset
+    of element (0, v) of each vector and the element step."""
+    stage = np.full(serial.stage_floats(length, nv, interleaved), np.nan,
+                    F32)
+    assert len(stage) <= serial.STAGE_FLOATS
+    if interleaved:
+        sh = _segment(stage, 0, mem, origin + e0 * nv, nv * length)
+        return stage, [sh + v for v in range(nv)], nv
+    pitch = -(-(length + 3) // 4) * 4
+    base = [v * pitch + _segment(stage, v * pitch, mem,
+                                 origin + v * vs + e0, length)
+            for v in range(nv)]
+    return stage, base, 1
+
+
+def _chain_of(w, t, g):
+    """Thread t of warp w of a run walks lane l of vector v."""
+    lanes = serial.WARP // g
+    return (w // g) * g + t % g, (w % g) * lanes + t // g
+
+
+def _walk(stage, base, step, nv, g, offset, length, acc):
+    """Every chain of one run over ``length`` staged partials from element
+    ``offset``, warp by warp as the kernel deals them: each (v, l) walked
+    once, a warp's 32 reads in 32 banks. Returns acc + the lane sums."""
+    seen = np.zeros((nv, serial.WARP), int)
+    lane_rows = np.zeros((nv, serial.WARP, -(-length // serial.WARP)), F32)
+    for w in range(nv):
+        banks = set()
+        for t in range(serial.WARP):
+            v, l = _chain_of(w, t, g)
+            seen[v, l] += 1
+            at = base[v] + (offset + l) * step
+            banks.add(at % serial.WARP)
+            ks = np.arange(l, length, serial.WARP)
+            lane_rows[v, l, : len(ks)] = stage[base[v] + (offset + ks) * step]
+        assert len(banks) == serial.WARP
+    assert (seen == 1).all()
+    for i in range(lane_rows.shape[2]):      # lane l's adds, in order
+        acc = acc + lane_rows[:, :, i]
+    return acc
+
+
+def _replay_serial(mem, n, nv, vs, run, interleaved, plan, origin=0):
+    """Kernel S in numpy fp32, block by block, in ``plan``'s geometry: the
+    blocks' run sums land in block 0's sums, which it walks."""
+    assert plan.smem_bytes <= 227 * 1024
+    assert 1 <= plan.blocks <= serial.MAX_CLUSTER       # one cluster
+    assert plan.threads <= serial.THREADS
+    sums0 = np.full((nv, plan.runs), np.nan, F32)
+    g = plan.group
+    zeros = np.zeros((nv, serial.WARP), F32)
+    for b in range(plan.blocks):
+        q0 = b * plan.rpb
+        q1 = min(q0 + plan.rpb, plan.runs)
+        if plan.slice == 0:
+            for qa in range(q0, q1, plan.piece_runs):
+                qb = min(qa + plan.piece_runs, q1)
+                ea, eb = qa * run, min(qb * run, n)
+                stage, base, step = _stage(mem, ea, eb - ea, nv, vs,
+                                           interleaved, origin)
+                assert (qb - qa) * nv * serial.WARP * (g > 1) <= plan.lanes
+                for q in range(qa, qb):
+                    length = min(run, n - q * run)
+                    acc = _walk(stage, base, step, nv, g, q * run - ea,
+                                length, zeros)
+                    assert np.isnan(sums0[:, q]).all()
+                    sums0[:, q] = _tree(acc)
+        else:
+            assert nv * serial.WARP <= plan.threads
+            for q in range(q0, q1):
+                start = q * run
+                length = min(run, n - start)
+                acc = zeros
+                for sa in range(0, length, plan.slice):
+                    piece = min(plan.slice, length - sa)
+                    assert piece % serial.WARP == 0 or sa + piece == length
+                    stage, base, step = _stage(mem, start + sa, piece, nv,
+                                               vs, interleaved, origin)
+                    acc = _walk(stage, base, step, nv, g, 0, piece, acc)
+                assert np.isnan(sums0[:, q]).all()
+                sums0[:, q] = _tree(acc)
+    assert not np.isnan(sums0).any()
+    return _kahan(sums0)
+
+
+def _partials_of(kind, n, rng, shift=0):
+    """Partials as their kernels lay them out: A one vector, B two rows of
+    one buffer, C the twelve columns of a (tiles, 12) buffer; ``shift``
+    floats into their buffer, so the first partial may sit off a 16-byte
+    boundary."""
+    nv = {"A": 1, "B": 2, "C": 12}[kind]
+    buf = torch.tensor(rng.standard_normal(shift + nv * n, dtype=F32))
+    x = buf[shift:]
+    if kind == "A":
+        return x
+    if kind == "B":
+        return x[:n], x[n:]
+    return x.view(n, 12).T
+
+
+def _vectors(parts):
+    """Flat memory of ``parts`` (its whole buffer) and the kernel's view of
+    it: n, vectors, vector stride, interleaved, and where vector 0
+    starts."""
+    x, _ = serial._as_vectors(parts)
+    x, interleaved = serial.kernel_layout(x)
+    flat = x.as_strided((x.untyped_storage().nbytes() // 4,), (1,), 0)
+    vs = 1 if interleaved else x.stride(0)
+    return (flat.numpy(), x.shape[1], x.shape[0], vs, interleaved,
+            x.storage_offset())
+
+
+# (partials kind, n, run): the serial mode's partials at 800x1200 and
+# 2400x3200 (A and B per fused step, C's Gram per CA pair), on the 2x2 mesh's
+# shards, and on the blocked canvases (A' per step, B' two per step).
+SERIAL_CASES = [("A", 4000, 640), ("B", 4000, 640), ("C", 4000, 640),
+                ("A", 31200, 936), ("B", 31200, 936), ("C", 31200, 728),
+                ("A", 1000, 320), ("B", 7800, 832), ("C", 7800, 728),
+                ("A", 1120, 32), ("B", 20160, 224)]
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+@pytest.mark.parametrize("kind,n,run", SERIAL_CASES,
+                         ids=[f"{k}-{n}-run{r}" for k, n, r in SERIAL_CASES])
+def test_serial_replay_matches_the_plain_version(kind, n, run, shift):
+    parts = _partials_of(kind, n, np.random.default_rng(n + run), shift)
+    mem, n_, nv, vs, interleaved, origin = _vectors(parts)
+    assert interleaved == (kind == "C") and origin == shift
+    plan = serial.serial_plan(n_, nv, run, interleaved)
+    got = _replay_serial(mem, n_, nv, vs, run, interleaved, plan, origin)
+    want = serial.serial_sum_plain(parts, run).reshape(-1).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("kind,n,run,pieces,rpb", [
+    ("A", 1_000_000, 2000, 2, 32),   # a block's 32 runs in two stages
+    ("C", 31200, 15600, 0, 1),       # a run sliced: 12 x 15600 > a stage
+    ("A", 60_000, 60_000, 0, 1),     # one vector's run sliced
+    ("A", 850_000, 50_000, 0, 2)])   # a block's two runs, each sliced
+def test_serial_replay_longer_than_one_stage(kind, n, run, pieces, rpb):
+    parts = _partials_of(kind, n, np.random.default_rng(run), 1)
+    mem, n_, nv, vs, interleaved, origin = _vectors(parts)
+    plan = serial.serial_plan(n_, nv, run, interleaved)
+    assert plan.rpb == rpb
+    if pieces:
+        assert plan.piece_runs * pieces >= plan.rpb > plan.piece_runs
+    else:
+        assert plan.slice and plan.slice < run
+    got = _replay_serial(mem, n_, nv, vs, run, interleaved, plan, origin)
+    want = serial.serial_sum_plain(parts, run).reshape(-1).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+# The plans of the shapes the serial paths launch, fixed: (n, vectors, run,
+# interleaved) -> (runs, runs per block, blocks, runs per piece, slice,
+# group, threads, stage floats, lane-sum floats, shared-memory bytes).
+FIXED_PLANS = {
+    (4000, 1, 640, False): (7, 7, 1, 7, 0, 1, 256, 4004, 0, 16044),
+    (4000, 2, 640, False): (7, 1, 7, 1, 0, 1, 256, 1288, 0, 5208),
+    (4000, 12, 640, True): (7, 1, 7, 1, 0, 4, 512, 7684, 384, 32608),
+    (31200, 1, 936, False): (34, 3, 12, 3, 0, 1, 256, 2812, 0, 11384),
+    (31200, 12, 728, True): (43, 3, 15, 3, 0, 4, 512, 26212, 1152, 111520),
+    (60_000, 1, 60_000, False): (1, 1, 1, 0, 49120, 1, 256, 49124, 0,
+                                 196500),
+}
+
+
+@pytest.mark.parametrize("shape", list(FIXED_PLANS))
+def test_serial_plan_rule(shape):
+    """One block for a short launch, a cluster of at most 16 for a long
+    one, within the kernel's shared memory, as fixed here."""
+    plan = serial.serial_plan(*shape)
+    assert tuple(plan) == FIXED_PLANS[shape]
+    assert plan.blocks <= serial.MAX_CLUSTER
+    assert plan.smem_bytes <= 227 * 1024
+
+
+def test_serial_plan_refuses_what_the_kernel_cannot_serve():
+    with pytest.raises(ValueError, match="run sums"):
+        serial.serial_plan(100_000, 1, 1)
+    with pytest.raises(ValueError, match="vectors=33"):
+        serial.serial_plan(4000, 33, 640)
+
+
+def test_serial_constants_are_the_kernels():
+    """serial.py reads the kernel's block rule from its source: every
+    constant the rule uses is there, once."""
+    text = (Path(serial.__file__).parent / "csrc" / "serial_sum.cu"
+            ).read_text()
+    for name in ("StageFloats", "SumFloats", "LaneFloats", "SingleFloats",
+                 "BlockFloats", "MaxCluster", "ThreadsContiguous",
+                 "ThreadsInterleaved", "Threads", "Warp"):
+        assert text.count(f" k{name} = ") == 1, name
+    assert (serial.STAGE_FLOATS, serial.MAX_CLUSTER, serial.WARP) == \
+        (49152, 16, 32)

@@ -302,7 +302,8 @@ def test_cli_mesh_choice():
     assert cli.pick_backend("auto", "float32", 1, None) == "fused"
     assert cli.pick_backend("auto", "float32", 2, None) == "fused-sharded"
     assert cli.pick_backend("auto", "float32", 1, (2, 2)) == "fused-sharded"
-    assert cli.pick_backend("auto", "float64", 4, None) == "torch"
+    assert cli.pick_backend("auto", "float64", 4, None) == "sharded"
+    assert cli.pick_backend("auto", "float64", 1, None) == "torch"
     with pytest.raises(SystemExit, match="fp32 path"):
         cli.pick_backend("fused-sharded", "float64", 1, None)
     with pytest.raises(SystemExit, match="--mesh"):
