@@ -98,6 +98,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ones; each sharded kernel form launched once per shard and driven
      step, S twice (8 per step on the fused path), nothing else; and one
      checkpoint write per backend;
+   - the batched phase (``solvers.batched``, ``solvers.lanes``: plain
+     PyTorch, no kernel launched): 16 fp32 members at 800×1200 with gates
+     1 + i/16 against their 16 sequential ``pcg_solve(rhs_gate=…)`` solves
+     (counts and flags equal, iterates bit for bit or within 1e-6; batch
+     and sequential seconds, solves/s, speedup, µs per batched iteration,
+     peak memory); 4 fp64 members, 989 each, against the fp64 solve; 13
+     members at their own size and padded to a pinned bucket of 16 (both
+     timed), the 3 padding members stopped with FLAG_BREAKDOWN at
+     iteration 1 and sliced off; one solve of 64 fp32
+     members (solves/s); 4 fp64 members on the 2×2 mesh at 400×600, 546
+     each, within 1e-10 of the unsharded batch; a ``LaneBatch`` of 8 lanes
+     at 400×600 fp32 taking 12 members through a fixed splice/step/retire
+     schedule, each retired member equal to its solo solve;
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events, and for kernel S ``torch.sum`` over the same partials
@@ -106,7 +119,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at both grids and both shard sizes, kernel S beside ``torch.sum`` (with
    its chain's latency bound at the card's clock), and a profile of one
    flagship solve on the fused, blocked, CA, sharded fused and sharded CA
-   paths;
+   paths, and of one batched solve of 16 members capped at 128 iterations
+   (launches and device time per batched iteration);
 6. a ``kernels`` JSON line (twelve kernels), then the ``ok`` JSON line last.
 
 Without a CUDA device, or run outside a checkout (no ``poisson_tpu_torch``
@@ -250,6 +264,21 @@ SHARDED_FP64_TOL = 1e-10
 RESIDENT_FALLBACKS = [dict(M=100, N=8000, delta=1e-30, max_iter=20),
                       dict(M=270, N=3800, delta=1e-30, max_iter=20)]
 FALLBACK_TOL = 1e-5  # R vs its plain version after 20 iterations, relative
+# The batched phase (``solvers.batched``, ``solvers.lanes``: plain PyTorch,
+# no kernel of the port). A member's iterate must equal its sequential
+# solve bit for bit, or lie within BATCH_MEMBER_TOL of it (fp32); the mesh
+# batch within SHARDED_FP64_TOL of the unsharded one (fp64).
+BATCH = 16           # fp32 members at 800x1200, gates 1 + i/16, bucket 16
+BATCH_WIDE = 64      # one fp32 solve of 64 members: how the batch scales
+BATCH_RAGGED = 13    # run as it is, and padded to a pinned bucket of 16
+BATCH_FP64 = 4       # fp64 members, gate 1: 989 each (the golden count)
+BATCH_MESH = 4       # fp64 members on the 2x2 mesh at 400x600: 546 each
+LANE_BUCKET, LANE_MEMBERS, LANE_CHUNK = 8, 12, 64   # lanes at 400x600 fp32
+# The profiled batched solve stops at this cap: a profiler session costs
+# seconds per ten thousand launches it records, and every iteration of the
+# batch runs the same launches.
+BATCH_PROFILE_ITERS = 128
+BATCH_MEMBER_TOL = 1e-6
 
 
 def ptxas_report(log: str, symbol: str) -> dict | None:
@@ -880,6 +909,184 @@ def solve_line(name: str, problem, r, seconds: float, l2, extra=None):
           flush=True)
 
 
+def member_gap(got, want) -> tuple[bool, float]:
+    """(bit for bit, max abs difference) of two iterates."""
+    return bool(torch.equal(got, want)), float((got.double()
+                                                - want.double()).abs().max())
+
+
+def check_batched(bt, lanes, ps_mesh, flagship, mid, fp64, pcg_solve,
+                  metrics, card: str) -> dict:
+    """The batched phase (no kernel of the port): ``solve_batched`` at
+    800x1200 against the sequential solves, fp64 golden members, a ragged
+    bucket, a wide batch, a batch on the 2x2 mesh of the card against the
+    unsharded batch, and a ``LaneBatch`` interleaving against solo solves.
+    Returns what the profile section needs."""
+    f32, f64 = torch.float32, torch.float64
+    gates = [1.0 + i / BATCH for i in range(BATCH)]
+    run16 = lambda: bt.solve_batched(flagship, rhs_gates=gates, dtype=f32)
+    run16()                                            # first call
+    torch.cuda.reset_peak_memory_stats()
+    r16, sec = timed(run16)
+    peak = torch.cuda.max_memory_allocated()
+    seq, seq_sec = timed(lambda: [pcg_solve(flagship, dtype=f32, rhs_gate=g)
+                                  for g in gates])
+    iters = r16.iterations.tolist()
+    bits, worst = True, 0.0
+    for i, s in enumerate(seq):
+        check(iters[i] == int(s.iterations) and int(r16.flag[i]) ==
+              int(s.flag) == 1, f"batched member {i}: {iters[i]} iterations "
+                                f"(flag {int(r16.flag[i])}), sequential "
+                                f"{int(s.iterations)} ({int(s.flag)})")
+        same, gap = member_gap(r16.w[i], s.w)
+        bits, worst = bits and same, max(worst, gap)
+    check(worst <= BATCH_MEMBER_TOL, f"batched members {worst} from their "
+                                     "sequential solves")
+    _, vs64 = member_gap(r16.w[0], fp64[flagship].w)
+    check(vs64 <= ITERATE_TOL, f"batched member 0: {vs64} from fp64")
+    k = int(r16.max_iterations)
+    print(f"batched fp32 800x1200 B={BATCH} [{card}]: " + json.dumps({
+        "batch_seconds": sec, "solves_per_sec": BATCH / sec,
+        "max_iterations": k, "us_per_batched_iteration": sec / k * 1e6,
+        "sequential_seconds": seq_sec, "speedup_vs_sequential": seq_sec / sec,
+        "max_memory_allocated_bytes": peak, "iterations": iters,
+        "bit_for_bit_with_sequential": bits, "max_member_gap": worst,
+        "member0_vs_fp64": vs64}), flush=True)
+
+    r64d, sec64d = timed(lambda: bt.solve_batched(
+        flagship, rhs_gates=[1.0] * BATCH_FP64, dtype=f64))
+    bits64 = all(torch.equal(w, fp64[flagship].w) for w in r64d.w)
+    gap64 = max(member_gap(w, fp64[flagship].w)[1] for w in r64d.w)
+    check(r64d.iterations.tolist() == [989] * BATCH_FP64
+          and r64d.flag.tolist() == [1] * BATCH_FP64,
+          f"batched fp64: {r64d.iterations.tolist()} iterations")
+    check(gap64 <= SHARDED_FP64_TOL, f"batched fp64: {gap64} from pcg_solve")
+    print(f"batched fp64 800x1200 B={BATCH_FP64} [{card}]: " + json.dumps({
+        "seconds": sec64d, "iterations": r64d.iterations.tolist(),
+        "bit_for_bit_with_sequential": bits64, "max_member_gap": gap64}),
+        flush=True)
+
+    # Ragged: 13 members at their own size, then padded to a pinned bucket
+    # of 16 (what the padding costs). The full bucket's result is read
+    # where solve_batched slices it.
+    ids13 = [f"m{i}" for i in range(BATCH_RAGGED)]
+    re, sec13 = timed(lambda: bt.solve_batched(
+        flagship, rhs_gates=gates[:BATCH_RAGGED], dtype=f32,
+        member_ids=ids13))
+    full = {}
+    sliced = bt.sliced
+    bt.sliced = lambda result, n, origin: (
+        full.setdefault("r", result), sliced(result, n, origin))[1]
+    pad0 = metrics.get("batched.padding_members")
+    try:
+        rr, sec13p = timed(lambda: bt.solve_batched(
+            flagship, rhs_gates=gates[:BATCH_RAGGED], dtype=f32,
+            member_ids=ids13, bucket=BATCH))
+    finally:
+        bt.sliced = sliced
+    pad = full["r"]
+    padding = metrics.get("batched.padding_members") - pad0
+    check(tuple(pad.w.shape[:1]) == (BATCH,) and rr.w.shape[0] == BATCH_RAGGED
+          and padding == BATCH - BATCH_RAGGED,
+          f"ragged: bucket {tuple(pad.w.shape)}, {padding} padding members")
+    check(pad.iterations[BATCH_RAGGED:].tolist() == [1] * padding
+          and pad.flag[BATCH_RAGGED:].tolist() == [2] * padding,
+          f"ragged: padding members stopped at "
+          f"{pad.iterations[BATCH_RAGGED:].tolist()} with flags "
+          f"{pad.flag[BATCH_RAGGED:].tolist()}, expected breakdown at 1")
+    check(all(r.iterations.tolist() == iters[:BATCH_RAGGED]
+              and all(torch.equal(r.w[i], r16.w[i])
+                      for i in range(BATCH_RAGGED))
+              and r.origin == tuple(ids13) for r in (re, rr)),
+          "ragged: the members differ from the full batch's")
+    print(f"batched ragged 800x1200 B={BATCH_RAGGED} bucket {BATCH} [{card}]: "
+          + json.dumps({"seconds": sec13, "seconds_padded": sec13p,
+                        "padding_members": padding,
+                        "padding_iterations":
+                            pad.iterations[BATCH_RAGGED:].tolist(),
+                        "padding_flags": pad.flag[BATCH_RAGGED:].tolist()}),
+          flush=True)
+
+    wide_gates = [1.0 + i / BATCH_WIDE for i in range(BATCH_WIDE)]
+    torch.cuda.reset_peak_memory_stats()
+    rw, secw = timed(lambda: bt.solve_batched(flagship, rhs_gates=wide_gates,
+                                              dtype=f32))
+    peakw = torch.cuda.max_memory_allocated()
+    check(int(rw.iterations[0]) == 989 and set(rw.flag.tolist()) == {1},
+          f"batched B={BATCH_WIDE}: member 0 {int(rw.iterations[0])} "
+          f"iterations, flags {set(rw.flag.tolist())}")
+    kw = int(rw.max_iterations)
+    print(f"batched fp32 800x1200 B={BATCH_WIDE} [{card}]: " + json.dumps({
+        "batch_seconds": secw, "solves_per_sec": BATCH_WIDE / secw,
+        "max_iterations": kw, "us_per_batched_iteration": secw / kw * 1e6,
+        "max_memory_allocated_bytes": peakw}), flush=True)
+
+    # The 2x2 mesh of the one card against the unsharded batch.
+    one = [1.0] * BATCH_MESH
+    flat = bt.solve_batched(mid, rhs_gates=one, dtype=f64)
+    rm, secm = timed(lambda: bt.solve_batched(mid, rhs_gates=one, dtype=f64,
+                                              mesh=ps_mesh))
+    gapm = float((rm.w - flat.w).abs().max())
+    check(rm.iterations.tolist() == flat.iterations.tolist()
+          == [546] * BATCH_MESH and rm.flag.tolist() == [1] * BATCH_MESH,
+          f"batched mesh: {rm.iterations.tolist()} iterations, unsharded "
+          f"{flat.iterations.tolist()}")
+    check(gapm <= SHARDED_FP64_TOL, f"batched mesh: {gapm} from unsharded")
+    print(f"batched fp64 400x600 B={BATCH_MESH} mesh 2x2 [{card}]: "
+          + json.dumps({"seconds": secm, "iterations":
+                        rm.iterations.tolist(), "max_diff_vs_unsharded":
+                        gapm}), flush=True)
+
+    # Lanes: a fixed interleaving; splices at most two a step.
+    lane_gates = {f"r{i}": 1.0 + i / LANE_MEMBERS for i in range(LANE_MEMBERS)}
+    table = lanes.LaneBatch(mid, LANE_BUCKET, dtype=f32, chunk=LANE_CHUNK)
+    queue, done = list(lane_gates), {}
+    t0 = time.perf_counter()
+    for mid_ in queue[:5]:
+        table.splice(mid_, lane_gates[mid_])
+    queue = queue[5:]
+    while len(done) < LANE_MEMBERS:
+        check(table.steps < 200, "lanes: the schedule did not drain")
+        table.step()
+        for view in table.lane_view():
+            if view["member_id"] is not None and view["done"]:
+                res = table.retire(view["lane"])
+                done[res.member_id] = res
+        for mid_ in queue[:2]:
+            if table.free_lanes():
+                table.splice(mid_, lane_gates[mid_])
+                queue.remove(mid_)
+    torch.cuda.synchronize()
+    lane_sec = time.perf_counter() - t0
+    # Each retired member against its solo solve: the first and the last
+    # by pcg_solve itself, every one by its member of one batched solve
+    # (member i of a batch is pcg_solve(rhs_gate=g_i), checked above).
+    ids = list(lane_gates)
+    solo = bt.solve_batched(mid, rhs_gates=list(lane_gates.values()),
+                            dtype=f32, member_ids=ids)
+    for i in (0, LANE_MEMBERS - 1):
+        one = pcg_solve(mid, dtype=f32, rhs_gate=lane_gates[ids[i]])
+        check(torch.equal(one.w, solo.w[i]) and int(one.iterations)
+              == int(solo.iterations[i]), f"lanes: member {ids[i]}'s "
+                                          "pcg_solve differs from its batch")
+    lbits, lworst = True, 0.0
+    for i, mid_ in enumerate(ids):
+        res = done[mid_]
+        check(res.iterations == int(solo.iterations[i]) and res.flag == 1,
+              f"lane {mid_}: {res.iterations} iterations, solo "
+              f"{int(solo.iterations[i])}")
+        same, gap = member_gap(res.w, solo.w[i])
+        lbits, lworst = lbits and same, max(lworst, gap)
+    check(lworst <= BATCH_MEMBER_TOL, f"lanes: {lworst} from solo solves")
+    print(f"lanes fp32 400x600 bucket {LANE_BUCKET} [{card}]: " + json.dumps({
+        "members": LANE_MEMBERS, "chunk": LANE_CHUNK, "steps": table.steps,
+        "idle_lane_steps": table.idle_lane_steps, "seconds": lane_sec,
+        "iterations": {m: done[m].iterations for m in ids},
+        "bit_for_bit_with_solo": lbits, "max_member_gap": lworst}),
+        flush=True)
+    return {"gates": gates}
+
+
 def main() -> None:
     started = time.perf_counter()
 
@@ -903,7 +1110,10 @@ def main() -> None:
         from poisson_tpu_torch.parallel import fused_sharded as fs
         from poisson_tpu_torch.parallel import pcg_sharded as ps
         from poisson_tpu_torch.parallel.mesh import make_solver_mesh
+        from poisson_tpu_torch.obs import metrics
+        from poisson_tpu_torch.solvers import batched as bt
         from poisson_tpu_torch.solvers import checkpoint as ck
+        from poisson_tpu_torch.solvers import lanes
         from poisson_tpu_torch.solvers.pcg import (
             CHECK_EVERY,
             init_state,
@@ -1604,6 +1814,14 @@ def main() -> None:
         shutil.rmtree(ckdir, ignore_errors=True)
 
     elapsed("checkpoint drills")
+    # --- the batched phase: plain PyTorch, no kernel of the port. Counts
+    # zeroed before, every kernel's read after: none may launch.
+    reset_counts()
+    batch = check_batched(bt, lanes, mesh, FLAGSHIP, mid, fp64, pcg_solve,
+                          metrics, card)
+    expect_counts("the batched phase", {})
+
+    elapsed("batched")
     for time_it in timers:
         time_it()
 
@@ -1660,6 +1878,28 @@ def main() -> None:
             "top_kernels": [{"name": k[:80], "count": n, "us": us}
                             for k, (n, us) in top],
         }), flush=True)
+
+    # One batched solve (B=16), capped: launches and device time per
+    # batched iteration.
+    prof, prof_wall = profile_kernels(lambda: bt.solve_batched(
+        dataclasses.replace(FLAGSHIP, max_iter=BATCH_PROFILE_ITERS),
+        rhs_gates=batch["gates"], dtype=torch.float32))
+    if prof is None:
+        print("profile batched 800x1200: the profiler recorded no device "
+              "activity", flush=True)
+    else:
+        k = BATCH_PROFILE_ITERS
+        busy_us = sum(us for _, us in prof.values())
+        top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]
+        print(f"profile batched fp32 800x1200 B={BATCH} ({k} iterations) "
+              f"[{card}]: " + json.dumps({
+                  "wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
+                  "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
+                  "launches_per_batched_iteration":
+                      sum(n for n, _ in prof.values()) / k,
+                  "device_us_per_batched_iteration": busy_us / k,
+                  "top_kernels": [{"name": name[:80], "count": n, "us": us}
+                                  for name, (n, us) in top]}), flush=True)
 
     elapsed("timers and profiles")
     line = []

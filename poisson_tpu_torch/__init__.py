@@ -17,19 +17,24 @@ tolerance. It imports ``torch`` and ``numpy``, never ``jax`` or
                  and compensated sum of the serial-reduce mode
                  (``serial``). Sources in ``ops/csrc``.
 - ``solvers``  — the plain PyTorch PCG solver (``solvers.pcg``),
-                 mixed-precision refinement (``solvers.refine``) and
+                 mixed-precision refinement (``solvers.refine``),
                  checkpointed, chunked solves in the JAX package's file
-                 format (``solvers.checkpoint``).
+                 format (``solvers.checkpoint``), batched multi-RHS solves
+                 (``solvers.batched``) and lane stepping for continuous
+                 batching (``solvers.lanes``).
 - ``parallel`` — the device mesh, halo exchange and mesh-order sums, the
                  plain sharded solve, and the sharded fused and CA solves,
                  which run the kernels' sharded (banded, masked) forms on
                  every shard; each also checkpointed.
-- ``interop``  — carries the JAX package's problem and canvases across as
-                 plain data, for the parity tests.
+- ``obs``      — spans and counters in the JAX package's formats.
+- ``interop``  — carries the JAX package's problem, canvases and batched
+                 state across as plain data, for the parity tests.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"`` (a
 mesh of CPU devices for the sharded solves); without a card they raise.
-``python -m poisson_tpu_torch M N`` is the CLI.
+``python -m poisson_tpu_torch M N`` is the CLI
+(``python -m poisson_tpu_torch solve-batched M N --batch B`` the batched
+one).
 """
 
 from poisson_tpu_torch.config import FLAGSHIP, Problem
@@ -48,20 +53,24 @@ from poisson_tpu_torch.parallel import (
     pcg_solve_sharded,
     pcg_solve_sharded_checkpointed,
 )
+from poisson_tpu_torch.solvers.batched import solve_batched
 from poisson_tpu_torch.solvers.checkpoint import (
     pcg_solve_checkpointed,
     pcg_solve_chunked,
 )
+from poisson_tpu_torch.solvers.lanes import LaneBatch, LaneResult
 from poisson_tpu_torch.solvers.pcg import PCGResult, pcg_solve
 from poisson_tpu_torch.solvers.refine import RefineResult, refined_solve
 
 __version__ = "0.1.0"
 
-__all__ = ["FLAGSHIP", "Problem", "PCGResult", "RefineResult", "ca_cg_solve",
+__all__ = ["FLAGSHIP", "LaneBatch", "LaneResult", "Problem", "PCGResult",
+           "RefineResult", "ca_cg_solve",
            "ca_cg_solve_checkpointed", "ca_cg_solve_sharded",
            "ca_cg_solve_sharded_checkpointed", "fused_cg_solve",
            "fused_cg_solve_checkpointed", "fused_cg_solve_sharded",
            "fused_cg_solve_sharded_checkpointed", "make_solver_mesh",
            "pcg_solve", "pcg_solve_checkpointed", "pcg_solve_chunked",
            "pcg_solve_sharded", "pcg_solve_sharded_checkpointed",
-           "refined_solve", "resident_cg_solve", "__version__"]
+           "refined_solve", "resident_cg_solve", "solve_batched",
+           "__version__"]

@@ -1,5 +1,6 @@
-"""Command line: ``python -m poisson_tpu_torch M N`` (the solve subset of
-``poisson_tpu/cli.py``).
+"""Command line: ``python -m poisson_tpu_torch M N`` and
+``python -m poisson_tpu_torch solve-batched M N --batch B`` (the solve and
+batched-solve subsets of ``poisson_tpu/cli.py``).
 
 Backends: ``fused`` is the two-sweep canvas iteration with CUDA kernels A and
 B; ``resident`` the whole solve in one launch of kernel R (grids within the
@@ -27,13 +28,21 @@ one, with kernels A′ and B′; a grid wide enough takes it on its own);
 kernel S, in the JAX package's serial order; ``--checkpoint PATH`` runs the
 solve in chunks of ``--chunk`` iterations, saving its state to PATH after
 each and resuming from it, in the file format both packages read (every
-backend but ``resident``, whose solve is one launch).
+backend but ``resident``, whose solve is one launch). ``--trace-dir`` and
+``--metrics-out`` write the run's spans, events and counters (``obs``) in
+the JAX package's formats.
+
+``solve-batched`` solves B right-hand sides of one operator together
+(``solvers.batched``; see :func:`main_solve_batched`).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import sys
+import time
 
 from poisson_tpu_torch.config import Problem
 
@@ -127,6 +136,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="iterations per checkpoint chunk (default 200)")
     p.add_argument("--keep-last", type=int, default=2,
                    help="checkpoint generations kept (default 2)")
+    p.add_argument("--trace-dir", metavar="DIR", default=None,
+                   help="write spans and events (Perfetto trace JSON, "
+                        "JSONL) and a counters snapshot here")
+    p.add_argument("--metrics-out", metavar="PATH", default=None,
+                   help="write the counters/gauges snapshot here at exit")
     p.add_argument("--json", action="store_true",
                    help="one JSON line instead of a table")
     return p
@@ -231,10 +245,18 @@ def _grid(args) -> None:
 
 
 def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "solve-batched":
+        return main_solve_batched(argv[1:])
     args = build_parser().parse_args(argv)
     _grid(args)
     if args.repeat < 1:
         raise SystemExit(f"--repeat must be >= 1, got {args.repeat}")
+    from poisson_tpu_torch import obs
+
+    if args.trace_dir or args.metrics_out:
+        obs.configure(trace_dir=args.trace_dir, metrics_path=args.metrics_out)
     problem = Problem(M=args.M, N=args.N, delta=args.delta,
                       max_iter=args.max_iter,
                       weighted_norm=not args.unweighted_norm)
@@ -282,7 +304,12 @@ def main(argv=None) -> int:
         pcg_solve,
     )
     from poisson_tpu_torch.utils.platform import device_name, resolve_device
-    from poisson_tpu_torch.utils.timing import PhaseTimer, SolveReport, mlups
+    from poisson_tpu_torch.utils.timing import (
+        PhaseTimer,
+        SolveReport,
+        count_solve,
+        mlups,
+    )
 
     if backend == "resident":
         try:
@@ -391,7 +418,181 @@ def main(argv=None) -> int:
         stopped=stopped,
         mesh=None if mesh is None else (mesh.px, mesh.py),
     )
+    count_solve(result, compile_seconds=first - best, solve_seconds=best)
+    # The report is itself an event, so a trace directory alone holds the
+    # run's outcome (the JAX CLI's "solve.report").
+    obs.event("solve.report", **dataclasses.asdict(report))
+    obs.finalize()
     print(report.json_line() if args.json else report.table())
+    return 0
+
+
+def build_batched_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m poisson_tpu_torch solve-batched",
+        description="Batched multi-RHS PCG: B Poisson problems of one "
+                    "operator stepped together (solvers.batched).")
+    p.add_argument("M", type=int, help="grid cells in x (nodes: M+1)")
+    p.add_argument("N", type=int, help="grid cells in y (nodes: N+1)")
+    p.add_argument("--batch", type=int, required=True, metavar="B",
+                   help="batch size: right-hand sides solved together")
+    p.add_argument("--bucket", type=int, default=None,
+                   help="pad the batch to this size with zero members "
+                        "(default: run at --batch; the record's bucket is "
+                        "the power-of-two ladder's, as the JAX CLI's)")
+    p.add_argument("--delta", type=float, default=1e-6,
+                   help="convergence threshold on ||w(k+1)-w(k)|| "
+                        "(default 1e-6)")
+    p.add_argument("--max-iter", type=int, default=None,
+                   help="iteration cap (default (M-1)(N-1))")
+    p.add_argument("--dtype", choices=("float32", "float64"),
+                   default="float32", help="state precision (default "
+                                           "float32, as the JAX CLI's)")
+    p.add_argument("--vary-rhs", action="store_true",
+                   help="give member i the RHS gate 1+i/B, so members "
+                        "converge at different iterations")
+    p.add_argument("--mesh", type=parse_mesh, default=None,
+                   metavar="PXxPY",
+                   help="run the bucket on a PXxPY mesh of shards "
+                        "(members whole-grid, the mesh splits the grid; "
+                        "one shard per card on cuda, every shard on the "
+                        "CPU with --device cpu)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--repeat", type=int, default=1,
+                   help="timed batched-solve repetitions; report the best")
+    p.add_argument("--compare-sequential", action="store_true",
+                   help="also run the B members as sequential solves and "
+                        "report the speedup and per-member count parity")
+    p.add_argument("--trace-dir", metavar="DIR", default=None,
+                   help="write spans, events and counters here")
+    p.add_argument("--metrics-out", metavar="PATH", default=None,
+                   help="write the counters/gauges snapshot here at exit")
+    p.add_argument("--json", action="store_true",
+                   help="one JSON line instead of a table")
+    # The JAX CLI's flags for paths not ported yet: each is refused with
+    # its ROADMAP item.
+    p.add_argument("--geometry", metavar="SPEC", action="append",
+                   default=None, help="not ported yet (ROADMAP item 6)")
+    p.add_argument("--verify-every", type=int, default=0, metavar="K",
+                   help="not ported yet (ROADMAP item 7)")
+    p.add_argument("--verify-tol", type=float, default=None,
+                   help="not ported yet (ROADMAP item 7)")
+    p.add_argument("--preconditioner", choices=("jacobi", "mg"),
+                   default="jacobi",
+                   help="jacobi (default); mg is not ported yet (ROADMAP "
+                        "item 8)")
+    return p
+
+
+def main_solve_batched(argv) -> int:
+    """``solve-batched``: a table, or one JSON record (``--json``) with the
+    JAX CLI's keys. ``batch_seconds`` is the best of ``--repeat`` timed
+    solves; ``compile_seconds`` is the first call's extra time over it
+    (the port compiles nothing: it is the first call's setup and, on the
+    card, the warm-up of its libraries and allocator)."""
+    args = build_batched_parser().parse_args(argv)
+    if args.batch < 1:
+        raise SystemExit(f"--batch must be >= 1, got {args.batch}")
+    if args.repeat < 1:
+        raise SystemExit(f"--repeat must be >= 1, got {args.repeat}")
+    from poisson_tpu_torch.solvers.batched import (
+        bucket_size,
+        not_ported,
+        solve_batched,
+    )
+
+    for flag, unported, what in (
+            ("--geometry", args.geometry, "geometries"),
+            ("--verify-every", args.verify_every, "verify_every"),
+            ("--verify-tol", args.verify_tol is not None, "verify_every"),
+            ("--preconditioner mg", args.preconditioner == "mg", "mg")):
+        if unported:
+            raise SystemExit(f"{flag}: {not_ported(what)}")
+    from poisson_tpu_torch import obs
+    from poisson_tpu_torch.solvers.pcg import (
+        FLAG_CONVERGED,
+        FLAG_NAMES,
+        pcg_solve,
+    )
+    from poisson_tpu_torch.utils.platform import resolve_device
+    from poisson_tpu_torch.utils.timing import PhaseTimer, fence
+
+    if args.trace_dir or args.metrics_out:
+        obs.configure(trace_dir=args.trace_dir, metrics_path=args.metrics_out)
+    problem = Problem(M=args.M, N=args.N, delta=args.delta,
+                      max_iter=args.max_iter)
+    B = args.batch
+    gates = ([1.0 + i / B for i in range(B)] if args.vary_rhs
+             else [1.0] * B)
+    device = resolve_device(args.device)
+    where = dict(device=device)
+    if args.mesh is not None:
+        mesh = build_mesh(args, visible_devices(args.device))
+        device, where = mesh.lead, dict(mesh=mesh)
+    run = lambda: solve_batched(problem, rhs_gates=gates, dtype=args.dtype,
+                                bucket=args.bucket, **where)
+    timer = PhaseTimer(device)
+    with timer.phase("compile_and_first_solve"):
+        result = run()
+    best = None
+    with obs.span("timed_batched_solves", fence=False, repeat=args.repeat):
+        for _ in range(args.repeat):
+            fence(device)
+            t0 = time.perf_counter()
+            result = run()
+            fence(device)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+
+    iters = result.iterations.tolist()
+    flags = result.flag.tolist()
+    converged = sum(1 for f in flags if f == FLAG_CONVERGED)
+    bucket = args.bucket if args.bucket is not None else bucket_size(B)
+    record = {
+        "M": problem.M, "N": problem.N, "batch": B, "bucket": bucket,
+        "dtype": args.dtype,
+        "batch_seconds": best,
+        "solves_per_sec": B / best,
+        "compile_seconds": timer.times["compile_and_first_solve"] - best,
+        "max_iterations": int(result.max_iterations),
+        "iterations": iters,
+        "converged": converged,
+        "flags": sorted({FLAG_NAMES.get(f, str(f)) for f in flags}),
+    }
+    if args.compare_sequential:
+        seq = lambda g: pcg_solve(problem, dtype=args.dtype, rhs_gate=g,
+                                  device=device)
+        seq(gates[0])              # first-call setup outside the timing
+        with obs.span("timed_sequential_solves", fence=False, batch=B):
+            fence(device)
+            t0 = time.perf_counter()
+            seq_iters = [int(seq(g).iterations) for g in gates]
+            seq_seconds = time.perf_counter() - t0
+        record["sequential_seconds"] = seq_seconds
+        record["speedup_vs_sequential"] = seq_seconds / best
+        record["iterations_match_sequential"] = seq_iters == iters
+
+    obs.event("solve_batched.report", **record)
+    obs.gauge("batched.solves_per_sec", record["solves_per_sec"])
+    obs.finalize()
+    if args.json:
+        print(json.dumps(record))
+        return 0
+    lo, hi = min(iters), max(iters)
+    print(f"M={problem.M}, N={problem.N} | batch={B} (bucket {bucket}) "
+          f"| Time={best:.4f} s | {record['solves_per_sec']:.2f} solves/s")
+    print(f"  first call: {record['compile_seconds']:.2f} s   "
+          f"dtype: {record['dtype']}   iterations: "
+          + (f"{lo}" if lo == hi else f"{lo}..{hi} (max {hi})")
+          + f"   converged: {converged}/{B}")
+    if args.compare_sequential:
+        match = ("identical to sequential"
+                 if record["iterations_match_sequential"]
+                 else "MISMATCH vs sequential")
+        print(f"  vs sequential: {record['speedup_vs_sequential']:.2f}x "
+              f"({seq_seconds:.4f} s for {B} solves; per-member "
+              f"iteration counts {match})")
     return 0
 
 

@@ -2,8 +2,9 @@
 
 The port never imports the JAX package; a caller that holds both (the
 parity tests) hands over plain fields and numpy arrays, so that both
-packages run on the very same inputs: single-device canvases, or the
-stacked shard canvases of the sharded solves.
+packages run on the very same inputs: single-device canvases, the
+stacked shard canvases of the sharded solves, or a batched solver state
+(a lane table carried across mid-flight).
 """
 
 from __future__ import annotations
@@ -76,3 +77,32 @@ def shard_canvases_from_reference(cs, cw, g, rhs, sc2, sc_int, colmask,
     if arrays["colmask"].shape != (1, arrays["cs"].shape[2]):
         raise ValueError(f"colmask has shape {arrays['colmask'].shape}")
     return to_shards(arrays, [resolve_device(d) for d in devices])
+
+
+def batched_state_from_reference(fields: dict, device=None):
+    """The port's batched ``PCGState`` from a JAX batched ``PCGState``
+    (``state._asdict()``, arrays numpy or JAX): fields (B, M+1, N+1) as
+    they are, member scalars (B,) as (B, 1, 1), in the same dtypes, on
+    ``device`` (default ``cuda``). A ``LaneBatch`` or a batched loop of
+    either package continues from it."""
+    from poisson_tpu_torch.solvers.pcg import PCGState
+
+    dev = resolve_device(device)
+    out = {}
+    for name in PCGState._fields:
+        arr = np.asarray(fields[name])
+        t = torch.from_numpy(np.array(arr)).to(dev)
+        out[name] = t.reshape(-1, 1, 1) if arr.ndim == 1 else t
+    return PCGState(**out)
+
+
+def batched_state_to_reference(state) -> dict:
+    """A port batched ``PCGState`` as the JAX package holds it: numpy
+    arrays, member scalars as (B,) vectors (``PCGState(**d)`` of the JAX
+    package rebuilds it)."""
+    out = {}
+    for name, t in zip(state._fields, state):
+        arr = t.detach().cpu().numpy()
+        out[name] = arr.reshape(-1) if arr.ndim == 3 and arr.shape[1:] == (
+            1, 1) else arr
+    return out

@@ -9,8 +9,10 @@ Operators read the ring but only ever write the interior.
 Every op is polymorphic in leading batch dimensions, as in the JAX module
 (``poisson_tpu/ops/stencil.py:17-30``): state tensors may carry leading axes;
 the coefficient fields a/b/d either stay unbatched and broadcast or carry
-their own matching leading axes. Reductions (``dot_weighted``) sum only the
-two trailing grid axes, so they are per-member.
+their own matching leading axes. Reductions (``dot_weighted``,
+``member_sums``) sum only the two trailing grid axes, so they are
+per-member; ``member_sums`` also keeps each member's bits those of its
+own unbatched sum, whatever the batch around it.
 
 These are the plain reference operators of the port (the ``torch`` backend
 of ``solvers.pcg``); the fused canvas path (``ops.fused_cg``) runs its own
@@ -89,3 +91,31 @@ def dot_weighted(u, v, h1: float, h2: float):
     return torch.sum(
         u[..., 1:-1, 1:-1] * v[..., 1:-1, 1:-1], dim=(-2, -1)
     ) * (h1 * h2)
+
+
+# A member of a ``member_sums`` buffer starts on a multiple of this many
+# elements (512 bytes or more), where a fresh tensor starts.
+_MEMBER_ALIGN = 128
+
+
+def member_sums(op, x, *args):
+    """Σ over the two trailing axes of the elementwise ``op(x, *args)`` on
+    a (B, m, n) stack, per member, as (B, 1, 1) member scalars.
+
+    Each member is summed by the call an unbatched solve makes on its own
+    (m, n) product, ``torch.sum(t, dim=(-2, -1))`` of a contiguous tensor
+    on an aligned start: ``op`` writes into a buffer whose members are
+    contiguous and start on :data:`_MEMBER_ALIGN` boundaries. So member i's
+    sum has the bits of its own solve's, whatever B. One ``torch.sum`` over
+    the stack would not: its order depends on the number of outputs (its
+    launch geometry on the card, its thread split on the CPU). One
+    elementwise launch and B sums (each two launches on the card)."""
+    nb, m, n = x.shape
+    size = m * n
+    stride = -(-size // _MEMBER_ALIGN) * _MEMBER_ALIGN
+    out = x.new_empty((nb, stride))[:, :size].view(nb, m, n)
+    op(x, *args, out=out)
+    sums = x.new_empty((nb, 1, 1))
+    for i in range(nb):
+        torch.sum(out[i], dim=(-2, -1), out=sums[i, 0, 0])
+    return sums

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from poisson_tpu_torch import obs
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.parallel.mesh import Mesh
 from poisson_tpu_torch.parallel.pcg_sharded import (
@@ -111,12 +112,19 @@ def pcg_solve_sharded_checkpointed(problem: Problem, mesh: Mesh | None,
             **{name: getattr(saved, name).to(lead)
                for name in PCGState._fields if name not in _FIELDS})
 
+    def to_portable(s: PCGState) -> PCGState:
+        # The gather is the costly part of a sharded checkpoint: its span
+        # shows a slow one on the timeline (the JAX module's span).
+        with obs.span("checkpoint.gather", fence=False,
+                      mesh=f"{mesh.px}x{mesh.py}"):
+            return portable_state(problem, mesh, geo, s)
+
     cap = problem.iteration_cap
     state = run_chunked(
         state,
         advance=lambda s: drive(body, s, min(chunk, cap - int(s.k)),
                                 check_every),
-        to_portable=lambda s: portable_state(problem, mesh, geo, s),
+        to_portable=to_portable,
         path=checkpoint_path, fingerprint=fp,
         cap=cap, keep_checkpoint=keep_checkpoint, keep_last=keep_last,
         watchdog=watchdog, on_chunk=on_chunk)

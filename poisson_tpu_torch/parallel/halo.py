@@ -68,12 +68,13 @@ def exchange_halos(blocks, mesh: Mesh) -> None:
     """Refresh the width-1 halo ring of every shard's (m+2, n+2) block, in
     place: the first and last interior rows travel to the row neighbours'
     halo rows, then the first and last interior columns, over the full
-    height, to the column neighbours' halo columns."""
-    everything = slice(None)
-    shift_down(blocks, mesh, X_AXIS, (-2, everything), (0, everything))
-    shift_up(blocks, mesh, X_AXIS, (1, everything), (-1, everything))
-    shift_down(blocks, mesh, Y_AXIS, (everything, -2), (everything, 0))
-    shift_up(blocks, mesh, Y_AXIS, (everything, 1), (everything, -1))
+    height, to the column neighbours' halo columns. A block may carry
+    leading member axes (a batch); the ring is that of its last two."""
+    every = slice(None)
+    shift_down(blocks, mesh, X_AXIS, (..., -2, every), (..., 0, every))
+    shift_up(blocks, mesh, X_AXIS, (..., 1, every), (..., -1, every))
+    shift_down(blocks, mesh, Y_AXIS, (..., every, -2), (..., every, 0))
+    shift_up(blocks, mesh, Y_AXIS, (..., every, 1), (..., every, -1))
 
 
 def _shard_sum(part, run):

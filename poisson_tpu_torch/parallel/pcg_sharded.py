@@ -37,6 +37,15 @@ Setup: ``setup="host"`` cuts the host fp64 fields
 halo ring from the closed-form geometry on its device, in the state's
 dtype. The JAX module reaches no Pallas kernel, so neither does this one:
 it is plain PyTorch.
+
+**Batched** (:func:`solve_batched_sharded`, the engine of
+``solvers.batched.solve_batched(mesh=)``): every shard's part carries a
+member axis, (shards, B, m̂+2, n̂+2); the coefficient fields and the mask
+broadcast over it, the halo exchange moves every member's ring at once,
+and each member's sums are (B, 1, 1) mesh scalars: each shard's block
+summed per member, then the shards in mesh order. Counts and flags equal
+the unsharded batched solve's; iterates agree to the sums' order, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -255,15 +264,25 @@ def sharded_fields(problem: Problem, mesh: Mesh, geo: ShardGeometry,
 
 
 def sharded_ops(problem: Problem, mesh: Mesh, geo: ShardGeometry,
-                fields: ShardedFields, scaled: bool) -> PCGOps:
+                fields: ShardedFields, scaled: bool,
+                members: bool = False) -> PCGOps:
     """The JAX module's ``_sharded_ops``: masked operators, mesh-order sums
-    and the halo exchange of the Jacobi loop."""
+    and the halo exchange of the Jacobi loop. ``members``: the fields carry
+    a member axis (:func:`member_fields`) and every sum is a (B, 1, 1)
+    tensor of member scalars."""
     h1, h2 = problem.h1, problem.h2
     a, b, aux, mask = fields.a, fields.b, fields.aux, fields.mask
     stencil = lambda p: DeviceStacks.map(
         lambda q, aa, bb: apply_A(q, aa, bb, h1, h2), p, a, b)
 
     def psum(x: DeviceStacks) -> torch.Tensor:
+        if members:
+            # Each device's shards summed per member at once, then the
+            # shards in mesh order on the lead device.
+            sums = DeviceStacks(part.sum(dim=(-2, -1), keepdim=True)
+                                for part in x.parts)
+            return torch.sum(torch.stack(
+                [s.to(mesh.lead) for s in shard_blocks(geo, sums)]), dim=0)
         return mesh_sum([blk.reshape(-1) for blk in shard_blocks(geo, x)],
                         mesh)
 
@@ -296,14 +315,14 @@ def sharded_ops(problem: Problem, mesh: Mesh, geo: ShardGeometry,
 
 def gather_interior(problem: Problem, mesh: Mesh, geo: ShardGeometry,
                     field: DeviceStacks) -> torch.Tensor:
-    """Every shard's owned interior → the full (M+1, N+1) grid on the lead
-    device (zero ring and padding cut)."""
-    blocks = [blk[1:-1, 1:-1].to(mesh.lead)
+    """Every shard's owned interior → the full (…, M+1, N+1) grid on the
+    lead device (zero ring and padding cut; a member axis is kept)."""
+    blocks = [blk[..., 1:-1, 1:-1].to(mesh.lead)
               for blk in shard_blocks(geo, field)]
-    rows = [torch.cat(blocks[ix * geo.py : (ix + 1) * geo.py], dim=1)
+    rows = [torch.cat(blocks[ix * geo.py : (ix + 1) * geo.py], dim=-1)
             for ix in range(geo.px)]
-    w_int = torch.cat(rows, dim=0)
-    return pad_interior(w_int[: problem.M - 1, : problem.N - 1])
+    w_int = torch.cat(rows, dim=-2)
+    return pad_interior(w_int[..., : problem.M - 1, : problem.N - 1])
 
 
 def scatter_interior(problem: Problem, mesh: Mesh, geo: ShardGeometry,
@@ -359,3 +378,53 @@ def pcg_solve_sharded(problem: Problem, mesh: Mesh | None = None,
     return PCGResult(w=gather_interior(problem, mesh, geo, w),
                      iterations=s.k, diff=s.diff, residual_dot=s.zr,
                      flag=s.flag)
+
+
+def member_fields(fields: ShardedFields) -> ShardedFields:
+    """The operator fields with a member axis of 1, (shards, 1, m̂+2,
+    n̂+2), to broadcast over a batch; the rhs is left out (None)."""
+    widen = lambda f: DeviceStacks(part[:, None] for part in f.parts)
+    return ShardedFields(widen(fields.a), widen(fields.b), None,
+                         widen(fields.aux), widen(fields.mask))
+
+
+def shard_rhs_stack(rhs_stack: torch.Tensor, px: int, py: int, m_blk: int,
+                    n_blk: int) -> torch.Tensor:
+    """A (B, M+1, N+1) stack of full-grid right-hand sides cut into
+    halo-inclusive blocks (px·py, B, m̂+2, n̂+2), leading axis in mesh order
+    (the JAX module's ``shard_rhs_stack``), on the stack's device."""
+    nb, rows, cols = rhs_stack.shape
+    full = rhs_stack.new_zeros((nb, px * m_blk + 2, py * n_blk + 2))
+    full[:, :rows, :cols] = rhs_stack
+    return torch.stack([
+        full[:, ix * m_blk : ix * m_blk + m_blk + 2,
+             iy * n_blk : iy * n_blk + n_blk + 2]
+        for ix in range(px) for iy in range(py)])
+
+
+def solve_batched_sharded(problem: Problem, mesh: Mesh, dtype_name: str,
+                          scaled: bool, rhs_stack: torch.Tensor) -> PCGResult:
+    """B right-hand sides solved together on ``mesh`` (host setup): the
+    engine of ``solvers.batched.solve_batched(mesh=)``. ``rhs_stack`` is
+    the (B, M+1, N+1) stack in the solve's system (scaled by D^{-1/2} when
+    ``scaled``), padded already; returns a batched :class:`PCGResult`
+    (w gathered to the full grids on the lead device)."""
+    from poisson_tpu_torch.solvers.batched import (
+        batched_result,
+        pcg_loop_batched,
+    )
+
+    geo = geometry(problem, mesh)
+    fields = member_fields(sharded_fields(problem, mesh, geo, dtype_name,
+                                          scaled))
+    blocks = shard_rhs_stack(rhs_stack, geo.px, geo.py, geo.m_blk,
+                             geo.n_blk)
+    rhs = DeviceStacks(blocks[list(group)].to(dev) for group, dev in
+                       zip(geo.shards, geo.devices)) * fields.mask
+    ops = sharded_ops(problem, mesh, geo, fields, scaled, members=True)
+    s = pcg_loop_batched(ops, rhs, delta=problem.delta,
+                         max_iter=problem.iteration_cap,
+                         weighted_norm=problem.weighted_norm,
+                         h1=problem.h1, h2=problem.h2)
+    w = s.w * fields.aux if scaled else s.w
+    return batched_result(gather_interior(problem, mesh, geo, w), s)

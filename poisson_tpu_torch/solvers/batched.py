@@ -1,0 +1,345 @@
+"""Batched multi-RHS solves: B Poisson problems on one operator, stepped
+together (counterpart of ``poisson_tpu/solvers/batched.py``).
+
+The JAX driver ``vmap``s the shared PCG body over a leading batch axis in
+one ``while_loop``. Here the batch axis is part of every tensor: the fields
+are (B, M+1, N+1) stacks, and every per-member scalar (ζ, α, the verdicts,
+k) is a (B, 1, 1) tensor that broadcasts over its member's grid, so the
+shared body ``solvers.pcg.make_pcg_body`` runs unchanged over the stack.
+Each operation is one launch for the whole batch; the coefficient fields
+are read once for all members.
+
+Per-member masking: a member that stops (converged, breakdown, non-finite)
+is frozen by the body's own ``done`` select, count included; the host
+reads "is every member done" once per ``CHECK_EVERY`` steps
+(``solvers.pcg.drive``), and never runs more steps than the cap, so no
+member passes it. The lane engine (``solvers.lanes``), whose members start
+at different iterations, also freezes each member at its own stop line
+(:func:`step_members`).
+
+Bit parity with the sequential solve: each member's sums are the
+``torch.sum`` calls of its own solve on its own product
+(``ops.stencil.member_sums``), and every other step is elementwise. So
+member i reproduces ``pcg_solve(problem, rhs_gate=g_i)`` (or
+``pcg_solve(p_i)``) bit for bit: its iterate, count and flag.
+
+Buckets: the JAX package pads a ragged batch with zero right-hand sides to
+a bucket of its ladder, so that one compiled executable serves every batch
+size up to it. The port compiles nothing, so it runs the batch at its own
+size and pads only to a ``bucket`` the caller pins (a zero member stops
+with FLAG_BREAKDOWN at iteration 1, ζ₀ = 0 tripping the |(Ap, p)| guard,
+and is sliced off). It still counts the bucket in ``obs`` by the JAX
+package's cache keys (``batched.bucket_cache.hits``/``.misses``), so those
+counters move the same way on the same calls.
+
+``mesh=`` runs the bucket on a mesh of shards
+(``parallel.pcg_sharded.solve_batched_sharded``): members stay whole-grid,
+the mesh splits the grid, each member's sums are mesh scalars.
+
+Not ported yet, refused with the ROADMAP item that ports them:
+per-member ``geometries`` (Queue 1 item 6), ``verify_every`` > 0 (item 7),
+``preconditioner="mg"`` (item 8) and ``mode="block"`` (item 9).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from poisson_tpu_torch import obs
+from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.solvers.pcg import (
+    CHECK_EVERY,
+    PCGOps,
+    PCGResult,
+    PCGState,
+    _select,
+    drive,
+    gate_rhs,
+    host_fields64,
+    init_state,
+    make_pcg_body,
+    resolve_dtype,
+    resolve_scaled,
+    solve_setup,
+)
+from poisson_tpu_torch.utils.platform import resolve_device
+
+# Bucket ladder for padding ragged batch sizes (the JAX package's): powers
+# of two up to 256; larger request sets run at their exact size.
+DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+# The bucket keys this process has counted, as the JAX package keys its
+# jit cache ((bucket, problem with f_val=1, dtype, scaled[, mesh])), so
+# the hit and miss counters follow a call sequence as JAX's do.
+_TRACED: set = set()
+
+# What each refused option waits for (ROADMAP Queue 1).
+_NOT_PORTED = {
+    "geometries": "per-member geometries (ROADMAP Queue 1 item 6)",
+    "verify_every": "the in-loop integrity probe, verify_every > 0 "
+                    "(ROADMAP Queue 1 item 7)",
+    "mg": "preconditioner='mg' (ROADMAP Queue 1 item 8)",
+    "block": "mode='block', block CG (ROADMAP Queue 1 item 9)",
+}
+
+
+def not_ported(what: str) -> ValueError:
+    return ValueError(f"{_NOT_PORTED[what]} is not ported yet")
+
+
+def reset_bucket_cache() -> None:
+    """Forget which bucket shapes this process has run (pair it with
+    ``obs.metrics.reset()`` so hits and misses stay consistent)."""
+    _TRACED.clear()
+
+
+def bucket_size(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
+    """Smallest bucket ≥ n (n itself beyond the ladder)."""
+    if n < 1:
+        raise ValueError(f"batch size must be >= 1, got {n}")
+    for b in buckets:
+        if n <= b:
+            return int(b)
+    return int(n)
+
+
+def pcg_loop_batched(ops: PCGOps, rhs_stack, *, delta: float, max_iter: int,
+                     weighted_norm: bool, h1: float, h2: float,
+                     stagnation_window: int = 0,
+                     check_every: int = CHECK_EVERY) -> PCGState:
+    """Run the shared PCG body over a (B, M+1, N+1) stack until every
+    member is done or at the cap. ``ops`` must be a batched bundle (sums as
+    (B, 1, 1) member scalars). Every member starts at k = 0 and ``drive``
+    runs at most ``max_iter`` steps, so no member passes the cap; a done
+    member is frozen by the body."""
+    body = make_pcg_body(ops, delta=delta, weighted_norm=weighted_norm,
+                         h1=h1, h2=h2, stagnation_window=stagnation_window)
+    return drive(body, init_state(ops, rhs_stack), max_iter, check_every)
+
+
+def step_members(body, s: PCGState, stop_at, steps: int,
+                 check_every: int = CHECK_EVERY) -> PCGState:
+    """Advance every member of ``s`` to at most its own ``stop_at``
+    (a (B, 1, 1) tensor), in at most ``steps`` steps: a member already
+    done or at its line keeps its old state (the JAX driver's per-member
+    select). The host reads whether any member can still advance once
+    per ``check_every`` steps."""
+    ran = 0
+    while ran < steps:
+        for _ in range(min(check_every, steps - ran)):
+            frozen = s.done | (s.k >= stop_at)
+            s = _select(frozen, s, body(s))
+        ran += min(check_every, steps - ran)
+        if not bool(torch.any(~s.done & (s.k < stop_at))):
+            break
+    return s
+
+
+def member_rhs(problem: Problem, f_val: float, scaled: bool, dtype,
+               device) -> torch.Tensor:
+    """A member's right-hand side for RHS magnitude ``f_val``: the unit
+    (f_val = 1) host setup scaled in fp64, then cast once. f·1[D]·D^{-1/2}
+    is one fp64 product either way, so these are the bits of
+    ``pcg_solve(problem.with_(f_val=f_val))``'s right-hand side."""
+    base64 = host_fields64(problem.with_(f_val=1.0), scaled)[2]
+    return torch.tensor(base64 * f_val, dtype=dtype).to(device)
+
+
+def _shared_base(problems: Sequence[Problem]) -> Problem:
+    """Every member must share the operator (all fields but ``f_val``);
+    returns member 0, the shared base."""
+    if not problems:
+        raise ValueError("solve_batched needs at least one problem")
+    base = problems[0]
+    for i, p in enumerate(problems[1:], start=1):
+        if p.with_(f_val=base.f_val) != base:
+            raise ValueError(
+                "batched members must share the operator — every Problem "
+                "field except f_val must match member 0; member "
+                f"{i} differs: {p} vs {base}")
+    return base
+
+
+def _count_bucket(key: tuple, batch: int, run: int) -> None:
+    """Count a call under the JAX package's cache ``key``, its ``batch``
+    members and the ``run - batch`` padding members it computes."""
+    if key in _TRACED:
+        obs.inc("batched.bucket_cache.hits")
+    else:
+        _TRACED.add(key)
+        obs.inc("batched.bucket_cache.misses")
+    obs.inc("batched.solves", batch)
+    obs.inc("batched.padding_members", run - batch)
+    obs.gauge("batched.last_bucket", key[0])
+
+
+def _refuse_unported(geometries, verify_every, preconditioner, mode) -> None:
+    if mode not in ("independent", "block"):
+        raise ValueError(f"unknown mode {mode!r} — expected one of "
+                         "('independent', 'block')")
+    if mode == "block":
+        raise not_ported("block")
+    if geometries is not None and any(g is not None for g in geometries):
+        raise not_ported("geometries")
+    if preconditioner not in (None, "jacobi"):
+        if preconditioner == "mg":
+            raise not_ported("mg")
+        raise ValueError(f"unknown preconditioner {preconditioner!r}")
+    if int(verify_every) > 0:
+        raise not_ported("verify_every")
+
+
+def _member_ids(member_ids, batch: int) -> tuple:
+    if member_ids is None:
+        return tuple(range(batch))
+    origin = tuple(member_ids)
+    if len(origin) != batch:
+        raise ValueError(f"member_ids must have one id per member: got "
+                         f"{len(origin)} ids for batch {batch}")
+    return origin
+
+
+def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
+                  dtype=None, scaled=None, mesh=None,
+                  buckets: Sequence[int] = DEFAULT_BUCKETS,
+                  bucket: Optional[int] = None,
+                  member_ids: Optional[Sequence] = None,
+                  geometries: Optional[Sequence] = None,
+                  verify_every: int = 0, verify_tol=None,
+                  preconditioner: str = "jacobi", mg_config=None,
+                  mode: str = "independent", device=None) -> PCGResult:
+    """Solve a batch of Poisson problems on one operator, stepped together.
+
+    Input forms (exactly one), as in the JAX package:
+
+    - ``solve_batched([p0, p1, …])`` — Problems that share everything but
+      ``f_val``; member i reproduces ``pcg_solve(p_i)`` bit for bit;
+    - ``solve_batched(p, rhs_gates=[g0, g1, …])`` — one problem, B scalar
+      RHS multipliers; member i is ``pcg_solve(p, rhs_gate=g_i)``;
+    - ``solve_batched(p, rhs_stack=B)`` — one problem, a (B, M+1, N+1)
+      stack of physical right-hand sides (zero Dirichlet ring), mapped to
+      the scaled system when ``scaled``.
+
+    The batch runs at its own size B; a pinned ``bucket`` (≥ B) pads it
+    with zero members, which stop at iteration 1 and are sliced off. The
+    hit and miss counters key on ``bucket``, else on :func:`bucket_size`
+    over ``buckets``, as the JAX package's compile cache does.
+    Returns a :class:`PCGResult` whose ``w``/``iterations``/``diff``/
+    ``residual_dot``/``flag`` carry the batch axis, with ``max_iterations``
+    (0-d, the slowest real member's count) and ``origin`` (``member_ids``,
+    default 0…B−1, aligned with the batch axis through padding).
+
+    ``dtype``/``scaled`` follow ``pcg_solve``'s precision policy; the solve
+    runs on ``device`` (default ``cuda``), or on ``mesh`` (a
+    ``parallel.mesh.Mesh``; one of the two). ``geometries``,
+    ``verify_every`` > 0 (and its ``verify_tol``), ``preconditioner="mg"``
+    (and its ``mg_config``) and ``mode="block"`` are refused with the
+    ROADMAP item that ports them."""
+    _refuse_unported(geometries, verify_every, preconditioner, mode)
+    if mesh is not None and device is not None:
+        raise ValueError("give a mesh or a device, not both")
+    forms = sum(x is not None for x in (rhs_stack, rhs_gates))
+    if problems is None:
+        raise ValueError("solve_batched needs problems (a Problem or a "
+                         "sequence of Problems)")
+    if isinstance(problems, Problem):
+        problem = problems
+        if forms != 1:
+            raise ValueError(
+                "with a single Problem, pass exactly one of rhs_gates or "
+                "rhs_stack (a sequence of Problems is the third form)")
+        member_problems = None
+    else:
+        if forms != 0:
+            raise ValueError(
+                "rhs_gates/rhs_stack apply to the single-Problem form; a "
+                "sequence of Problems already defines every member's RHS")
+        member_problems = list(problems)
+        problem = _shared_base(member_problems)
+
+    dtype_name = resolve_dtype(dtype)
+    use_scaled = resolve_scaled(scaled, dtype_name)
+    tdtype = getattr(torch, dtype_name)
+    dev = mesh.lead if mesh is not None else resolve_device(device)
+    # f_val enters only the right-hand sides, so the bucket key (and the
+    # operator setup) normalizes it away, as the JAX package's jit key does.
+    jit_problem = problem.with_(f_val=1.0)
+    setup = (None if mesh is not None else
+             solve_setup(jit_problem, dtype_name, use_scaled, dev,
+                         members=True))
+
+    if member_problems is not None:
+        stack = torch.stack([member_rhs(problem, p.f_val, use_scaled, tdtype,
+                                        dev) for p in member_problems])
+    elif rhs_gates is not None:
+        gates = torch.as_tensor(rhs_gates, dtype=tdtype).reshape(-1)
+        if gates.numel() < 1:
+            raise ValueError("rhs_gates must have at least one member")
+        stack = gate_rhs(member_rhs(problem, problem.f_val, use_scaled,
+                                    tdtype, dev), gates.to(dev))
+    else:
+        stack = torch.as_tensor(rhs_stack, dtype=tdtype).to(dev)
+        if stack.dim() != 3 or tuple(stack.shape[1:]) != problem.grid_shape:
+            raise ValueError(
+                f"rhs_stack must be (B, {problem.grid_shape[0]}, "
+                f"{problem.grid_shape[1]}), got {tuple(stack.shape)}")
+        if use_scaled:
+            # Physical B → scaled b̃ = D^{-1/2}·B: aux is D^{-1/2} with a
+            # zero ring.
+            aux = torch.tensor(host_fields64(jit_problem, True)[3],
+                               dtype=tdtype, device=dev)
+            stack = stack * aux
+    batch = stack.shape[0]
+    origin = _member_ids(member_ids, batch)
+
+    size = bucket_size(batch, buckets) if bucket is None else int(bucket)
+    if size < batch:
+        raise ValueError(f"bucket {size} smaller than batch {batch}")
+    run = batch if bucket is None else size
+    if run > batch:
+        stack = torch.cat([stack, stack.new_zeros(
+            (run - batch,) + tuple(stack.shape[1:]))])
+
+    key = (size, jit_problem, dtype_name, use_scaled)
+    if mesh is not None:
+        from poisson_tpu_torch.parallel.pcg_sharded import (
+            solve_batched_sharded,
+        )
+
+        _count_bucket(key + (("mesh", mesh.px, mesh.py),), batch, run)
+        result = solve_batched_sharded(jit_problem, mesh, dtype_name,
+                                       use_scaled, stack)
+    else:
+        _count_bucket(key, batch, run)
+        s = pcg_loop_batched(
+            setup.ops, stack, delta=problem.delta,
+            max_iter=problem.iteration_cap,
+            weighted_norm=problem.weighted_norm, h1=problem.h1,
+            h2=problem.h2)
+        w = s.w * setup.aux if use_scaled else s.w
+        result = batched_result(w, s)
+    return sliced(result, batch, origin)
+
+
+def batched_result(w, s: PCGState) -> PCGResult:
+    """A batched state's result: member scalars as (B,) vectors."""
+    k = s.k.reshape(-1)
+    return PCGResult(w=w, iterations=k, diff=s.diff.reshape(-1),
+                     residual_dot=s.zr.reshape(-1),
+                     flag=s.flag.reshape(-1), max_iterations=k.max())
+
+
+def sliced(result: PCGResult, batch: int, origin: tuple) -> PCGResult:
+    """The first ``batch`` members of a bucket's result (padding members
+    cut), ``max_iterations`` over those, and their ``origin``."""
+    k = result.iterations[:batch]
+    return PCGResult(w=result.w[:batch], iterations=k,
+                     diff=result.diff[:batch],
+                     residual_dot=result.residual_dot[:batch],
+                     flag=result.flag[:batch], max_iterations=k.max(),
+                     origin=origin)
+
+
+# Smoke check: ``python -m poisson_tpu_torch.solvers.batched_selfcheck``.

@@ -23,8 +23,11 @@ Hardening, as in the JAX package:
   for another problem;
 - a state whose verdict is FLAG_NONFINITE is never written.
 
-The JAX package's telemetry around these calls (counters, spans, the
-residual-history tap) and its ``Watchdog`` class are not ported yet; the
+Telemetry, by the JAX package's names (``obs``): the counters
+``checkpoint.writes``, ``checkpoint.corrupt``, ``checkpoint.crc_failures``,
+``checkpoint.generation_fallbacks`` and ``checkpoint.deadline_stops``, an
+event beside each, and the ``checkpoint.write`` span around a write. Its
+residual-history tap and its ``Watchdog`` class are not ported yet; the
 ``watchdog``, ``on_chunk`` and ``deadline`` hooks of :func:`run_chunked`
 take any object with the same methods.
 """
@@ -40,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from poisson_tpu_torch import obs
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.solvers.pcg import (
     CHECK_EVERY,
@@ -122,6 +126,10 @@ def run_chunked(state, *, advance, to_portable, path: Optional[str],
     try:
         while (not bool(state.done)) and int(state.k) < cap:
             if deadline is not None and deadline.expired():
+                # The last persisted generation is the partial answer.
+                obs.inc("checkpoint.deadline_stops")
+                obs.event("checkpoint.deadline_stop", k=int(state.k),
+                          chunks=chunks_done)
                 break
             state = advance(state)
             chunks_done += 1
@@ -184,15 +192,18 @@ def save_state(path: str, state: PCGState, fingerprint: str,
     arrays = {key: _host(val) for key, val in zip(_STATE_KEYS, state)}
     tmp = f"{path}.{os.getpid()}.tmp.npz"   # savez appends .npz otherwise
     try:
-        np.savez(tmp, fingerprint=np.asarray(fingerprint),
-                 crc32=np.uint32(_payload_crc(fingerprint, arrays)),
-                 **arrays)
-        generations = checkpoint_generations(path, keep_last)
-        for older, newer in zip(reversed(generations[1:]),
-                                reversed(generations[:-1])):
-            if os.path.exists(newer):
-                os.replace(newer, older)
-        os.replace(tmp, path)
+        with obs.span("checkpoint.write", fence=False, path=path):
+            np.savez(tmp, fingerprint=np.asarray(fingerprint),
+                     crc32=np.uint32(_payload_crc(fingerprint, arrays)),
+                     **arrays)
+            generations = checkpoint_generations(path, keep_last)
+            for older, newer in zip(reversed(generations[1:]),
+                                    reversed(generations[:-1])):
+                if os.path.exists(newer):
+                    os.replace(newer, older)
+            os.replace(tmp, path)
+        obs.inc("checkpoint.writes")
+        obs.event("checkpoint.write", path=path, k=int(arrays["k"]))
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -224,6 +235,8 @@ def _read_state(path: str, fingerprint: str) -> PCGState:
     except Exception as e:
         # A truncated zip surfaces as ValueError/OSError, a flipped npy
         # header as SyntaxError and more: anything raised while parsing.
+        obs.inc("checkpoint.corrupt")
+        obs.event("checkpoint.corrupt", path=path, error=type(e).__name__)
         raise CorruptCheckpointError(
             f"checkpoint {path} is unreadable: {type(e).__name__}: {e}"
         ) from e
@@ -235,6 +248,9 @@ def _read_state(path: str, fingerprint: str) -> PCGState:
     if stored_crc is not None:
         actual = _payload_crc(saved, vals)
         if actual != stored_crc:
+            obs.inc("checkpoint.crc_failures")
+            obs.event("checkpoint.crc_failure", path=path,
+                      stored=f"{stored_crc:#010x}", payload=f"{actual:#010x}")
             raise CorruptCheckpointError(
                 f"checkpoint {path} failed its integrity check (stored CRC32 "
                 f"{stored_crc:#010x}, payload {actual:#010x})")
@@ -276,6 +292,8 @@ def load_state_any(path: str, fingerprints, keep_last: int = 2,
                 mismatch = mismatch or e
                 continue
             if candidate != path:
+                obs.inc("checkpoint.generation_fallbacks")
+                obs.event("checkpoint.generation_fallback", path=candidate)
                 warnings.warn(f"resuming from older checkpoint generation "
                               f"{candidate} (newest was corrupt or "
                               "mismatched)", RuntimeWarning, stacklevel=3)

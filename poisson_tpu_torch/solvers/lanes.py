@@ -1,0 +1,212 @@
+"""Lane stepping for continuous batching: the resumable batched PCG
+(counterpart of ``poisson_tpu/solvers/lanes.py``).
+
+``solvers.batched`` runs a bucket to completion: a member that converges
+early holds its lane until the slowest stops. A :class:`LaneBatch` steps
+the same batched body a chunk at a time and returns to the host, where
+done lanes are retired and new right-hand sides spliced into the freed
+slots, with no restart of the members in flight.
+
+Three facts make a splice sound, as in the JAX package:
+
+1. **Per-member independence.** Every sum of the ops bundle is per member
+   (``ops.stencil.member_sums``) and every other step elementwise, so lane
+   i's trajectory depends on lane i's state alone: writing a member into
+   lane j changes no bit of lane i.
+2. **Chunk invariance.** A step freezes each lane at its own
+   ``stop_at = min(k + chunk, cap)`` (``batched.step_members``); stepping
+   on from the carried state continues the same sequence.
+3. **Identity.** ``origin[lane]`` carries the member id through every
+   splice and retire; an EMPTY lane (``origin[lane] is None``) is a zero
+   member, already stopped, that the loop never advances.
+
+The lane state lives on an explicit ``device`` (default ``cuda``): fields
+(bucket, M+1, N+1), member scalars (bucket, 1, 1). Splice and retire
+write and read one slot in place.
+
+Not ported yet, refused with their ROADMAP items: ``multi_geometry``
+(Queue 1 item 6), ``verify_every`` > 0 (item 7) and
+``preconditioner="mg"`` (item 8).
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional
+
+import torch
+
+from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.solvers.batched import (
+    member_rhs,
+    not_ported,
+    step_members,
+)
+from poisson_tpu_torch.solvers.pcg import (
+    FLAG_NAMES,
+    PCGState,
+    gate_rhs,
+    init_state,
+    make_pcg_body,
+    solve_setup,
+)
+
+
+class LaneResult(NamedTuple):
+    """One retired lane's attributed outcome (host-side values)."""
+
+    member_id: object         # the id given at splice time — never None
+    lane: int
+    w: torch.Tensor           # solution grid, scaling already undone
+    iterations: int
+    diff: float
+    residual_dot: float
+    flag: int                 # solvers.pcg FLAG_* verdict at retirement
+
+    @property
+    def flag_name(self) -> str:
+        return FLAG_NAMES.get(self.flag, str(self.flag))
+
+
+class LaneBatch:
+    """A fixed-width bucket of solve lanes driven chunk by chunk.
+
+    ``splice(member_id, rhs_gate)`` loads a member into a free lane (the
+    problem's RHS times ``rhs_gate``: the member then reproduces
+    ``pcg_solve(problem, rhs_gate=rhs_gate)`` bit for bit); ``step()``
+    advances every lane by at most ``chunk`` of its own iterations;
+    ``lane_view()`` reads each lane's (k, done, flag, diff); ``retire(lane)``
+    takes the attributed result out and empties the lane. The caller owns
+    the schedule; any interleaving keeps identities and trajectories.
+    ``multi_geometry``, ``verify_every`` > 0 (``verify_tol``) and
+    ``preconditioner="mg"`` (``mg_config``) are refused with their ROADMAP
+    items."""
+
+    def __init__(self, problem: Problem, bucket: int, *, dtype=None,
+                 scaled=None, chunk: int = 50, multi_geometry: bool = False,
+                 verify_every: int = 0, verify_tol=None,
+                 preconditioner: str = "jacobi", mg_config=None,
+                 device=None):
+        if bucket < 1:
+            raise ValueError(f"bucket must be >= 1, got {bucket}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if multi_geometry:
+            raise not_ported("geometries")
+        if int(verify_every) > 0:
+            raise not_ported("verify_every")
+        if preconditioner not in (None, "jacobi"):
+            if preconditioner == "mg":
+                raise not_ported("mg")
+            raise ValueError(f"unknown preconditioner {preconditioner!r}")
+        self.problem = problem
+        self.bucket = int(bucket)
+        self.chunk = int(chunk)
+        # The operator is f_val-free; the member RHS keeps problem.f_val.
+        setup = solve_setup(problem.with_(f_val=1.0), dtype, scaled, device,
+                            members=True)
+        self.device = setup.rhs.device
+        self.dtype_name = setup.dtype_name
+        self.use_scaled = setup.scaled
+        self._ops, self._aux = setup.ops, setup.aux
+        self._rhs = member_rhs(problem, problem.f_val, setup.scaled,
+                               setup.rhs.dtype, self.device)
+        self._body = make_pcg_body(
+            self._ops, delta=problem.delta,
+            weighted_norm=problem.weighted_norm, h1=problem.h1,
+            h2=problem.h2)
+        # Every lane starts EMPTY: a zero member, stopped. Each field gets
+        # its own storage (init_state aliases p with z and r with the
+        # rhs), so a slot write touches one field only.
+        zeros = self._rhs.new_zeros((self.bucket,) + problem.grid_shape)
+        init = init_state(self._ops, zeros)
+        self.state = PCGState(*(f.clone() for f in init._replace(
+            done=torch.ones_like(init.done))))
+        self._blank = PCGState(*(f[0].clone() for f in self.state))
+        self.origin: List[object] = [None] * self.bucket
+        self.steps = 0                # chunk steps executed
+        self.idle_lane_steps = 0      # Σ over steps of non-ACTIVE lanes
+
+    # -- occupancy -----------------------------------------------------
+
+    def free_lanes(self) -> List[int]:
+        return [i for i, m in enumerate(self.origin) if m is None]
+
+    def active_lanes(self) -> List[int]:
+        return [i for i, m in enumerate(self.origin) if m is not None]
+
+    def occupied(self) -> bool:
+        return any(m is not None for m in self.origin)
+
+    # -- the state machine ---------------------------------------------
+
+    def _write(self, lane: int, member: PCGState) -> None:
+        for full, one in zip(self.state, member):
+            full[lane].copy_(one)
+
+    def splice(self, member_id, rhs_gate: float = 1.0,
+               lane: Optional[int] = None, geometry=None) -> int:
+        """EMPTY → ACTIVE: load ``member_id``'s solve into a free lane
+        (the first, unless ``lane`` is given): the sequential solver's
+        ``init_state`` of ``rhs · rhs_gate``. Returns the lane."""
+        if member_id is None:
+            raise ValueError("member_id must not be None (None marks an "
+                             "EMPTY lane)")
+        if member_id in self.origin:
+            raise ValueError(f"member {member_id!r} already occupies lane "
+                             f"{self.origin.index(member_id)}")
+        if geometry is not None:
+            raise not_ported("geometries")
+        if lane is None:
+            free = self.free_lanes()
+            if not free:
+                raise ValueError("no EMPTY lane to splice into")
+            lane = free[0]
+        elif self.origin[lane] is not None:
+            raise ValueError(f"lane {lane} is ACTIVE (member "
+                             f"{self.origin[lane]!r})")
+        rhs = gate_rhs(self._rhs, rhs_gate)
+        member = init_state(self._ops, rhs[None])
+        self._write(lane, PCGState(*(f[0] for f in member)))
+        self.origin[lane] = member_id
+        return lane
+
+    def step(self) -> dict:
+        """Advance every ACTIVE lane by at most ``chunk`` iterations.
+        Returns ``{"active": n, "idle": n}`` for the step (idle lanes are
+        EMPTY slots whose width the batch still computes)."""
+        active = len(self.active_lanes())
+        idle = self.bucket - active
+        if active:
+            s = self.state
+            stop_at = torch.clamp(s.k + self.chunk,
+                                  max=self.problem.iteration_cap)
+            self.state = step_members(self._body, s, stop_at, self.chunk)
+            self.steps += 1
+            self.idle_lane_steps += idle
+        return {"active": active, "idle": idle}
+
+    def lane_view(self) -> List[dict]:
+        """Each lane's truth after a step (EMPTY lanes included, with
+        ``member_id=None``): lane, member_id, k, done, flag, diff."""
+        s = self.state
+        ks, dones, flags, diffs = (x.reshape(-1).tolist() for x in
+                                   (s.k, s.done, s.flag, s.diff))
+        return [{"lane": i, "member_id": self.origin[i], "k": int(ks[i]),
+                 "done": bool(dones[i]), "flag": int(flags[i]),
+                 "diff": float(diffs[i])} for i in range(self.bucket)]
+
+    def retire(self, lane: int) -> LaneResult:
+        """ACTIVE → EMPTY: the lane's attributed result (its iterate as it
+        stands, whatever stopped it), and the slot cleared for the next
+        splice."""
+        member_id = self.origin[lane]
+        if member_id is None:
+            raise ValueError(f"lane {lane} is already EMPTY")
+        member = PCGState(*(f[lane].clone() for f in self.state))
+        self._write(lane, self._blank)
+        w = member.w * self._aux if self.use_scaled else member.w
+        self.origin[lane] = None
+        return LaneResult(member_id=member_id, lane=lane, w=w,
+                          iterations=int(member.k), diff=float(member.diff),
+                          residual_dot=float(member.zr),
+                          flag=int(member.flag))

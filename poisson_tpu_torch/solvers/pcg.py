@@ -21,6 +21,12 @@ Here the state — k, done, ζ, diff and flag included — stays in device
 tensors too; the host reads ``done`` only once every ``check_every``
 iterations (:func:`drive`). Iterations run after the stop are masked by
 ``done``, which freezes the state, so the count stays exact.
+
+The same body runs a batch (``solvers.batched``): with ``members`` ops the
+scalars are (B, 1, 1) member scalars that broadcast over the (B, M+1, N+1)
+fields, and each member's sums are its own solve's ``torch.sum`` calls
+(``ops.stencil.member_sums``), so member i of a batch equals its own solve
+bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from poisson_tpu_torch.ops.stencil import (
     apply_Dinv,
     diag_D,
     dot_weighted,
+    member_sums,
 )
 from poisson_tpu_torch.utils.platform import resolve_device
 
@@ -104,16 +111,35 @@ class PCGState(NamedTuple):
 
 
 class PCGResult(NamedTuple):
-    w: torch.Tensor            # full (M+1, N+1) solution grid
-    iterations: torch.Tensor   # iteration count (0-d int32)
+    """Solve result. A batched solve (``solvers.batched``) returns the same
+    type with a leading batch axis on ``w``/``iterations``/``diff``/
+    ``residual_dot``/``flag``, plus ``max_iterations`` (the count the batch
+    loop ran, its slowest member's) and ``origin`` (one id per member)."""
+
+    w: torch.Tensor            # full (…, M+1, N+1) solution grid(s)
+    iterations: torch.Tensor   # iteration count; a vector when batched
     diff: torch.Tensor         # final update norm
     residual_dot: torch.Tensor  # final ζ = (D⁻¹r, r)
     flag: int | torch.Tensor = FLAG_NONE  # termination verdict (FLAG_*)
+    max_iterations: object = None   # batched only: max over the members
+    origin: object = None           # batched only: member ids, in order
+
+
+def iterations_scalar(iterations) -> int:
+    """One honest count from an ``iterations`` field: the value itself for
+    a single solve, the max over members for a batched vector (what the
+    batch loop ran and the wall clock paid for)."""
+    if isinstance(iterations, torch.Tensor):
+        iterations = iterations.cpu()
+    arr = np.asarray(iterations)
+    return int(arr.max()) if arr.ndim else int(arr)
 
 
 def _select(pred, new, old):
-    """Field-wise ``where(pred, new, old)`` over two states of one type."""
-    return type(new)(*(torch.where(pred, n, o) for n, o in zip(new, old)))
+    """Field-wise ``where(pred, new, old)`` over two states of one type; a
+    field that is one tensor in both is taken as it is."""
+    return type(new)(*(n if n is o else torch.where(pred, n, o)
+                       for n, o in zip(new, old)))
 
 
 def drive(step, s, cap: int, check_every: int = CHECK_EVERY):
@@ -121,7 +147,8 @@ def drive(step, s, cap: int, check_every: int = CHECK_EVERY):
 
     ``step`` must freeze a done state (count included). The host reads
     ``s.done`` once per ``check_every`` steps — the loop's only device sync —
-    and never runs more than ``cap`` steps in all."""
+    and never runs more than ``cap`` steps in all. A batched state is done
+    when every member is."""
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     ran = 0
@@ -130,24 +157,27 @@ def drive(step, s, cap: int, check_every: int = CHECK_EVERY):
         for _ in range(n):
             s = step(s)
         ran += n
-        if bool(s.done):
+        if bool(torch.all(s.done)):
             break
     return s
 
 
 def init_state(ops: PCGOps, rhs) -> PCGState:
-    """w=0, r=B, z=D⁻¹r, p=z, ζ=(z,r)  (stage2:…cpp:384-396)."""
+    """w=0, r=B, z=D⁻¹r, p=z, ζ=(z,r)  (stage2:…cpp:384-396). The scalars
+    take ζ's shape: 0-d for one solve, (B, 1, 1) for a batch."""
     z = ops.apply_Dinv(rhs)
-    scalar = dict(dtype=rhs.dtype, device=rhs.device)
-    count = dict(dtype=torch.int32, device=rhs.device)
+    zr = ops.dot(z, rhs)
+    shape, device = tuple(zr.shape), zr.device
+    scalar = dict(dtype=zr.dtype, device=device)
+    count = dict(dtype=torch.int32, device=device)
     return PCGState(
-        k=torch.zeros((), **count),
-        done=torch.zeros((), dtype=torch.bool, device=rhs.device),
-        w=torch.zeros_like(rhs), r=rhs, z=z, p=z, zr=ops.dot(z, rhs),
-        diff=torch.full((), float("inf"), **scalar),
-        flag=torch.full((), FLAG_NONE, **count),
-        best=torch.full((), float("inf"), **scalar),
-        stall=torch.zeros((), **count),
+        k=torch.zeros(shape, **count),
+        done=torch.zeros(shape, dtype=torch.bool, device=device),
+        w=torch.zeros_like(rhs), r=rhs, z=z, p=z, zr=zr,
+        diff=torch.full(shape, float("inf"), **scalar),
+        flag=torch.full(shape, FLAG_NONE, **count),
+        best=torch.full(shape, float("inf"), **scalar),
+        stall=torch.zeros(shape, **count),
     )
 
 
@@ -226,22 +256,40 @@ def pcg_loop(ops: PCGOps, rhs, *, delta: float, max_iter: int,
     return drive(body, init_state(ops, rhs), max_iter, check_every)
 
 
-def single_device_ops(problem: Problem, a, b, aux) -> PCGOps:
+def single_device_ops(problem: Problem, a, b, aux,
+                      members: bool = False) -> PCGOps:
     """The reference's literal Jacobi-PCG on A. ``aux`` is the Jacobi
-    diagonal embedded in the full grid's zero ring."""
+    diagonal embedded in the full grid's zero ring. ``members``: the state
+    is a (B, M+1, N+1) stack and every sum a (B, 1, 1) member scalar with
+    the bits of the member's own solve (``ops.stencil.member_sums``), for
+    ``solvers.batched``."""
     h1, h2 = problem.h1, problem.h2
     d = aux[..., 1:-1, 1:-1]
+    if members:
+        sqnorm = lambda u: member_sums(torch.mul, u[..., 1:-1, 1:-1],
+                                       u[..., 1:-1, 1:-1])
+    else:
+        sqnorm = lambda u: torch.sum(
+            u[..., 1:-1, 1:-1] * u[..., 1:-1, 1:-1], dim=(-2, -1)
+        )
     return PCGOps(
         apply_A=lambda p: apply_A(p, a, b, h1, h2),
         apply_Dinv=lambda r: apply_Dinv(r, d),
-        dot=lambda u, v: dot_weighted(u, v, h1, h2),
-        sqnorm=lambda u: torch.sum(
-            u[..., 1:-1, 1:-1] * u[..., 1:-1, 1:-1], dim=(-2, -1)
-        ),
+        dot=_dot(h1, h2, members),
+        sqnorm=sqnorm,
     )
 
 
-def scaled_single_device_ops(problem: Problem, a, b, sc) -> PCGOps:
+def _dot(h1: float, h2: float, members: bool):
+    """The weighted inner product; per member with ``members``."""
+    if members:
+        return lambda u, v: member_sums(
+            torch.mul, u[..., 1:-1, 1:-1], v[..., 1:-1, 1:-1]) * (h1 * h2)
+    return lambda u, v: dot_weighted(u, v, h1, h2)
+
+
+def scaled_single_device_ops(problem: Problem, a, b, sc,
+                             members: bool = False) -> PCGOps:
     """Plain CG on the symmetrically scaled Ã = D^{-1/2} A D^{-1/2}.
 
     Iterate-identical to Jacobi-PCG on A under y = D^{1/2}w, with unit
@@ -251,12 +299,17 @@ def scaled_single_device_ops(problem: Problem, a, b, sc) -> PCGOps:
     w-space via ‖Δw‖ = ‖sc·Δy‖, and the caller maps the solution back with
     w = sc·y."""
     h1, h2 = problem.h1, problem.h2
+    if members:
+        sqnorm = lambda u: member_sums(torch.pow,
+                                       (u * sc)[..., 1:-1, 1:-1], 2)
+    else:
+        sqnorm = lambda u: torch.sum((u * sc)[..., 1:-1, 1:-1] ** 2,
+                                     dim=(-2, -1))
     return PCGOps(
         apply_A=lambda p: apply_A(p * sc, a, b, h1, h2) * sc,
         apply_Dinv=lambda r: r,
-        dot=lambda u, v: dot_weighted(u, v, h1, h2),
-        sqnorm=lambda u: torch.sum((u * sc)[..., 1:-1, 1:-1] ** 2,
-                                   dim=(-2, -1)),
+        dot=_dot(h1, h2, members),
+        sqnorm=sqnorm,
     )
 
 
@@ -313,26 +366,42 @@ class SolveSetup(NamedTuple):
 
 
 def solve_setup(problem: Problem, dtype=None, scaled=None,
-                device=None) -> SolveSetup:
+                device=None, members: bool = False) -> SolveSetup:
     """Host fp64 setup cast once to the state precision on ``device``
-    (default ``cuda``; raises without a card), and the backend bundle."""
+    (default ``cuda``; raises without a card), and the backend bundle
+    (with ``members``, the batched one)."""
     dev = resolve_device(device)
     dtype_name = resolve_dtype(dtype)
     use_scaled = resolve_scaled(scaled, dtype_name)
     tdtype = getattr(torch, dtype_name)
     a, b, rhs, aux = (torch.tensor(x, dtype=tdtype, device=dev)
                       for x in host_fields64(problem, use_scaled))
-    ops = (scaled_single_device_ops(problem, a, b, aux) if use_scaled
-           else single_device_ops(problem, a, b, aux))
+    ops = (scaled_single_device_ops(problem, a, b, aux, members)
+           if use_scaled else single_device_ops(problem, a, b, aux, members))
     return SolveSetup(ops, rhs, aux, dtype_name, use_scaled)
 
 
+def gate_rhs(rhs: torch.Tensor, rhs_gate) -> torch.Tensor:
+    """``rhs`` times the scalar ``rhs_gate``, cast to the state's type
+    first, as the JAX package multiplies it (``rhs * asarray(gate,
+    dtype)``); a vector of B gates gives the (B, M+1, N+1) stack, each
+    member the same products as its own gated solve."""
+    gate = torch.as_tensor(rhs_gate, dtype=rhs.dtype, device=rhs.device)
+    if gate.dim() == 0:
+        return rhs * gate
+    return rhs * gate.reshape(-1, *([1] * rhs.dim()))
+
+
 def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
-              check_every: int = CHECK_EVERY) -> PCGResult:
+              check_every: int = CHECK_EVERY, rhs_gate=None) -> PCGResult:
     """Single-device plain solve. ``device`` defaults to ``cuda`` (raises
-    without a card); setup runs on the host in fp64 and is cast once."""
+    without a card); setup runs on the host in fp64 and is cast once.
+    ``rhs_gate``, if given, is a scalar the RHS is multiplied by (in the
+    state's type): member i of ``solve_batched(problem, rhs_gates=g)`` is
+    ``pcg_solve(problem, rhs_gate=g[i])``, bit for bit."""
     setup = solve_setup(problem, dtype, scaled, device)
-    s = pcg_loop(setup.ops, setup.rhs, delta=problem.delta,
+    rhs = setup.rhs if rhs_gate is None else gate_rhs(setup.rhs, rhs_gate)
+    s = pcg_loop(setup.ops, rhs, delta=problem.delta,
                  max_iter=problem.iteration_cap,
                  weighted_norm=problem.weighted_norm,
                  h1=problem.h1, h2=problem.h2, check_every=check_every)

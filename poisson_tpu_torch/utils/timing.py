@@ -4,6 +4,9 @@
 PyTorch returns before the card has finished, so every phase boundary is
 fenced with ``torch.cuda.synchronize()`` when the phase ran on a CUDA device;
 a host clock without the fence would measure the enqueue, not the work.
+Each phase is also an ``obs`` span, so a configured trace directory shows
+it on the timeline, and :func:`count_solve` adds a solve to the JAX
+package's counters.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ def fence(device) -> None:
 
 
 class PhaseTimer:
-    """Named wall-clock phases, each fenced on ``device`` at its exit.
+    """Named wall-clock phases, each fenced on ``device`` at its exit and
+    recorded as an ``obs`` span of the same name (the fence is the
+    timer's, so the span needs none of its own).
 
     >>> t = PhaseTimer("cpu")
     >>> with t.phase("solve"):
@@ -44,17 +49,63 @@ class PhaseTimer:
 
         class _Ctx:
             def __enter__(self):
+                from poisson_tpu_torch import obs
+
                 fence(timer.device)
+                self._span = obs.span(name, fence=False)
+                self._span.__enter__()
                 self._t0 = time.perf_counter()
                 return self
 
             def __exit__(self, *exc):
                 fence(timer.device)
+                self._span.__exit__(*exc)
                 timer.times[name] = timer.times.get(name, 0.0) + (
                     time.perf_counter() - self._t0
                 )
 
         return _Ctx()
+
+
+def count_solve(result, compile_seconds: float,
+                solve_seconds: float) -> str:
+    """Add one reported solve to the counters, as the JAX package's
+    ``solve_report`` does: ``pcg.solves.<verdict>`` and
+    ``pcg.iterations.<verdict>`` (a batch's worst member's verdict, its
+    slowest member's count), ``time.compile_seconds`` and
+    ``time.execute_seconds``. Returns the verdict name: ``running`` for a
+    solve stopped without one (a cap hit, or a path that tracks none),
+    ``untracked`` for a result without a flag."""
+    import numpy as np
+
+    from poisson_tpu_torch import obs
+    from poisson_tpu_torch.solvers.pcg import (
+        FLAG_CONVERGED,
+        FLAG_NAMES,
+        FLAG_NONE,
+        iterations_scalar,
+    )
+
+    flag = getattr(result, "flag", None)
+    name = "untracked"
+    if flag is not None:
+        if isinstance(flag, torch.Tensor):
+            flag = flag.cpu()
+        flags = np.asarray(flag).ravel()
+        failures = flags[(flags != FLAG_NONE) & (flags != FLAG_CONVERGED)]
+        if failures.size:
+            verdict = int(failures.max())
+        elif (flags == FLAG_NONE).any():
+            verdict = FLAG_NONE
+        else:
+            verdict = int(flags.max()) if flags.size else FLAG_NONE
+        name = ("running" if verdict == FLAG_NONE
+                else FLAG_NAMES.get(verdict, str(verdict)))
+    obs.inc(f"pcg.solves.{name}")
+    obs.inc(f"pcg.iterations.{name}", iterations_scalar(result.iterations))
+    obs.inc("time.compile_seconds", max(0.0, compile_seconds))
+    obs.inc("time.execute_seconds", max(0.0, solve_seconds))
+    return name
 
 
 def mlups(problem: Problem, iterations: int, seconds: float) -> float:

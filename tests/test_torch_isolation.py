@@ -23,7 +23,14 @@ from poisson_tpu_torch.parallel import (
     mesh,
     pcg_sharded,
 )
-from poisson_tpu_torch.solvers import checkpoint, pcg, refine
+from poisson_tpu_torch.solvers import (
+    batched,
+    batched_selfcheck,
+    checkpoint,
+    lanes,
+    pcg,
+    refine,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "poisson_tpu_torch"
@@ -86,7 +93,9 @@ def test_no_module_imports_jax_or_the_reference():
                  "solvers.refine", "solvers.checkpoint", "parallel.mesh",
                  "parallel.halo", "parallel.fused_sharded",
                  "parallel.ca_sharded", "parallel.pcg_sharded",
-                 "parallel.checkpoint_sharded"):
+                 "parallel.checkpoint_sharded", "obs", "obs.metrics",
+                 "obs.trace", "solvers.batched", "solvers.lanes",
+                 "solvers.batched_selfcheck"):
         assert f"poisson_tpu_torch.{name}" in modules
 
 
@@ -112,6 +121,9 @@ def test_no_module_imports_jax_or_the_reference():
         Problem(M=10, N=10), None, "unused.npz"),
     lambda: ca_sharded.ca_cg_solve_sharded_checkpointed(
         Problem(M=10, N=10), None, "unused.npz"),
+    lambda: batched.solve_batched(Problem(M=10, N=10), rhs_gates=[1.0]),
+    lambda: lanes.LaneBatch(Problem(M=10, N=10), 2),
+    lambda: batched_selfcheck.run_selfcheck(),
 ], ids=["fused_cg_solve", "pcg_solve", "build_canvases", "resident_cg_solve",
         "ca_cg_solve", "refined_solve", "make_solver_mesh",
         "fused_cg_solve_sharded", "ca_cg_solve_sharded",
@@ -119,7 +131,8 @@ def test_no_module_imports_jax_or_the_reference():
         "pcg_solve_checkpointed", "pcg_solve_sharded",
         "pcg_solve_sharded_checkpointed",
         "fused_cg_solve_sharded_checkpointed",
-        "ca_cg_solve_sharded_checkpointed"])
+        "ca_cg_solve_sharded_checkpointed", "solve_batched", "LaneBatch",
+        "batched_selfcheck"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
