@@ -111,6 +111,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      each, within 1e-10 of the unsharded batch; a ``LaneBatch`` of 8 lanes
      at 400×600 fp32 taking 12 members through a fixed splice/step/retire
      schedule, each retired member equal to its solo solve;
+   - the MG phase (``preconditioner="mg"``, ``poisson_tpu_torch.mg``:
+     plain PyTorch, no kernel launched): fp64 14 / 15 / 19 and fp32 14 /
+     15 iterations at 400×600 / 800×1200 / 2400×3200, exactly, fp32 at
+     2400×3200 converged beside the JAX package's 24; fp32 iterates within
+     1e-5 of fp64 MG, fp64 MG within 5e-5 of an fp64 Jacobi solve
+     converged to δ = 1e-10 at the two smaller grids; one line per grid
+     with the hierarchy build seconds (host, per dtype), the fp32 solve
+     (best of 3 after a warm-up, µs per iteration), one plain fp32 Jacobi
+     solve and the fused and resident figures of this run; 16 fp32
+     members at 800×1200 (gates 1 + i/16) bit for bit with their 16
+     sequential MG solves (solves/s, speedup); 6 members through a 4-lane
+     ``LaneBatch`` at 400×600, each bit for bit with its solo solve; a
+     chunked MG solve at 800×1200 (chunk 4) bit for bit with the one-shot
+     one, and a checkpoint written at 8 iterations and resumed to the
+     one-shot count;
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events, and for kernel S ``torch.sum`` over the same partials
@@ -119,8 +134,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at both grids and both shard sizes, kernel S beside ``torch.sum`` (with
    its chain's latency bound at the card's clock), and a profile of one
    flagship solve on the fused, blocked, CA, sharded fused and sharded CA
-   paths, and of one batched solve of 16 members capped at 128 iterations
-   (launches and device time per batched iteration);
+   paths, of one batched solve of 16 members capped at 128 iterations
+   (launches and device time per batched iteration), and of one fp32 MG
+   solve at 800×1200 (launches, device and wall µs per iteration, the
+   device's idle share);
 6. a ``kernels`` JSON line (twelve kernels), then the ``ok`` JSON line last.
 
 Without a CUDA device, or run outside a checkout (no ``poisson_tpu_torch``
@@ -279,6 +296,24 @@ LANE_BUCKET, LANE_MEMBERS, LANE_CHUNK = 8, 12, 64   # lanes at 400x600 fp32
 # batch runs the same launches.
 BATCH_PROFILE_ITERS = 128
 BATCH_MEMBER_TOL = 1e-6
+# The MG phase (``preconditioner="mg"``: plain PyTorch, no kernel of the
+# port): (M, N, fp64 count, fp32 count or None where it is not gated,
+# the JAX package's fp32 count). At 2400x3200 the coarsest level (75x100)
+# is over the dense limit, and the fp32 count moves with the sum order.
+MG_GRIDS = [(400, 600, 14, 14, 14), (800, 1200, 15, 15, 15),
+            (2400, 3200, 19, None, 24)]
+MG_FP32_TOL = 1e-5     # fp32 MG iterate vs fp64 MG on the card
+# fp64 MG vs the fp64 Jacobi solve converged to MG_TIGHT_DELTA, at the grids
+# of MG_TIGHT (tests/test_mg.py:195-205's tolerance). At δ = 1e-6 the Jacobi
+# iterate itself lies farther from the solution, by the same gap to MG in
+# both packages (tests/test_torch_mg.py), so that gap is printed only.
+MG_JACOBI_TOL, MG_TIGHT_DELTA = 5e-5, 1e-10
+MG_TIGHT = ("400x600", "800x1200")
+MG_FLAGSHIP, MG_MID = (800, 1200), (400, 600)
+MG_BATCH = 16          # fp32 members at MG_FLAGSHIP, gates 1 + i/16
+MG_LANES = (4, 6, 4)   # bucket, members, chunk: lanes at MG_MID, fp32
+MG_CHUNK = 4           # chunked and checkpointed MG solves at MG_FLAGSHIP
+MG_CAP = 8             # the capped MG run the checkpoint drill resumes
 
 
 def ptxas_report(log: str, symbol: str) -> dict | None:
@@ -1087,6 +1122,161 @@ def check_batched(bt, lanes, ps_mesh, flagship, mid, fp64, pcg_solve,
     return {"gates": gates}
 
 
+def check_mg(mg, bt, lanes, ck, pcg_solve, fp64: dict, figures: dict,
+             card: str) -> None:
+    """The MG phase (no kernel of the port): ``pcg_solve(preconditioner=
+    "mg")`` in fp64 and fp32 at each grid of MG_GRIDS, timed beside the
+    plain Jacobi solve and the kernel paths' figures of this run, then a
+    batch against its sequential solves, a lane interleaving, a chunked
+    solve and a checkpoint drill, each bit for bit where it should be."""
+    from poisson_tpu_torch.config import Problem
+
+    f32, f64 = torch.float32, torch.float64
+    flag_mg = {}
+    for M, N, want64, want32, jax32 in MG_GRIDS:
+        p = Problem(M=M, N=N)
+        tag = f"{M}x{N}"
+        hier64, build64 = timed(lambda: mg.device_hierarchy(
+            p, "float64", False, device="cuda"))
+        r64, sec64 = timed(lambda: pcg_solve(p, dtype=f64,
+                                             preconditioner="mg"))
+        k64 = int(r64.iterations)
+        check(k64 == want64 and int(r64.flag) == 1,
+              f"MG fp64 {tag}: {k64} iterations (flag {int(r64.flag)}), "
+              f"expected {want64}")
+        _, build32 = timed(lambda: mg.device_hierarchy(
+            p, "float32", True, device="cuda"))
+        run32 = lambda: pcg_solve(p, dtype=f32, preconditioner="mg")
+        run32()                                        # warm-up
+        each = []
+        for _ in range(REPEATS):
+            r32, s = timed(run32)
+            each.append(s)
+        k32 = int(r32.iterations)
+        check(int(r32.flag) == 1 and float(r32.diff) < p.delta,
+              f"MG fp32 {tag}: flag {int(r32.flag)}, diff {float(r32.diff)}")
+        check(want32 is None or k32 == want32,
+              f"MG fp32 {tag}: {k32} iterations, expected {want32}")
+        gap32 = float((r32.w.double() - r64.w).abs().max())
+        check(gap32 <= MG_FP32_TOL, f"MG fp32 {tag}: {gap32} from fp64 MG")
+        jac, jac_sec = timed(lambda: pcg_solve(p, dtype=f32))
+        best = min(each)
+        rec = {
+            "levels": len(hier64.levels),
+            "coarse_dense": hier64.coarse_inv is not None,
+            "hierarchy_build_s": {"float64": build64, "float32": build32},
+            "fp64": {"iterations": k64, "seconds": sec64},
+            "fp32": {"iterations": k32, "jax_iterations": jax32,
+                     "seconds": best, "seconds_each": each,
+                     "us_per_iter": best / k32 * 1e6,
+                     "max_diff_vs_fp64_mg": gap32},
+            "jacobi_fp32": {"iterations": int(jac.iterations),
+                            "seconds": jac_sec,
+                            "us_per_iter": jac_sec / int(jac.iterations)
+                            * 1e6},
+            **figures.get(tag, {})}
+        if p in fp64:
+            rec["fp64"]["max_diff_vs_fp64_jacobi"] = float(
+                (r64.w - fp64[p].w).abs().max())
+        if tag in MG_TIGHT:
+            tight = pcg_solve(p.with_(delta=MG_TIGHT_DELTA), dtype=f64)
+            gap = float((r64.w - tight.w).abs().max())
+            check(gap <= MG_JACOBI_TOL, f"MG fp64 {tag}: {gap} from the "
+                                        "converged fp64 Jacobi solve")
+            rec["fp64"]["max_diff_vs_converged_jacobi"] = gap
+            rec["fp64"]["converged_jacobi"] = {
+                "delta": MG_TIGHT_DELTA, "iterations": int(tight.iterations)}
+        print(f"mg {tag} [{card}]: {json.dumps(rec)}", flush=True)
+        flag_mg[tag] = r32
+
+    flagship = Problem(*MG_FLAGSHIP)
+    ftag = "x".join(map(str, MG_FLAGSHIP))
+    one = flag_mg[ftag]
+    gates = [1.0 + i / MG_BATCH for i in range(MG_BATCH)]
+    run = lambda: bt.solve_batched(flagship, rhs_gates=gates, dtype=f32,
+                                   preconditioner="mg")
+    run()                                              # first call
+    rb, sec = timed(run)
+    seq, seq_sec = timed(lambda: [pcg_solve(flagship, dtype=f32, rhs_gate=g,
+                                            preconditioner="mg")
+                                  for g in gates])
+    for i, sq in enumerate(seq):
+        check(int(rb.iterations[i]) == int(sq.iterations)
+              and int(rb.flag[i]) == int(sq.flag) == 1
+              and torch.equal(rb.w[i], sq.w),
+              f"MG batched member {i}: {int(rb.iterations[i])} iterations "
+              f"(flag {int(rb.flag[i])}), sequential {int(sq.iterations)} "
+              f"({int(sq.flag)}), bits equal {torch.equal(rb.w[i], sq.w)}")
+    print(f"mg batched fp32 {ftag} B={MG_BATCH} [{card}]: " + json.dumps({
+        "batch_seconds": sec, "solves_per_sec": MG_BATCH / sec,
+        "max_iterations": int(rb.max_iterations),
+        "iterations": rb.iterations.tolist(), "sequential_seconds": seq_sec,
+        "speedup_vs_sequential": seq_sec / sec,
+        "bit_for_bit_with_sequential": True}), flush=True)
+
+    mid = Problem(*MG_MID)
+    bucket, members, chunk = MG_LANES
+    lane_gates = {f"m{i}": 1.0 + i / members for i in range(members)}
+    table = lanes.LaneBatch(mid, bucket, dtype=f32, chunk=chunk,
+                            preconditioner="mg")
+    queue, done = list(lane_gates), {}
+    while len(done) < members:
+        check(table.steps < 100, "MG lanes: the schedule did not drain")
+        for mid_ in queue[:len(table.free_lanes())]:
+            table.splice(mid_, lane_gates[mid_])
+            queue.remove(mid_)
+        table.step()
+        for view in table.lane_view():
+            if view["member_id"] is not None and view["done"]:
+                res = table.retire(view["lane"])
+                done[res.member_id] = res
+    for mid_, g in lane_gates.items():
+        solo = pcg_solve(mid, dtype=f32, rhs_gate=g, preconditioner="mg")
+        res = done[mid_]
+        check(res.iterations == int(solo.iterations) and res.flag == 1
+              and torch.equal(res.w, solo.w),
+              f"MG lane {mid_}: {res.iterations} iterations, solo "
+              f"{int(solo.iterations)}, bits equal "
+              f"{torch.equal(res.w, solo.w)}")
+    print(f"mg lanes fp32 {mid.M}x{mid.N} bucket {bucket} [{card}]: "
+          + json.dumps({
+        "members": members, "chunk": chunk, "steps": table.steps,
+        "iterations": {m: r.iterations for m, r in done.items()},
+        "bit_for_bit_with_solo": True}), flush=True)
+
+    chunked = ck.pcg_solve_chunked(flagship, chunk=MG_CHUNK, dtype=f32,
+                                   preconditioner="mg")
+    check(int(chunked.iterations) == int(one.iterations)
+          and torch.equal(chunked.w, one.w),
+          f"MG chunked: {int(chunked.iterations)} iterations, one-shot "
+          f"{int(one.iterations)}, bits equal {torch.equal(chunked.w, one.w)}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_mg_",
+                                     dir=root) as ckdir:
+        path = os.path.join(ckdir, "mg.npz")
+        capped = ck.pcg_solve_checkpointed(
+            flagship.with_(max_iter=MG_CAP), path, chunk=MG_CHUNK,
+            dtype=f32, preconditioner="mg")
+        kept = os.path.exists(path)
+        check(int(capped.iterations) == MG_CAP and kept,
+              f"MG checkpoint: capped run {int(capped.iterations)} "
+              f"iterations, file kept {kept}")
+        resumed = ck.pcg_solve_checkpointed(flagship, path, chunk=MG_CHUNK,
+                                            dtype=f32, preconditioner="mg")
+        check(int(resumed.iterations) == int(one.iterations)
+              and int(resumed.flag) == 1 and not os.path.exists(path),
+              f"MG checkpoint: resumed to {int(resumed.iterations)} "
+              f"iterations (flag {int(resumed.flag)}), one-shot "
+              f"{int(one.iterations)}")
+    print(f"mg chunked and checkpointed fp32 {ftag} chunk {MG_CHUNK} "
+          f"[{card}]: " + json.dumps({
+              "chunked_iterations": int(chunked.iterations),
+              "chunked_bit_for_bit": True, "capped_at": MG_CAP,
+              "resumed_iterations": int(resumed.iterations),
+              "resumed_bit_for_bit": torch.equal(resumed.w, one.w)}),
+          flush=True)
+
+
 def main() -> None:
     started = time.perf_counter()
 
@@ -1100,6 +1290,7 @@ def main() -> None:
     sys.path.insert(0, root)
     try:
         from poisson_tpu_torch.analysis import l2_error_host
+        from poisson_tpu_torch import mg
         from poisson_tpu_torch.config import FLAGSHIP, Problem
         from poisson_tpu_torch.ops import _build, ca_cg as ca
         from poisson_tpu_torch.ops import fused_cg as fc
@@ -1822,6 +2013,18 @@ def main() -> None:
     expect_counts("the batched phase", {})
 
     elapsed("batched")
+    # --- the MG phase: plain PyTorch, no kernel of the port, beside the
+    # kernel paths' figures from this run (µs per iteration).
+    figures = {"800x1200": {"fused_us_per_iter": flag_s / iters * 1e6},
+               "2400x3200": {"fused_us_per_iter":
+                             big_s / big_iters * 1e6}}
+    for tag, (_, solve_us) in res_iters.items():
+        figures.setdefault(tag, {})["resident_us_per_iter"] = solve_us
+    reset_counts()
+    check_mg(mg, bt, lanes, ck, pcg_solve, fp64, figures, card)
+    expect_counts("the MG phase", {})
+
+    elapsed("mg")
     for time_it in timers:
         time_it()
 
@@ -1898,6 +2101,28 @@ def main() -> None:
                   "launches_per_batched_iteration":
                       sum(n for n, _ in prof.values()) / k,
                   "device_us_per_batched_iteration": busy_us / k,
+                  "top_kernels": [{"name": name[:80], "count": n, "us": us}
+                                  for name, (n, us) in top]}), flush=True)
+
+    # One MG solve at 800x1200 (fp32, no kernel of the port): launches and
+    # device time per iteration, and the device's idle share.
+    mg_out = {}
+    prof, prof_wall = profile_kernels(lambda: mg_out.setdefault(
+        "r", pcg_solve(FLAGSHIP, dtype=torch.float32, preconditioner="mg")))
+    if prof is None:
+        print("profile mg 800x1200: the profiler recorded no device "
+              "activity", flush=True)
+    else:
+        k = int(mg_out["r"].iterations)
+        busy_us = sum(us for _, us in prof.values())
+        top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]
+        print(f"profile mg fp32 800x1200 ({k} iterations) [{card}]: "
+              + json.dumps({
+                  "wall_s": prof_wall, "device_busy_s": busy_us / 1e6,
+                  "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
+                  "launches_per_iter": sum(n for n, _ in prof.values()) / k,
+                  "device_us_per_iter": busy_us / k,
+                  "wall_us_per_iter": prof_wall / k * 1e6,
                   "top_kernels": [{"name": name[:80], "count": n, "us": us}
                                   for name, (n, us) in top]}), flush=True)
 

@@ -22,13 +22,17 @@ tolerance. It imports ``torch`` and ``numpy``, never ``jax`` or
                  format (``solvers.checkpoint``), batched multi-RHS solves
                  (``solvers.batched``) and lane stepping for continuous
                  batching (``solvers.lanes``).
+- ``mg``       — geometric multigrid preconditioning: the level hierarchy,
+                 the V-cycle, and ``preconditioner="mg"`` on the plain,
+                 batched, lane and chunked solves (plain PyTorch).
 - ``parallel`` — the device mesh, halo exchange and mesh-order sums, the
                  plain sharded solve, and the sharded fused and CA solves,
                  which run the kernels' sharded (banded, masked) forms on
                  every shard; each also checkpointed.
 - ``obs``      — spans and counters in the JAX package's formats.
-- ``interop``  — carries the JAX package's problem, canvases and batched
-                 state across as plain data, for the parity tests.
+- ``interop``  — carries the JAX package's problem, canvases, MG levels
+                 and batched state across as plain data, for the parity
+                 tests.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"`` (a
 mesh of CPU devices for the sharded solves); without a card they raise.

@@ -32,6 +32,12 @@ backend but ``resident``, whose solve is one launch). ``--trace-dir`` and
 ``--metrics-out`` write the run's spans, events and counters (``obs``) in
 the JAX package's formats.
 
+``--preconditioner mg`` swaps the Jacobi diagonal for one geometric
+V-cycle per iteration (``poisson_tpu_torch.mg``). It rides the plain
+``torch`` solve only, as the JAX CLI's rides ``xla``: ``auto`` picks
+``torch``, and every kernel or sharded backend refuses it. The hierarchy
+is built before the first solve and reported as ``hierarchy_seconds``.
+
 ``solve-batched`` solves B right-hand sides of one operator together
 (``solvers.batched``; see :func:`main_solve_batched`).
 """
@@ -128,6 +134,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "reduction partials with kernel S, ordered and "
                         "Kahan-compensated as the JAX package's serial "
                         "kernels (default off)")
+    p.add_argument("--preconditioner", choices=("jacobi", "mg"),
+                   default="jacobi",
+                   help="M^-1 of the CG recurrence: jacobi (the diagonal; "
+                        "default) or mg, one geometric V-cycle per "
+                        "iteration (the torch backend only; the grid must "
+                        "coarsen: even M and N)")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="every backend but resident: save the solver state "
                         "to PATH every --chunk iterations and resume from "
@@ -156,10 +168,16 @@ def visible_devices(device: str) -> int:
 
 
 def pick_backend(backend: str, dtype: str, visible: int = 1,
-                 mesh=None, checkpoint=None, setup: str = "host") -> str:
+                 mesh=None, checkpoint=None, setup: str = "host",
+                 preconditioner: str = "jacobi") -> str:
     """The backend ``auto`` resolves to, by the JAX CLI's rule
-    (``poisson_tpu/cli.py:359-377``) with the card in the TPU's place; an
-    explicit backend is checked against the dtype and the mesh."""
+    (``poisson_tpu/cli.py:340-377``) with the card in the TPU's place; an
+    explicit backend is checked against the dtype and the mesh. With
+    ``preconditioner="mg"`` ``auto`` is ``torch``, the plain solve the
+    V-cycle rides; with a ``--mesh`` it is ``sharded``, which
+    :func:`check_flags` then refuses (the mesh is not dropped)."""
+    if backend == "auto" and preconditioner == "mg":
+        backend = "torch" if mesh is None else "sharded"
     if backend == "auto":
         if visible > 1 or mesh is not None:
             if dtype == "float32" and setup != "device":
@@ -196,6 +214,14 @@ def check_flags(args, backend: str) -> None:
                          f"not {backend}")
     if args.chunk < 1:
         raise SystemExit(f"--chunk must be >= 1, got {args.chunk}")
+    if args.preconditioner == "mg":
+        if backend != "torch":
+            raise SystemExit(
+                f"--preconditioner mg drives the single-device torch solve "
+                f"body (resolved backend: {backend}); the CUDA kernels and "
+                f"sharded meshes have no MG program yet — drop the flag or "
+                f"use --backend torch")
+        check_mg_grid(args)
     if args.setup == "device" and backend in ("fused-sharded", "ca-sharded"):
         raise SystemExit(f"--backend {backend} builds its canvases on the "
                          "host; use --backend sharded for --setup device")
@@ -209,6 +235,16 @@ def check_flags(args, backend: str) -> None:
     if backend == "sharded" and args.setup == "device":
         raise SystemExit("--checkpoint gathers state on the host; use the "
                          "default --setup host")
+
+
+def check_mg_grid(args) -> None:
+    """An MG solve's grid must coarsen at least once."""
+    from poisson_tpu_torch.mg.hierarchy import validate_mg_problem
+
+    try:
+        validate_mg_problem(Problem(M=args.M, N=args.N))
+    except ValueError as e:
+        raise SystemExit(f"--preconditioner mg: {e}") from None
 
 
 def build_mesh(args, visible: int):
@@ -262,7 +298,7 @@ def main(argv=None) -> int:
                       weighted_norm=not args.unweighted_norm)
     visible = visible_devices(args.device)
     backend = pick_backend(args.backend, args.dtype, visible, args.mesh,
-                           args.checkpoint, args.setup)
+                           args.checkpoint, args.setup, args.preconditioner)
 
     check_flags(args, backend)
 
@@ -377,11 +413,12 @@ def main(argv=None) -> int:
                (lambda: pcg_solve_sharded(problem, mesh, dtype=args.dtype,
                                           setup=args.setup)))
     elif args.checkpoint:
-        run = lambda: pcg_solve_checkpointed(problem, args.checkpoint,
-                                             dtype=args.dtype, device=device,
-                                             **ckpt)
+        run = lambda: pcg_solve_checkpointed(
+            problem, args.checkpoint, dtype=args.dtype, device=device,
+            preconditioner=args.preconditioner, **ckpt)
     else:
-        run = lambda: pcg_solve(problem, dtype=args.dtype, device=device)
+        run = lambda: pcg_solve(problem, dtype=args.dtype, device=device,
+                                preconditioner=args.preconditioner)
 
     bytes_per_iter = None
     # A device rate only from a device run.
@@ -392,6 +429,15 @@ def main(argv=None) -> int:
     # a capped one would run no iteration: it runs once, and that is timed.
     repeats = 0 if args.checkpoint else args.repeat
     timer = PhaseTimer(device)
+    if args.preconditioner == "mg":
+        # The host fp64 hierarchy (dense coarsest inverse included) is a
+        # one-time cost per problem: timed on its own, never in a solve.
+        from poisson_tpu_torch.mg.hierarchy import device_hierarchy
+        from poisson_tpu_torch.solvers.pcg import resolve_scaled
+
+        with timer.phase("mg_hierarchy"):
+            device_hierarchy(problem, args.dtype,
+                             resolve_scaled(None, args.dtype), device=device)
     with timer.phase("first_solve"):   # builds kernels and canvases
         result = run()
     for i in range(repeats):
@@ -417,6 +463,7 @@ def main(argv=None) -> int:
                        else bytes_per_iter * iters / best / 1e9),
         stopped=stopped,
         mesh=None if mesh is None else (mesh.px, mesh.py),
+        hierarchy_seconds=timer.times.get("mg_hierarchy"),
     )
     count_solve(result, compile_seconds=first - best, solve_seconds=best)
     # The report is itself an event, so a trace directory alone holds the
@@ -480,8 +527,10 @@ def build_batched_parser() -> argparse.ArgumentParser:
                    help="not ported yet (ROADMAP item 7)")
     p.add_argument("--preconditioner", choices=("jacobi", "mg"),
                    default="jacobi",
-                   help="jacobi (default); mg is not ported yet (ROADMAP "
-                        "item 8)")
+                   help="per-member M^-1: jacobi (default) or mg, one "
+                        "geometric V-cycle per iteration on one shared "
+                        "hierarchy (the grid must coarsen: even M and N; "
+                        "no --mesh, no --geometry)")
     return p
 
 
@@ -502,11 +551,23 @@ def main_solve_batched(argv) -> int:
         solve_batched,
     )
 
+    if args.preconditioner == "mg":
+        # The JAX CLI's refusals, then its grid check.
+        if args.geometry:
+            raise SystemExit(
+                "--preconditioner mg does not co-batch --geometry "
+                "members yet (each would need its own level hierarchy); "
+                "drop one of the two")
+        if args.mesh is not None:
+            raise SystemExit(
+                "--preconditioner mg needs a sharded hierarchy, which no "
+                "mesh program has yet; dispatch MG batches on a single "
+                "device (drop --mesh)")
+        check_mg_grid(args)
     for flag, unported, what in (
             ("--geometry", args.geometry, "geometries"),
             ("--verify-every", args.verify_every, "verify_every"),
-            ("--verify-tol", args.verify_tol is not None, "verify_every"),
-            ("--preconditioner mg", args.preconditioner == "mg", "mg")):
+            ("--verify-tol", args.verify_tol is not None, "verify_every")):
         if unported:
             raise SystemExit(f"{flag}: {not_ported(what)}")
     from poisson_tpu_torch import obs
@@ -531,7 +592,8 @@ def main_solve_batched(argv) -> int:
         mesh = build_mesh(args, visible_devices(args.device))
         device, where = mesh.lead, dict(mesh=mesh)
     run = lambda: solve_batched(problem, rhs_gates=gates, dtype=args.dtype,
-                                bucket=args.bucket, **where)
+                                bucket=args.bucket,
+                                preconditioner=args.preconditioner, **where)
     timer = PhaseTimer(device)
     with timer.phase("compile_and_first_solve"):
         result = run()
@@ -560,9 +622,12 @@ def main_solve_batched(argv) -> int:
         "converged": converged,
         "flags": sorted({FLAG_NAMES.get(f, str(f)) for f in flags}),
     }
+    if args.preconditioner != "jacobi":
+        record["preconditioner"] = args.preconditioner
     if args.compare_sequential:
         seq = lambda g: pcg_solve(problem, dtype=args.dtype, rhs_gate=g,
-                                  device=device)
+                                  device=device,
+                                  preconditioner=args.preconditioner)
         seq(gates[0])              # first-call setup outside the timing
         with obs.span("timed_sequential_solves", fence=False, batch=B):
             fence(device)

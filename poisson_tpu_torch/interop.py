@@ -3,8 +3,9 @@
 The port never imports the JAX package; a caller that holds both (the
 parity tests) hands over plain fields and numpy arrays, so that both
 packages run on the very same inputs: single-device canvases, the
-stacked shard canvases of the sharded solves, or a batched solver state
-(a lane table carried across mid-flight).
+stacked shard canvases of the sharded solves, a batched solver state
+(a lane table carried across mid-flight), or a multigrid level hierarchy
+(one V-cycle of each package under the same levels).
 """
 
 from __future__ import annotations
@@ -106,3 +107,20 @@ def batched_state_to_reference(state) -> dict:
         out[name] = arr.reshape(-1) if arr.ndim == 3 and arr.shape[1:] == (
             1, 1) else arr
     return out
+
+
+def mg_levels_from_reference(levels, coarse_inv=None, scinv=None,
+                             device=None):
+    """The port's ``mg.MGLevels`` from a JAX ``MGLevels`` as arrays
+    (``levels``: one (a, b, dinv) triple per level, finest first; then
+    ``coarse_inv`` and ``scinv``, each None where the JAX one is), numpy
+    or JAX, in their own dtypes, on ``device`` (default ``cuda``): the
+    very hierarchy the JAX V-cycle runs, under the port's."""
+    from poisson_tpu_torch.mg.hierarchy import MGLevels
+
+    dev = resolve_device(device)
+    cast = lambda x: None if x is None else torch.from_numpy(
+        np.array(x)).to(dev)
+    return MGLevels(levels=tuple(tuple(cast(x) for x in level)
+                                 for level in levels),
+                    coarse_inv=cast(coarse_inv), scinv=cast(scinv))

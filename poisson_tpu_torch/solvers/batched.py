@@ -36,9 +36,18 @@ counters move the same way on the same calls.
 (``parallel.pcg_sharded.solve_batched_sharded``): members stay whole-grid,
 the mesh splits the grid, each member's sums are mesh scalars.
 
+``preconditioner="mg"`` runs every member with one V-cycle per
+iteration (``poisson_tpu_torch.mg``) on one hierarchy shared by the whole
+stack; the cycle is elementwise but for the coarsest matvec, which runs
+per member on the solo call's shape (``mg.cycle.coarse_matvec``), so
+member i is ``pcg_solve(..., preconditioner="mg")`` bit for bit. MG
+buckets are their own family of keys, as in the JAX package. As there,
+MG does not co-batch per-member ``geometries`` and has no ``mesh=``
+program.
+
 Not ported yet, refused with the ROADMAP item that ports them:
-per-member ``geometries`` (Queue 1 item 6), ``verify_every`` > 0 (item 7),
-``preconditioner="mg"`` (item 8) and ``mode="block"`` (item 9).
+per-member ``geometries`` (Queue 1 item 6), ``verify_every`` > 0 (item 7)
+and ``mode="block"`` (item 9).
 """
 
 from __future__ import annotations
@@ -49,6 +58,11 @@ import torch
 
 from poisson_tpu_torch import obs
 from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.mg.hierarchy import (
+    mg_config_for,
+    resolve_preconditioner,
+)
+from poisson_tpu_torch.mg.preconditioner import mg_solve_setup
 from poisson_tpu_torch.solvers.pcg import (
     CHECK_EVERY,
     PCGOps,
@@ -80,7 +94,6 @@ _NOT_PORTED = {
     "geometries": "per-member geometries (ROADMAP Queue 1 item 6)",
     "verify_every": "the in-loop integrity probe, verify_every > 0 "
                     "(ROADMAP Queue 1 item 7)",
-    "mg": "preconditioner='mg' (ROADMAP Queue 1 item 8)",
     "block": "mode='block', block CG (ROADMAP Queue 1 item 9)",
 }
 
@@ -175,18 +188,31 @@ def _count_bucket(key: tuple, batch: int, run: int) -> None:
     obs.gauge("batched.last_bucket", key[0])
 
 
-def _refuse_unported(geometries, verify_every, preconditioner, mode) -> None:
+def _refuse_unported(geometries, verify_every, preconditioner, mode,
+                     mesh) -> None:
     if mode not in ("independent", "block"):
         raise ValueError(f"unknown mode {mode!r} — expected one of "
                          "('independent', 'block')")
     if mode == "block":
         raise not_ported("block")
-    if geometries is not None and any(g is not None for g in geometries):
+    with_geometries = geometries is not None and any(
+        g is not None for g in geometries)
+    if resolve_preconditioner(preconditioner) == "mg":
+        # The JAX package's refusals, in its words.
+        if mesh is not None:
+            raise ValueError(
+                "solve_batched(mesh=) composes with the Jacobi "
+                "(symmetric-scaling) body only; preconditioner="
+                f"{preconditioner!r} needs a sharded hierarchy — "
+                "dispatch MG batches on a single device")
+        if with_geometries:
+            raise ValueError(
+                "preconditioner='mg' does not co-batch per-member "
+                "geometries yet (each member would need its own level "
+                "hierarchy); dispatch geometry+MG requests solo via "
+                "pcg_solve(geometry=..., preconditioner='mg')")
+    if with_geometries:
         raise not_ported("geometries")
-    if preconditioner not in (None, "jacobi"):
-        if preconditioner == "mg":
-            raise not_ported("mg")
-        raise ValueError(f"unknown preconditioner {preconditioner!r}")
     if int(verify_every) > 0:
         raise not_ported("verify_every")
 
@@ -233,11 +259,13 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
 
     ``dtype``/``scaled`` follow ``pcg_solve``'s precision policy; the solve
     runs on ``device`` (default ``cuda``), or on ``mesh`` (a
-    ``parallel.mesh.Mesh``; one of the two). ``geometries``,
-    ``verify_every`` > 0 (and its ``verify_tol``), ``preconditioner="mg"``
-    (and its ``mg_config``) and ``mode="block"`` are refused with the
-    ROADMAP item that ports them."""
-    _refuse_unported(geometries, verify_every, preconditioner, mode)
+    ``parallel.mesh.Mesh``; one of the two). ``preconditioner="mg"`` (with
+    ``mg_config``) runs every member with the V-cycle on one shared
+    hierarchy; it takes no ``mesh`` and no ``geometries``, as in the JAX
+    package. ``geometries``, ``verify_every`` > 0 (and its
+    ``verify_tol``) and ``mode="block"`` are refused with the ROADMAP item
+    that ports them."""
+    _refuse_unported(geometries, verify_every, preconditioner, mode, mesh)
     if mesh is not None and device is not None:
         raise ValueError("give a mesh or a device, not both")
     forms = sum(x is not None for x in (rhs_stack, rhs_gates))
@@ -266,9 +294,15 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
     # f_val enters only the right-hand sides, so the bucket key (and the
     # operator setup) normalizes it away, as the JAX package's jit key does.
     jit_problem = problem.with_(f_val=1.0)
-    setup = (None if mesh is not None else
-             solve_setup(jit_problem, dtype_name, use_scaled, dev,
-                         members=True))
+    config = mg_config_for(problem, preconditioner, mg_config)
+    if mesh is not None:
+        setup = None
+    elif config is None:
+        setup = solve_setup(jit_problem, dtype_name, use_scaled, dev,
+                            members=True)
+    else:
+        setup = mg_solve_setup(jit_problem, dtype_name, use_scaled, dev,
+                               members=True, config=config)
 
     if member_problems is not None:
         stack = torch.stack([member_rhs(problem, p.f_val, use_scaled, tdtype,
@@ -303,6 +337,10 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
             (run - batch,) + tuple(stack.shape[1:]))])
 
     key = (size, jit_problem, dtype_name, use_scaled)
+    if config is not None:
+        # MG buckets are their own family, keyed with the cycle config.
+        key += (("mg", config),)
+        obs.inc("mg.solves", batch)
     if mesh is not None:
         from poisson_tpu_torch.parallel.pcg_sharded import (
             solve_batched_sharded,
@@ -317,7 +355,7 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
             setup.ops, stack, delta=problem.delta,
             max_iter=problem.iteration_cap,
             weighted_norm=problem.weighted_norm, h1=problem.h1,
-            h2=problem.h2)
+            h2=problem.h2, check_every=setup.check_every)
         w = s.w * setup.aux if use_scaled else s.w
         result = batched_result(w, s)
     return sliced(result, batch, origin)

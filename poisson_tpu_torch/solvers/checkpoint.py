@@ -45,8 +45,9 @@ import torch
 
 from poisson_tpu_torch import obs
 from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.mg.hierarchy import DEFAULT_MG, mg_config_for
+from poisson_tpu_torch.mg.preconditioner import mg_solve_setup
 from poisson_tpu_torch.solvers.pcg import (
-    CHECK_EVERY,
     FLAG_CONVERGED,
     FLAG_DEADLINE,
     FLAG_NONE,
@@ -71,15 +72,22 @@ class CorruptCheckpointError(RuntimeError):
     missing payload keys, or CRC mismatch."""
 
 
-def _fingerprint(problem: Problem, dtype_name: str, scaled: bool) -> str:
-    """The problem's identity, the JAX package's string for the Jacobi
-    preconditioner: every field but ``max_iter`` (a capped run may resume
-    with a larger budget), the state's type name and the scaling."""
+def _fingerprint(problem: Problem, dtype_name: str, scaled: bool,
+                 preconditioner: str = "jacobi", mg_config=None) -> str:
+    """The problem's identity, the JAX package's string: every field but
+    ``max_iter`` (a capped run may resume with a larger budget), the
+    state's type name and the scaling; for a preconditioner other than
+    Jacobi also its name and the cycle config (z and p are M⁻¹-derived, so
+    a state never resumes under another M⁻¹). The Jacobi string is the
+    one files have always carried."""
     fields = {
         f.name: getattr(problem, f.name)
         for f in dataclasses.fields(problem)
         if f.name != "max_iter"
     }
+    if preconditioner not in (None, "jacobi"):
+        return repr((sorted(fields.items()), dtype_name, scaled,
+                     preconditioner, mg_config or DEFAULT_MG))
     return repr((sorted(fields.items()), dtype_name, scaled))
 
 
@@ -325,16 +333,26 @@ def _deadline_flag(state, deadline):
 
 
 def _chunked(problem: Problem, chunk: int, dtype, scaled, device,
-             check_every: int, stagnation_window: int):
+             check_every: Optional[int], stagnation_window: int,
+             preconditioner: str = "jacobi", mg_config=None):
     """(setup, advance, init) of the plain solve's chunk loop: a chunk runs
-    min(chunk, cap − k) steps of the body, which freezes a done state."""
+    min(chunk, cap − k) steps of the body, which freezes a done state.
+    With ``preconditioner="mg"`` the body carries the V-cycle, and one
+    call counts one ``mg.solves``."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    setup = solve_setup(problem, dtype, scaled, device)
+    config = mg_config_for(problem, preconditioner, mg_config)
+    if config is None:
+        setup = solve_setup(problem, dtype, scaled, device)
+    else:
+        setup = mg_solve_setup(problem, dtype, scaled, device, config=config)
+        obs.inc("mg.solves")
     body = make_pcg_body(setup.ops, delta=problem.delta,
                          weighted_norm=problem.weighted_norm, h1=problem.h1,
                          h2=problem.h2, stagnation_window=stagnation_window)
     cap = problem.iteration_cap
+    if check_every is None:
+        check_every = setup.check_every
     advance = lambda s: drive(body, s, min(chunk, cap - int(s.k)),
                               check_every)
     return setup, advance, lambda: init_state(setup.ops, setup.rhs)
@@ -352,15 +370,21 @@ def pcg_solve_checkpointed(problem: Problem, checkpoint_path: str,
                            keep_checkpoint: bool = False, keep_last: int = 2,
                            stagnation_window: int = 0, watchdog=None,
                            on_chunk=None, deadline=None, device=None,
-                           check_every: int = CHECK_EVERY) -> PCGResult:
+                           check_every: Optional[int] = None,
+                           preconditioner: str = "jacobi",
+                           mg_config=None) -> PCGResult:
     """The plain solve (``solvers.pcg``) with its state written every
     ``chunk`` iterations and resumed from ``checkpoint_path`` when a
     trustworthy file for this problem exists. Converged runs remove their
     files unless ``keep_checkpoint``; a cap-hit or a divergence keeps them.
-    The chunked solve equals the one-shot ``pcg_solve`` bit for bit."""
+    The chunked solve equals the one-shot ``pcg_solve`` bit for bit, with
+    either ``preconditioner`` (an MG file carries the cycle config in its
+    fingerprint, so it never resumes under Jacobi, nor the reverse)."""
     setup, advance, init = _chunked(problem, chunk, dtype, scaled, device,
-                                    check_every, stagnation_window)
-    fp = _fingerprint(problem, setup.dtype_name, setup.scaled)
+                                    check_every, stagnation_window,
+                                    preconditioner, mg_config)
+    fp = _fingerprint(problem, setup.dtype_name, setup.scaled,
+                      preconditioner, mg_config)
     saved = load_state(checkpoint_path, fp, keep_last=keep_last)
     if saved is None:
         state = init()
@@ -377,13 +401,16 @@ def pcg_solve_checkpointed(problem: Problem, checkpoint_path: str,
 def pcg_solve_chunked(problem: Problem, chunk: int = 100, dtype=None,
                       scaled=None, stagnation_window: int = 0,
                       watchdog=None, on_chunk=None, deadline=None,
-                      device=None, check_every: int = CHECK_EVERY
+                      device=None, check_every: Optional[int] = None,
+                      preconditioner: str = "jacobi", mg_config=None
                       ) -> PCGResult:
     """The same chunk loop without persistence: a solve that can be
     stopped at a chunk boundary by its ``deadline`` (FLAG_DEADLINE on the
-    result), with the one-shot iterates when it converges."""
+    result), with the one-shot iterates when it converges (either
+    ``preconditioner``)."""
     setup, advance, init = _chunked(problem, chunk, dtype, scaled, device,
-                                    check_every, stagnation_window)
+                                    check_every, stagnation_window,
+                                    preconditioner, mg_config)
     state = run_chunked(
         init(), advance=advance, to_portable=lambda s: s, path=None,
         fingerprint="", cap=problem.iteration_cap, keep_checkpoint=False,

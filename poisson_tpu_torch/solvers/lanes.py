@@ -24,9 +24,13 @@ The lane state lives on an explicit ``device`` (default ``cuda``): fields
 (bucket, M+1, N+1), member scalars (bucket, 1, 1). Splice and retire
 write and read one slot in place.
 
+``preconditioner="mg"`` steps every lane with one V-cycle per iteration
+on one shared hierarchy (``poisson_tpu_torch.mg``); a spliced member is
+the MG solve's ``init_state``, so it still equals its solo solve. As in
+the JAX package, MG lanes carry no per-lane geometries.
+
 Not ported yet, refused with their ROADMAP items: ``multi_geometry``
-(Queue 1 item 6), ``verify_every`` > 0 (item 7) and
-``preconditioner="mg"`` (item 8).
+(Queue 1 item 6) and ``verify_every`` > 0 (item 7).
 """
 
 from __future__ import annotations
@@ -35,7 +39,13 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
+from poisson_tpu_torch import obs
 from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.mg.hierarchy import (
+    mg_config_for,
+    resolve_preconditioner,
+)
+from poisson_tpu_torch.mg.preconditioner import mg_solve_setup
 from poisson_tpu_torch.solvers.batched import (
     member_rhs,
     not_ported,
@@ -77,9 +87,9 @@ class LaneBatch:
     ``lane_view()`` reads each lane's (k, done, flag, diff); ``retire(lane)``
     takes the attributed result out and empties the lane. The caller owns
     the schedule; any interleaving keeps identities and trajectories.
-    ``multi_geometry``, ``verify_every`` > 0 (``verify_tol``) and
-    ``preconditioner="mg"`` (``mg_config``) are refused with their ROADMAP
-    items."""
+    ``preconditioner="mg"`` (with ``mg_config``) runs the V-cycle in every
+    lane. ``multi_geometry`` and ``verify_every`` > 0 (``verify_tol``) are
+    refused with their ROADMAP items."""
 
     def __init__(self, problem: Problem, bucket: int, *, dtype=None,
                  scaled=None, chunk: int = 50, multi_geometry: bool = False,
@@ -90,24 +100,30 @@ class LaneBatch:
             raise ValueError(f"bucket must be >= 1, got {bucket}")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if multi_geometry and resolve_preconditioner(preconditioner) == "mg":
+            raise ValueError(
+                "preconditioner='mg' lanes do not carry per-lane "
+                "geometries yet; build a jacobi table or dispatch "
+                "geometry+MG requests solo")
         if multi_geometry:
             raise not_ported("geometries")
         if int(verify_every) > 0:
             raise not_ported("verify_every")
-        if preconditioner not in (None, "jacobi"):
-            if preconditioner == "mg":
-                raise not_ported("mg")
-            raise ValueError(f"unknown preconditioner {preconditioner!r}")
+        self._mg_config = mg_config_for(problem, preconditioner, mg_config)
         self.problem = problem
         self.bucket = int(bucket)
         self.chunk = int(chunk)
         # The operator is f_val-free; the member RHS keeps problem.f_val.
-        setup = solve_setup(problem.with_(f_val=1.0), dtype, scaled, device,
-                            members=True)
+        unit = problem.with_(f_val=1.0)
+        setup = (solve_setup(unit, dtype, scaled, device, members=True)
+                 if self._mg_config is None else
+                 mg_solve_setup(unit, dtype, scaled, device, members=True,
+                                config=self._mg_config))
         self.device = setup.rhs.device
         self.dtype_name = setup.dtype_name
         self.use_scaled = setup.scaled
         self._ops, self._aux = setup.ops, setup.aux
+        self._check_every = setup.check_every
         self._rhs = member_rhs(problem, problem.f_val, setup.scaled,
                                setup.rhs.dtype, self.device)
         self._body = make_pcg_body(
@@ -166,6 +182,8 @@ class LaneBatch:
                              f"{self.origin[lane]!r})")
         rhs = gate_rhs(self._rhs, rhs_gate)
         member = init_state(self._ops, rhs[None])
+        if self._mg_config is not None:
+            obs.inc("mg.solves")     # a lane splice is one MG solve
         self._write(lane, PCGState(*(f[0] for f in member)))
         self.origin[lane] = member_id
         return lane
@@ -180,7 +198,8 @@ class LaneBatch:
             s = self.state
             stop_at = torch.clamp(s.k + self.chunk,
                                   max=self.problem.iteration_cap)
-            self.state = step_members(self._body, s, stop_at, self.chunk)
+            self.state = step_members(self._body, s, stop_at, self.chunk,
+                                      self._check_every)
             self.steps += 1
             self.idle_lane_steps += idle
         return {"active": active, "idle": idle}

@@ -32,7 +32,7 @@ bit for bit.
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -356,13 +356,15 @@ def resolve_scaled(scaled, dtype_name: str) -> bool:
 
 
 class SolveSetup(NamedTuple):
-    """The plain solve's operands on one device."""
+    """The plain solve's operands on one device, and how often its loop
+    reads ``done`` (``mg.preconditioner`` reads it every iteration)."""
 
     ops: PCGOps
     rhs: torch.Tensor
     aux: torch.Tensor   # D (unscaled) or D^{-1/2} (scaled), zero ring
     dtype_name: str
     scaled: bool
+    check_every: int = CHECK_EVERY
 
 
 def solve_setup(problem: Problem, dtype=None, scaled=None,
@@ -393,18 +395,39 @@ def gate_rhs(rhs: torch.Tensor, rhs_gate) -> torch.Tensor:
 
 
 def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
-              check_every: int = CHECK_EVERY, rhs_gate=None) -> PCGResult:
+              check_every: Optional[int] = None, rhs_gate=None,
+              preconditioner: str = "jacobi", mg_config=None) -> PCGResult:
     """Single-device plain solve. ``device`` defaults to ``cuda`` (raises
     without a card); setup runs on the host in fp64 and is cast once.
     ``rhs_gate``, if given, is a scalar the RHS is multiplied by (in the
     state's type): member i of ``solve_batched(problem, rhs_gates=g)`` is
-    ``pcg_solve(problem, rhs_gate=g[i])``, bit for bit."""
-    setup = solve_setup(problem, dtype, scaled, device)
+    ``pcg_solve(problem, rhs_gate=g[i])``, bit for bit.
+
+    ``preconditioner`` is the M⁻¹ of the recurrence: ``"jacobi"`` (the
+    default, the diagonal) or ``"mg"``, one geometric V-cycle per
+    iteration (``poisson_tpu_torch.mg``; the grid must coarsen, see
+    ``mg.validate_mg_problem``), tuned by ``mg_config`` (an
+    ``mg.MGConfig``; None for the defaults). ``check_every`` (see
+    :func:`drive`) defaults to the setup's: CHECK_EVERY for Jacobi, 1 for
+    MG, whose few iterations are each dear."""
+    from poisson_tpu_torch.mg.hierarchy import mg_config_for
+
+    config = mg_config_for(problem, preconditioner, mg_config)
+    if config is None:
+        setup = solve_setup(problem, dtype, scaled, device)
+    else:
+        from poisson_tpu_torch import obs
+        from poisson_tpu_torch.mg.preconditioner import mg_solve_setup
+
+        setup = mg_solve_setup(problem, dtype, scaled, device, config=config)
+        obs.inc("mg.solves")
     rhs = setup.rhs if rhs_gate is None else gate_rhs(setup.rhs, rhs_gate)
     s = pcg_loop(setup.ops, rhs, delta=problem.delta,
                  max_iter=problem.iteration_cap,
                  weighted_norm=problem.weighted_norm,
-                 h1=problem.h1, h2=problem.h2, check_every=check_every)
+                 h1=problem.h1, h2=problem.h2,
+                 check_every=(setup.check_every if check_every is None
+                              else check_every))
     w = s.w * setup.aux if setup.scaled else s.w
     return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.zr,
                      flag=s.flag)

@@ -140,6 +140,9 @@ class SolveReport:
     achieved_gbps: Optional[float] = None
     stopped: Optional[str] = None
     mesh: Optional[tuple[int, int]] = None   # (Px, Py) of a sharded solve
+    # Host seconds of an MG solve's level hierarchy, built before the first
+    # solve and in neither solve time.
+    hierarchy_seconds: Optional[float] = None
 
     def json_line(self) -> str:
         return json.dumps(dataclasses.asdict(self))
@@ -161,6 +164,9 @@ class SolveReport:
         if self.achieved_gbps is not None:
             rows.append(f"  attribution: {self.achieved_gbps:.1f} GB/s "
                         f"({self.bytes_per_iter} bytes/iter model)")
+        if self.hierarchy_seconds is not None:
+            rows.append(f"  MG hierarchy build: {self.hierarchy_seconds:.2f} s "
+                        "(host, before the first solve)")
         if self.stopped is not None:
             rows.append(f"  WARNING: solve stopped without converging "
                         f"({self.stopped})")

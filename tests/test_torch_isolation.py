@@ -15,6 +15,8 @@ import torch
 
 import poisson_tpu_torch
 from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.mg import hierarchy as mg_hierarchy
+from poisson_tpu_torch.mg import selfcheck as mg_selfcheck
 from poisson_tpu_torch.ops import ca_cg, fused_cg, resident, serial
 from poisson_tpu_torch.parallel import (
     ca_sharded,
@@ -95,7 +97,8 @@ def test_no_module_imports_jax_or_the_reference():
                  "parallel.ca_sharded", "parallel.pcg_sharded",
                  "parallel.checkpoint_sharded", "obs", "obs.metrics",
                  "obs.trace", "solvers.batched", "solvers.lanes",
-                 "solvers.batched_selfcheck"):
+                 "solvers.batched_selfcheck", "mg", "mg.hierarchy",
+                 "mg.cycle", "mg.preconditioner", "mg.selfcheck"):
         assert f"poisson_tpu_torch.{name}" in modules
 
 
@@ -124,6 +127,15 @@ def test_no_module_imports_jax_or_the_reference():
     lambda: batched.solve_batched(Problem(M=10, N=10), rhs_gates=[1.0]),
     lambda: lanes.LaneBatch(Problem(M=10, N=10), 2),
     lambda: batched_selfcheck.run_selfcheck(),
+    lambda: pcg.pcg_solve(Problem(M=20, N=20), preconditioner="mg"),
+    lambda: batched.solve_batched(Problem(M=20, N=20), rhs_gates=[1.0],
+                                  preconditioner="mg"),
+    lambda: lanes.LaneBatch(Problem(M=20, N=20), 2, preconditioner="mg"),
+    lambda: checkpoint.pcg_solve_chunked(Problem(M=20, N=20),
+                                         preconditioner="mg"),
+    lambda: mg_hierarchy.device_hierarchy(Problem(M=20, N=20), "float32",
+                                          True),
+    lambda: mg_selfcheck.run_selfcheck(),
 ], ids=["fused_cg_solve", "pcg_solve", "build_canvases", "resident_cg_solve",
         "ca_cg_solve", "refined_solve", "make_solver_mesh",
         "fused_cg_solve_sharded", "ca_cg_solve_sharded",
@@ -132,7 +144,9 @@ def test_no_module_imports_jax_or_the_reference():
         "pcg_solve_sharded_checkpointed",
         "fused_cg_solve_sharded_checkpointed",
         "ca_cg_solve_sharded_checkpointed", "solve_batched", "LaneBatch",
-        "batched_selfcheck"])
+        "batched_selfcheck", "pcg_solve_mg", "solve_batched_mg",
+        "LaneBatch_mg", "pcg_solve_chunked_mg", "device_hierarchy",
+        "mg_selfcheck"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
