@@ -126,6 +126,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      chunked MG solve at 800×1200 (chunk 4) bit for bit with the one-shot
      one, and a checkpoint written at 8 iterations and resumed to the
      one-shot count;
+   - the resilience phase (``solvers.resilient``, the integrity probe,
+     ``obs.stream``, ``parallel.watchdog``, ``solvers.history``: plain
+     PyTorch, no kernel launched), fp32 at 800×1200: ``verify_every`` 32
+     and 5 give 989 bit for bit with the plain solve; the NaN drill
+     (NaN at 300, chunk 200) and the bitflip drill (``--verify-every 5
+     --fault-bitflip-at 100`` on w and r; an Ap flip lands in r), each
+     with the default stagnation window and with it off, give the JAX
+     package's recovery histories (``RES_*_HISTORY``), and with it off
+     the recovered iterate lies near the clean one (``RES_L2_RATIO``);
+     two NaNs at 400×600 escalate to fp64;
+     the watchdog beats once per chunk and a stalled ``on_chunk`` raises
+     ``SolveTimeout`` with diagnostics; ``stream_every=32`` yields k = 32
+     … 960 with the plain bits; the fp64 history solve at 400×600 reaches
+     546 with ``pcg_solve``'s last ‖Δw‖; an MG verified resilient solve
+     gives 15 with no verdict; then µs per iteration with
+     ``verify_every`` 0 / 32 / 5 / 1, a clean resilient solve and a
+     streamed one, in turns;
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events, and for kernel S ``torch.sum`` over the same partials
@@ -135,9 +152,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its chain's latency bound at the card's clock), and a profile of one
    flagship solve on the fused, blocked, CA, sharded fused and sharded CA
    paths, of one batched solve of 16 members capped at 128 iterations
-   (launches and device time per batched iteration), and of one fp32 MG
+   (launches and device time per batched iteration), of one fp32 MG
    solve at 800×1200 (launches, device and wall µs per iteration, the
-   device's idle share);
+   device's idle share), and of 64 fp32 flagship iterations plain, with
+   ``verify_every=5`` and with ``stream_every=32`` (launches and device
+   µs per iteration);
 6. a ``kernels`` JSON line (twelve kernels), then the ``ok`` JSON line last.
 
 Without a CUDA device, or run outside a checkout (no ``poisson_tpu_torch``
@@ -303,6 +322,61 @@ BATCH_MEMBER_TOL = 1e-6
 MG_GRIDS = [(400, 600, 14, 14, 14), (800, 1200, 15, 15, 15),
             (2400, 3200, 19, None, 24)]
 MG_FP32_TOL = 1e-5     # fp32 MG iterate vs fp64 MG on the card
+# The resilience phase (``solvers.resilient``, the integrity probe, the
+# stream, the watchdog and the history solve: plain PyTorch on the torch
+# path, no kernel of the port), at the flagship in fp32 unless named.
+RES_VERIFY = (0, 32, 5, 1)   # verify_every strides timed per iteration
+RES_CHUNK = 200              # the resilient solves' chunk
+RES_NAN_AT = 300             # NaN drill: the boundary at/after k = 300
+RES_FLIP_AT = 100            # bitflip drill: --fault-bitflip-at 100
+RES_FLIP_VERIFY = 5          # ... --verify-every 5 (chunk min(200, 100))
+RES_ESCALATE = (400, 600)    # two NaNs at fp32 end in fp64 ...
+RES_ESCALATE_AT = 100        # ... at the boundaries at/after k = 100,
+# with stagnation detection off: with the default window both packages
+# read the fp64 restart as stagnated at 401 and end in DivergenceError.
+RES_ESCALATE_HISTORY = [(101, "nonfinite", "restart@float32"),
+                        (201, "nonfinite", "escalate->float64")]
+RES_ESCALATE_JAX_ITERATIONS = 726
+RES_STALL = (0.5, 1.0)       # watchdog timeout, seconds an on_chunk sleeps
+RES_STREAM = 32              # stream stride: k = 32, 64, ..., 960
+RES_HISTORY = (400, 600, 560)  # fp64 history grid and budget (546 steps)
+RES_MG = (5, 5)              # MG verified resilient: verify_every, chunk
+# The JAX package's recovery histories, counts and distances on these
+# drills at 800x1200 fp32: its resilient driver on the CPU, as
+# ``python -m benchmarks.resilience_goldens`` prints them (the port's CPU
+# run gives the same histories).
+# With the default stagnation window (200) a restarted CG reads as
+# stagnated 200 iterations later in both packages, and the bitflip
+# drills end in DivergenceError; the drills run with that window and
+# with stagnation detection off (window 0), where one restart recovers.
+# A flip in r or Ap at k = 100 overflows at this size: a NaN verdict in
+# both packages, not an integrity one.
+RES_NAN_HISTORY = {
+    200: [(401, "nonfinite", "restart@float32"),
+          (601, "stagnated", "escalate->float64"),
+          (801, "stagnated", "restart@float64")],
+    0: [(401, "nonfinite", "restart@float32")]}
+RES_NAN_JAX_ITERATIONS = {200: 801, 0: 1424}
+RES_NAN_MAX_DIFF = 0.00036009401082992554    # window 0
+RES_FLIP_HISTORY = {
+    (200, "w"): [(105, "integrity", "verified-restart@100"),
+                 (301, "stagnated", "restart@float32"),
+                 (501, "stagnated", "escalate->float64")],
+    (200, "r"): [(102, "nonfinite", "restart@float32"),
+                 (301, "stagnated", "escalate->float64"),
+                 (501, "stagnated", "restart@float64")],
+    (0, "w"): [(105, "integrity", "verified-restart@100")],
+    (0, "r"): [(102, "nonfinite", "restart@float32")]}
+# No "Ap" drill: testing.faults lands an Ap flip in r (Ap is never
+# stored), so with the same seed it is the r drill exactly.
+RES_FLIP_JAX_ITERATIONS = 1002   # window 0, both buffers
+RES_FLIP_MAX_DIFF = 0.00027595460414886475   # window 0, both buffers
+# Window 0, where one restart recovers: the recovered iterate's L2 error
+# is held to RES_L2_RATIO x the clean solve's on the card, and its largest
+# gap to the clean iterate to RES_L2_RATIO x the JAX package's gap on the
+# same drill (RES_*_MAX_DIFF).
+RES_L2_RATIO = 1.5
+RES_PROFILE_ITERS = 64       # capped solves profiled for launches per step
 # fp64 MG vs the fp64 Jacobi solve converged to MG_TIGHT_DELTA, at the grids
 # of MG_TIGHT (tests/test_mg.py:195-205's tolerance). At δ = 1e-6 the Jacobi
 # iterate itself lies farther from the solution, by the same gap to MG in
@@ -1277,6 +1351,279 @@ def check_mg(mg, bt, lanes, ck, pcg_solve, fp64: dict, figures: dict,
           flush=True)
 
 
+def check_resilience(pcg_solve, metrics, card: str) -> None:
+    """The resilience phase (no kernel of the port): verified solves bit
+    for bit with the plain one, the NaN, bitflip and escalation drills of
+    the resilient driver, the watchdog's heartbeat and stall, the stream,
+    the history solve and an MG verified resilient solve; then µs per
+    iteration with the probe at each stride of RES_VERIFY, a clean
+    resilient solve and a streamed one beside the plain solve."""
+    import warnings
+
+    from poisson_tpu_torch.config import FLAGSHIP, Problem
+    from poisson_tpu_torch.obs import stream
+    from poisson_tpu_torch.parallel.watchdog import SolveTimeout, Watchdog
+    from poisson_tpu_torch.solvers.history import pcg_solve_history
+    from poisson_tpu_torch.solvers.resilient import pcg_solve_resilient
+    from poisson_tpu_torch.testing import faults
+
+    f32, f64 = torch.float32, torch.float64
+    p = FLAGSHIP
+    delta = p.delta
+    integrity = ("integrity.checks", "integrity.detections",
+                 "integrity.verified_restarts", "integrity.false_alarms",
+                 "resilient.restarts", "resilient.escalations")
+
+    def counters() -> dict:
+        return {k: metrics.get(k) for k in integrity}
+
+    def quiet(fn):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+        return out, [str(w.message) for w in seen]
+
+    plain = pcg_solve(p, dtype=f32)
+    k_plain = int(plain.iterations)
+    for every in RES_VERIFY[1:3]:
+        metrics.reset()
+        ver = pcg_solve(p, dtype=f32, verify_every=every)
+        same = torch.equal(ver.w, plain.w) and torch.equal(ver.diff,
+                                                           plain.diff)
+        check(int(ver.iterations) == k_plain == 989 and int(ver.flag) == 1
+              and same and metrics.get("integrity.false_alarms") == 0,
+              f"verified solve verify_every={every}: "
+              f"{int(ver.iterations)} iterations (flag {int(ver.flag)}), "
+              f"plain {k_plain}, bits equal {same}")
+    print(f"resilience verified 800x1200 [{card}]: " + json.dumps({
+        "verify_every": list(RES_VERIFY[1:3]), "iterations": k_plain,
+        "bit_for_bit_with_plain": True}), flush=True)
+
+    from poisson_tpu_torch.analysis import l2_error_host
+    from poisson_tpu_torch.solvers.resilient import (
+        DivergenceError,
+        RecoveryPolicy,
+    )
+
+    l2_clean = l2_error_host(p, plain.w)
+
+    def recovered_near_clean(name, gap, l2, jax_gap):
+        check(l2 <= RES_L2_RATIO * l2_clean
+              and gap <= RES_L2_RATIO * jax_gap,
+              f"{name} window 0: L2 error {l2} against the clean "
+              f"{l2_clean} (at most {RES_L2_RATIO}x), {gap} from the "
+              f"clean iterate against JAX's {jax_gap} (at most "
+              f"{RES_L2_RATIO}x)")
+
+    nan_rec = {}
+    for window, want in RES_NAN_HISTORY.items():
+        metrics.reset()
+        nan, msgs = quiet(lambda: pcg_solve_resilient(
+            p, dtype=f32, chunk=RES_CHUNK,
+            policy=RecoveryPolicy(stagnation_window=window),
+            on_chunk=faults.chunk_hook(
+                faults.FaultPlan(nan_at_iteration=RES_NAN_AT))))
+        got = [tuple(h) for h in nan.recovery_history]
+        check(int(nan.flag) == 1 and float(nan.diff) < delta
+              and got == want and nan.restarts == len(want),
+              f"NaN drill window {window}: flag {int(nan.flag)}, history "
+              f"{got}, JAX's {want}")
+        gap = float((nan.w - plain.w).abs().max())
+        l2 = l2_error_host(p, nan.w)
+        if window == 0:
+            recovered_near_clean("NaN drill", gap, l2, RES_NAN_MAX_DIFF)
+        nan_rec[f"window_{window}"] = {
+            "iterations": int(nan.iterations),
+            "jax_cpu_iterations": RES_NAN_JAX_ITERATIONS[window],
+            "restarts": nan.restarts, "history": got,
+            "max_diff_vs_clean": gap,
+            "jax_cpu_max_diff_vs_clean": (RES_NAN_MAX_DIFF if window == 0
+                                          else None),
+            "l2_error": l2, "l2_error_clean": l2_clean,
+            "warnings": msgs, **counters()}
+    print(f"resilience nan drill 800x1200 at {RES_NAN_AT} chunk "
+          f"{RES_CHUNK} [{card}]: " + json.dumps(nan_rec), flush=True)
+
+    drill = {}
+    for (window, buffer), want in RES_FLIP_HISTORY.items():
+        metrics.reset()
+        try:
+            res, msgs = quiet(lambda: pcg_solve_resilient(
+                p, dtype=f32, chunk=min(RES_CHUNK, RES_FLIP_AT),
+                verify_every=RES_FLIP_VERIFY,
+                policy=RecoveryPolicy(stagnation_window=window),
+                on_chunk=faults.bitflip_hook(RES_FLIP_AT, buffer=buffer)))
+        except DivergenceError as e:
+            res, got = None, [tuple(h) for h in e.diagnostics["history"]]
+        else:
+            got = [tuple(h) for h in res.recovery_history]
+        c = counters()
+        flipped = any(v == "integrity" for _, v, _ in want)
+        check(got == want and c["resilient.escalations"]
+              == sum("escalate" in a for _, _, a in want)
+              and c["integrity.false_alarms"] == 0
+              and (c["integrity.detections"] >= 1
+                   and c["integrity.verified_restarts"] >= 1) == flipped
+              and (res is None) == (window != 0)
+              and (res is None or int(res.flag) == 1),
+              f"bitflip drill {buffer} window {window}: history {got}, "
+              f"JAX's {want}, {c}")
+        rec = {"history": got, **c}
+        if res is not None:
+            gap = float((res.w - plain.w).abs().max())
+            l2 = l2_error_host(p, res.w)
+            recovered_near_clean(f"bitflip drill {buffer}", gap, l2,
+                                 RES_FLIP_MAX_DIFF)
+            rec.update(iterations=int(res.iterations),
+                       jax_cpu_iterations=RES_FLIP_JAX_ITERATIONS,
+                       max_diff_vs_clean=gap,
+                       jax_cpu_max_diff_vs_clean=RES_FLIP_MAX_DIFF,
+                       l2_error=l2, l2_error_clean=l2_clean)
+        drill[f"{buffer} window {window}"] = rec
+    print(f"resilience bitflip drill 800x1200 verify_every "
+          f"{RES_FLIP_VERIFY} at {RES_FLIP_AT} [{card}]: "
+          + json.dumps(drill), flush=True)
+
+    small = Problem(*RES_ESCALATE)
+    fired = {"n": 0}
+
+    def two_nans(state, chunks_done):
+        if fired["n"] < 2 and int(state.k) >= RES_ESCALATE_AT:
+            fired["n"] += 1
+            return faults.inject_nan(state)
+        return None
+
+    metrics.reset()
+    esc, msgs = quiet(lambda: pcg_solve_resilient(
+        small, dtype=f32, chunk=RES_ESCALATE_AT, on_chunk=two_nans,
+        policy=RecoveryPolicy(stagnation_window=0)))
+    got = [tuple(h) for h in esc.recovery_history]
+    check(int(esc.flag) == 1 and esc.w.dtype == f64
+          and got == RES_ESCALATE_HISTORY
+          and any("restart@float32" in m for m in msgs)
+          and any("escalate->float64" in m for m in msgs),
+          f"escalation drill: flag {int(esc.flag)}, dtype {esc.w.dtype}, "
+          f"history {got}, {msgs}")
+    print(f"resilience escalation 400x600 [{card}]: " + json.dumps({
+        "iterations": int(esc.iterations),
+        "jax_cpu_iterations": RES_ESCALATE_JAX_ITERATIONS,
+        "dtype": str(esc.w.dtype), "history": got, **counters()}),
+        flush=True)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_wd_",
+                                     dir=root) as wdir:
+        hb = os.path.join(wdir, "hb.json")
+        beats = []
+        wd = Watchdog(heartbeat_path=hb, timeout=300.0)
+        res = pcg_solve_resilient(
+            p, dtype=f32, chunk=RES_CHUNK, watchdog=wd,
+            on_chunk=lambda st, n: beats.append(
+                json.load(open(hb))["beats"]))
+        chunks = -(-int(res.iterations) // RES_CHUNK)
+        last = json.load(open(hb))
+        check(int(res.flag) == 1 and last["beats"] == chunks
+              and beats == list(range(1, chunks))
+              and last["k"] == int(res.iterations),
+              f"watchdog heartbeat: {last['beats']} beats for {chunks} "
+              f"chunks ({beats}), k {last['k']}")
+        timeout, nap = RES_STALL
+        stall = Watchdog(heartbeat_path=hb, timeout=timeout,
+                         poll_interval=0.05)
+        diag = None
+        t0 = time.perf_counter()
+        try:
+            pcg_solve_resilient(p, dtype=f32, chunk=RES_CHUNK,
+                                watchdog=stall,
+                                on_chunk=lambda st, n: time.sleep(nap))
+        except SolveTimeout as e:
+            diag = e.diagnostics
+        stalled = time.perf_counter() - t0
+        check(diag is not None and diag.get("timeout_seconds") == timeout
+              and diag.get("elapsed_seconds", 0) >= timeout
+              and os.path.exists(hb + ".stalled.json"),
+              f"watchdog stall: diagnostics {diag}")
+    print(f"resilience watchdog 800x1200 [{card}]: " + json.dumps({
+        "chunks": chunks, "beats": last["beats"],
+        "heartbeat_keys": sorted(last),
+        "stall_raised_after_s": stalled,
+        "stall_diagnostics": {k: diag[k] for k in (
+            "elapsed_seconds", "timeout_seconds", "beats",
+            "last_progress")}}), flush=True)
+
+    sink = stream.StreamSink()
+    stream.set_sink(sink)
+    try:
+        streamed = pcg_solve(p, dtype=f32, stream_every=RES_STREAM)
+    finally:
+        stream.set_sink(None)
+    ks = [k for k, _ in sink.samples]
+    want = list(range(RES_STREAM, k_plain + 1, RES_STREAM))
+    check(ks == want and torch.equal(streamed.w, plain.w)
+          and int(streamed.iterations) == k_plain,
+          f"stream: samples {ks[:3]}..{ks[-3:]}, want {want[:3]}.."
+          f"{want[-3:]}; iterate bits equal "
+          f"{torch.equal(streamed.w, plain.w)}")
+    print(f"resilience stream 800x1200 every {RES_STREAM} [{card}]: "
+          + json.dumps({"samples": len(ks), "first": sink.samples[0],
+                        "last": sink.samples[-1],
+                        "bit_for_bit_with_plain": True}), flush=True)
+
+    M, N, budget = RES_HISTORY
+    hp = Problem(M=M, N=N)
+    ref = pcg_solve(hp, dtype=f64)
+    hist, hist_s = timed(lambda: pcg_solve_history(hp, budget, dtype=f64))
+    k_ref = int(ref.iterations)
+    check(int(hist.iterations) == k_ref == 546
+          and float(hist.diffs[-1]) == float(ref.diff)
+          and float(hist.diffs[k_ref - 1]) == float(ref.diff),
+          f"history: {int(hist.iterations)} iterations, last diff "
+          f"{float(hist.diffs[-1])}, pcg_solve {k_ref} {float(ref.diff)}")
+    print(f"resilience history fp64 {M}x{N} budget {budget} [{card}]: "
+          + json.dumps({"iterations": int(hist.iterations),
+                        "seconds": hist_s,
+                        "last_diff": float(hist.diffs[-1]),
+                        "last_l2_error": float(hist.l2_errors[-1])}),
+          flush=True)
+
+    every, chunk = RES_MG
+    metrics.reset()
+    mgr, msgs = quiet(lambda: pcg_solve_resilient(
+        p, dtype=f32, chunk=chunk, verify_every=every,
+        preconditioner="mg"))
+    c = counters()
+    check(int(mgr.iterations) == 15 and int(mgr.flag) == 1
+          and mgr.restarts == 0 and c["integrity.false_alarms"] == 0
+          and c["integrity.detections"] == 0,
+          f"MG verified resilient: {int(mgr.iterations)} iterations "
+          f"(flag {int(mgr.flag)}), restarts {mgr.restarts}, {c}")
+    print(f"resilience mg verified 800x1200 verify_every {every} chunk "
+          f"{chunk} [{card}]: " + json.dumps({
+              "iterations": int(mgr.iterations), **c}), flush=True)
+
+    # Times, in turns so that the host's drift is shared: the plain solve
+    # with each probe stride, a clean resilient solve, a streamed one.
+    runs = {f"verify_every_{v}": (lambda v=v: pcg_solve(
+        p, dtype=f32, verify_every=v)) for v in RES_VERIFY}
+    runs["resilient_chunk_200"] = lambda: pcg_solve_resilient(
+        p, dtype=f32, chunk=RES_CHUNK)
+    runs[f"stream_every_{RES_STREAM}"] = lambda: pcg_solve(
+        p, dtype=f32, stream_every=RES_STREAM)
+    each = {name: [] for name in runs}
+    for _ in range(REPEATS):
+        for name, run in runs.items():
+            r, sec = timed(run)
+            check(int(r.iterations) == k_plain,
+                  f"timed {name}: {int(r.iterations)} iterations")
+            each[name].append(sec)
+    base = min(each["verify_every_0"])
+    print(f"resilience times 800x1200 fp32 [{card}]: " + json.dumps({
+        name: {"seconds": min(secs), "seconds_each": secs,
+               "us_per_iter": min(secs) / k_plain * 1e6,
+               "vs_plain": min(secs) / base}
+        for name, secs in each.items()}), flush=True)
+
+
 def main() -> None:
     started = time.perf_counter()
 
@@ -2025,6 +2372,12 @@ def main() -> None:
     expect_counts("the MG phase", {})
 
     elapsed("mg")
+    # --- the resilience phase: plain PyTorch, no kernel of the port.
+    reset_counts()
+    check_resilience(pcg_solve, metrics, card)
+    expect_counts("the resilience phase", {})
+
+    elapsed("resilience")
     for time_it in timers:
         time_it()
 
@@ -2125,6 +2478,26 @@ def main() -> None:
                   "wall_us_per_iter": prof_wall / k * 1e6,
                   "top_kernels": [{"name": name[:80], "count": n, "us": us}
                                   for name, (n, us) in top]}), flush=True)
+
+    # Launches per iteration of the capped fp32 flagship solve with the
+    # probe and the stream off and on (no kernel of the port).
+    capped = FLAGSHIP.with_(max_iter=RES_PROFILE_ITERS)
+    per_iter = {}
+    for name, kwargs in (("plain", {}), ("verify_every_5",
+                                          {"verify_every": 5}),
+                         (f"stream_every_{RES_STREAM}",
+                          {"stream_every": RES_STREAM})):
+        prof, prof_wall = profile_kernels(
+            lambda: pcg_solve(capped, dtype=torch.float32, **kwargs))
+        if prof is not None:
+            per_iter[name] = {
+                "launches_per_iter": sum(n for n, _ in prof.values())
+                / RES_PROFILE_ITERS,
+                "device_us_per_iter": sum(us for _, us in prof.values())
+                / RES_PROFILE_ITERS,
+                "wall_us_per_iter": prof_wall / RES_PROFILE_ITERS * 1e6}
+    print(f"profile resilience fp32 800x1200 ({RES_PROFILE_ITERS} "
+          f"iterations) [{card}]: " + json.dumps(per_iter), flush=True)
 
     elapsed("timers and profiles")
     line = []

@@ -20,16 +20,23 @@ tolerance. It imports ``torch`` and ``numpy``, never ``jax`` or
                  mixed-precision refinement (``solvers.refine``),
                  checkpointed, chunked solves in the JAX package's file
                  format (``solvers.checkpoint``), batched multi-RHS solves
-                 (``solvers.batched``) and lane stepping for continuous
-                 batching (``solvers.lanes``).
+                 (``solvers.batched``), lane stepping for continuous
+                 batching (``solvers.lanes``), the self-healing solve
+                 (``solvers.resilient``) and the fixed-budget history solve
+                 (``solvers.history``).
+- ``integrity`` — the in-loop silent-corruption probe (``verify_every``).
+- ``testing``  — fault injection: NaNs, bit flips, preemption, corrupt
+                 checkpoint files.
 - ``mg``       — geometric multigrid preconditioning: the level hierarchy,
                  the V-cycle, and ``preconditioner="mg"`` on the plain,
                  batched, lane and chunked solves (plain PyTorch).
 - ``parallel`` — the device mesh, halo exchange and mesh-order sums, the
                  plain sharded solve, and the sharded fused and CA solves,
                  which run the kernels' sharded (banded, masked) forms on
-                 every shard; each also checkpointed.
-- ``obs``      — spans and counters in the JAX package's formats.
+                 every shard; each also checkpointed; the chunk-boundary
+                 heartbeat watchdog.
+- ``obs``      — spans, counters and streamed convergence in the JAX
+                 package's formats.
 - ``interop``  — carries the JAX package's problem, canvases, MG levels
                  and batched state across as plain data, for the parity
                  tests.
@@ -62,9 +69,11 @@ from poisson_tpu_torch.solvers.checkpoint import (
     pcg_solve_checkpointed,
     pcg_solve_chunked,
 )
+from poisson_tpu_torch.solvers.history import pcg_solve_history
 from poisson_tpu_torch.solvers.lanes import LaneBatch, LaneResult
 from poisson_tpu_torch.solvers.pcg import PCGResult, pcg_solve
 from poisson_tpu_torch.solvers.refine import RefineResult, refined_solve
+from poisson_tpu_torch.solvers.resilient import pcg_solve_resilient
 
 __version__ = "0.1.0"
 
@@ -75,6 +84,7 @@ __all__ = ["FLAGSHIP", "LaneBatch", "LaneResult", "Problem", "PCGResult",
            "fused_cg_solve_checkpointed", "fused_cg_solve_sharded",
            "fused_cg_solve_sharded_checkpointed", "make_solver_mesh",
            "pcg_solve", "pcg_solve_checkpointed", "pcg_solve_chunked",
+           "pcg_solve_history", "pcg_solve_resilient",
            "pcg_solve_sharded", "pcg_solve_sharded_checkpointed",
            "refined_solve", "resident_cg_solve", "solve_batched",
            "__version__"]

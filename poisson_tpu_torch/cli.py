@@ -38,6 +38,17 @@ V-cycle per iteration (``poisson_tpu_torch.mg``). It rides the plain
 ``torch``, and every kernel or sharded backend refuses it. The hierarchy
 is built before the first solve and reported as ``hierarchy_seconds``.
 
+The "resilience" flags are the JAX CLI's: ``--resilient`` runs the
+self-healing solve (``solvers.resilient``) on the ``torch`` backend (``auto``
+picks it), ``--verify-every`` arms the in-loop integrity probe, and
+``--heartbeat``/``--watchdog-timeout``, ``--stagnation-window`` and the
+``--fault-*`` drills reach the chunk boundaries of the resilient solve or
+of ``--checkpoint`` on ``torch`` or ``sharded``. A preempted run exits 75
+(rerun to resume), a watchdog timeout 124. ``--stream-every`` streams
+(k, ‖Δw‖) from the ``torch`` solve (``obs.stream``). Each flag refuses a
+backend it cannot reach, in the JAX CLI's words with ``torch`` for
+``xla``.
+
 ``solve-batched`` solves B right-hand sides of one operator together
 (``solvers.batched``; see :func:`main_solve_batched`).
 """
@@ -144,15 +155,83 @@ def build_parser() -> argparse.ArgumentParser:
                    help="every backend but resident: save the solver state "
                         "to PATH every --chunk iterations and resume from "
                         "it; removed on convergence, kept on a cap-hit")
-    p.add_argument("--chunk", type=int, default=200,
-                   help="iterations per checkpoint chunk (default 200)")
-    p.add_argument("--keep-last", type=int, default=2,
-                   help="checkpoint generations kept (default 2)")
+    p.add_argument("--chunk", type=int, default=None,
+                   help="iterations per checkpoint chunk (default 200; with "
+                        "--fault-nan-at or --fault-bitflip-at K, min(200, K) "
+                        "so the injection boundary lands before a fast "
+                        "solve converges)")
+    r = p.add_argument_group(
+        "resilience",
+        "divergence recovery, integrity probe, hardened checkpoints, "
+        "watchdog, fault injection")
+    r.add_argument("--resilient", action="store_true",
+                   help="self-healing solve (--backend torch): in-loop "
+                        "divergence detection plus restart-from-last-good-"
+                        "iterate recovery with precision escalation")
+    r.add_argument("--max-restarts", type=int, default=3,
+                   help="recovery attempts before the resilient solve "
+                        "fails loudly (default 3)")
+    r.add_argument("--escalate-precision",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="allow the resilient solve to move up the "
+                        "f32->f64 precision ladder after a repeated failure "
+                        "at the same precision (default on)")
+    r.add_argument("--stagnation-window", type=int, default=None,
+                   metavar="ITERS",
+                   help="in-loop stagnation detection: stop after this many "
+                        "iterations without a new best ||dw|| (default: "
+                        "200 with --resilient, off otherwise)")
+    r.add_argument("--keep-last", type=int, default=2, metavar="K",
+                   help="checkpoint generations to retain for corruption "
+                        "fallback (default 2)")
+    r.add_argument("--heartbeat", metavar="PATH", default=None,
+                   help="write a JSON heartbeat file at every chunk "
+                        "boundary (chunked solvers)")
+    r.add_argument("--watchdog-timeout", type=float, default=None,
+                   metavar="SECONDS",
+                   help="abort with diagnostics if no chunk completes "
+                        "within this window (the first chunk includes the "
+                        "first call's setup: size generously)")
+    r.add_argument("--verify-every", type=int, default=0, metavar="K",
+                   help="in-loop integrity probe (--backend torch): every K "
+                        "iterations (and on every convergence event) "
+                        "recompute the true residual ||b-Aw|| and stop with "
+                        "an 'integrity' verdict when it drifts from the "
+                        "recurrence; with --resilient the recovery is a "
+                        "verified restart. 0 (default): no probe")
+    r.add_argument("--verify-tol", type=float, default=None,
+                   help="relative drift tolerance for --verify-every "
+                        "(default: dtype-aware, 1e-6 f64, 2e-5 f32)")
+    r.add_argument("--fault-nan-at", type=int, default=None, metavar="K",
+                   help="fault injection: poison the residual with a NaN at "
+                        "the first chunk boundary at/after iteration K")
+    r.add_argument("--fault-bitflip-at", default=None,
+                   metavar="ITER[:BUF[:BIT]]",
+                   help="fault injection: flip one storage bit of buffer "
+                        "BUF (w/r/p/z/Ap; default w) at the first chunk "
+                        "boundary at/after ITER (silent; only --verify-every "
+                        "detects it. Drill: --resilient --verify-every 5 "
+                        "--fault-bitflip-at 100)")
+    r.add_argument("--fault-preempt-after", type=int, default=None,
+                   metavar="CHUNKS",
+                   help="fault injection: simulate preemption (exit code 75) "
+                        "after this many chunks; the checkpoint survives for "
+                        "the resumed run")
+    r.add_argument("--fault-corrupt-checkpoint",
+                   choices=("flip", "truncate", "zero"), default=None,
+                   help="fault injection: damage the newest checkpoint "
+                        "generation on disk before solving (exercises the "
+                        "CRC fallback)")
     p.add_argument("--trace-dir", metavar="DIR", default=None,
                    help="write spans and events (Perfetto trace JSON, "
-                        "JSONL) and a counters snapshot here")
+                        "JSONL) and a counters snapshot here, and the "
+                        "streamed convergence curve with --stream-every")
     p.add_argument("--metrics-out", metavar="PATH", default=None,
                    help="write the counters/gauges snapshot here at exit")
+    p.add_argument("--stream-every", type=int, default=0, metavar="K",
+                   help="stream (iteration, ||dw||) out of the torch solve "
+                        "every K iterations: live progress and a recorded "
+                        "curve (0 = off, the default)")
     p.add_argument("--json", action="store_true",
                    help="one JSON line instead of a table")
     return p
@@ -169,13 +248,18 @@ def visible_devices(device: str) -> int:
 
 def pick_backend(backend: str, dtype: str, visible: int = 1,
                  mesh=None, checkpoint=None, setup: str = "host",
-                 preconditioner: str = "jacobi") -> str:
+                 preconditioner: str = "jacobi",
+                 resilient: bool = False) -> str:
     """The backend ``auto`` resolves to, by the JAX CLI's rule
     (``poisson_tpu/cli.py:340-377``) with the card in the TPU's place; an
     explicit backend is checked against the dtype and the mesh. With
-    ``preconditioner="mg"`` ``auto`` is ``torch``, the plain solve the
-    V-cycle rides; with a ``--mesh`` it is ``sharded``, which
-    :func:`check_flags` then refuses (the mesh is not dropped)."""
+    ``resilient`` ``auto`` is ``torch``, the single-device recovery
+    driver's, as the JAX CLI's is ``xla``. With ``preconditioner="mg"``
+    ``auto`` is ``torch``, the plain solve the V-cycle rides; with a
+    ``--mesh`` it is ``sharded``, which :func:`check_flags` then refuses
+    (the mesh is not dropped)."""
+    if backend == "auto" and resilient:
+        return "torch"
     if backend == "auto" and preconditioner == "mg":
         backend = "torch" if mesh is None else "sharded"
     if backend == "auto":
@@ -212,8 +296,6 @@ def check_flags(args, backend: str) -> None:
         raise SystemExit(f"--serial-reduce/--no-serial-reduce applies to the "
                          f"fused backends ({', '.join(SERIAL_BACKENDS)}), "
                          f"not {backend}")
-    if args.chunk < 1:
-        raise SystemExit(f"--chunk must be >= 1, got {args.chunk}")
     if args.preconditioner == "mg":
         if backend != "torch":
             raise SystemExit(
@@ -235,6 +317,149 @@ def check_flags(args, backend: str) -> None:
     if backend == "sharded" and args.setup == "device":
         raise SystemExit("--checkpoint gathers state on the host; use the "
                          "default --setup host")
+
+
+def resolve_chunk(args) -> None:
+    """The JAX CLI's ``--chunk`` default: 200, or the smallest injection
+    iteration when a NaN or bitflip drill is armed (so that the injection's
+    boundary lands before a fast solve converges)."""
+    bitflip_at = None
+    if args.fault_bitflip_at:
+        from poisson_tpu_torch.testing.faults import parse_bitflip_spec
+
+        try:
+            bitflip_at, _, _ = parse_bitflip_spec(args.fault_bitflip_at)
+        except ValueError as e:
+            raise SystemExit(f"--fault-bitflip-at: {e}") from None
+    if args.chunk is None:
+        inject_ats = [k for k in (args.fault_nan_at, bitflip_at)
+                      if k is not None]
+        args.chunk = (min(200, max(1, min(inject_ats)))
+                      if inject_ats else 200)
+    elif args.chunk < 1:
+        raise SystemExit(f"--chunk must be >= 1, got {args.chunk}")
+    if args.verify_every < 0:
+        raise SystemExit(f"--verify-every must be >= 0, "
+                         f"got {args.verify_every}")
+    if args.verify_tol is not None and not args.verify_every:
+        raise SystemExit("--verify-tol tunes the integrity probe; pass "
+                         "--verify-every K to arm it")
+    if args.stream_every < 0:
+        raise SystemExit(f"--stream-every must be >= 0, "
+                         f"got {args.stream_every}")
+
+
+def check_resilience(args, backend: str) -> None:
+    """The JAX CLI's guards on the resilience and stream flags
+    (``poisson_tpu/cli.py:2081-2127``), with ``torch`` for ``xla`` and the
+    port's kernel backends for the pallas ones: a flag that cannot reach
+    the resolved backend is refused, never dropped."""
+    if args.resilient and backend != "torch":
+        raise SystemExit(
+            f"--resilient drives the single-device torch solve "
+            f"(resolved backend: {backend}); the sharded/fused chunked "
+            f"paths take the detection, watchdog and "
+            f"checkpoint-hardening flags via --checkpoint")
+    hookable = args.resilient or (
+        args.checkpoint and backend in ("torch", "sharded"))
+    if (args.fault_nan_at is not None
+            or args.fault_preempt_after is not None) and not hookable:
+        raise SystemExit(
+            "--fault-nan-at/--fault-preempt-after inject at chunk "
+            "boundaries; use --resilient, or --checkpoint with "
+            f"--backend torch or sharded (resolved backend: {backend})")
+    if args.fault_bitflip_at is not None and not (
+            args.resilient or (args.checkpoint and backend == "torch")):
+        raise SystemExit(
+            "--fault-bitflip-at injects at chunk boundaries of the "
+            "single-device drivers; use --resilient, or --checkpoint "
+            f"with --backend torch (resolved backend: {backend})")
+    if args.verify_every and backend != "torch":
+        raise SystemExit(
+            "--verify-every arms the in-loop integrity probe in the "
+            "torch solvers; use --backend torch (resolved "
+            f"backend: {backend})")
+    if (args.heartbeat or args.watchdog_timeout is not None) \
+            and not hookable:
+        raise SystemExit(
+            "--heartbeat/--watchdog-timeout guard the chunked torch "
+            "drivers; use --resilient, or --checkpoint with "
+            f"--backend torch or sharded (resolved backend: {backend})")
+    if args.stream_every and backend != "torch":
+        raise SystemExit(
+            "--stream-every streams (k, ||dw||) from the torch solve "
+            f"loop; use --backend torch (resolved backend: {backend})")
+    if args.stagnation_window is not None and not hookable:
+        raise SystemExit(
+            "--stagnation-window needs an in-loop-detecting driver; "
+            "use --resilient, or --checkpoint with --backend torch or "
+            f"sharded (resolved backend: {backend})")
+    if args.keep_last != 2 and not args.checkpoint:
+        raise SystemExit("--keep-last shapes checkpoint retention; "
+                         "it needs --checkpoint")
+    if args.keep_last < 1:
+        raise SystemExit(f"--keep-last must be >= 1, got {args.keep_last}")
+
+
+def corrupt_checkpoint(args) -> None:
+    """``--fault-corrupt-checkpoint``: damage the newest generation."""
+    import os
+
+    if not args.checkpoint:
+        raise SystemExit("--fault-corrupt-checkpoint damages the "
+                         "--checkpoint file; pass --checkpoint PATH")
+    if not os.path.exists(args.checkpoint):
+        raise SystemExit(
+            f"--fault-corrupt-checkpoint: no checkpoint at "
+            f"{args.checkpoint} to corrupt (run once with "
+            f"--checkpoint first)")
+    from poisson_tpu_torch.testing.faults import corrupt_file
+
+    corrupt_file(args.checkpoint, args.fault_corrupt_checkpoint)
+    print(f"fault injection: corrupted ({args.fault_corrupt_checkpoint}) "
+          f"checkpoint {args.checkpoint}", file=sys.stderr)
+
+
+def resilience_kit(args):
+    """The watchdog and the fault-injection hook from the flags (None,
+    None when unused), as the JAX CLI's ``_resilience_kit``."""
+    watchdog = None
+    if args.heartbeat or args.watchdog_timeout is not None:
+        from poisson_tpu_torch.parallel.watchdog import Watchdog
+
+        watchdog = Watchdog(heartbeat_path=args.heartbeat,
+                            timeout=args.watchdog_timeout)
+    hooks = []
+    if args.fault_nan_at is not None or args.fault_preempt_after is not None:
+        from poisson_tpu_torch.testing.faults import FaultPlan, chunk_hook
+
+        hooks.append(chunk_hook(FaultPlan(
+            nan_at_iteration=args.fault_nan_at,
+            preempt_after_chunks=args.fault_preempt_after)))
+    if args.fault_bitflip_at:
+        from poisson_tpu_torch.testing.faults import (
+            bitflip_hook,
+            parse_bitflip_spec,
+        )
+
+        it, buf, bit = parse_bitflip_spec(args.fault_bitflip_at)
+        hooks.append(bitflip_hook(it, buffer=buf, bit=bit))
+    if not hooks:
+        return watchdog, None
+    if len(hooks) == 1:
+        return watchdog, hooks[0]
+
+    def on_chunk(state, chunks_done):
+        # Faults compose: each hook sees the previous one's replacement.
+        changed = None
+        for hook in hooks:
+            new = hook(changed if changed is not None else state,
+                       chunks_done)
+            if new is not None:
+                changed = new
+        return changed
+
+    return watchdog, on_chunk
 
 
 def check_mg_grid(args) -> None:
@@ -289,18 +514,57 @@ def main(argv=None) -> int:
     _grid(args)
     if args.repeat < 1:
         raise SystemExit(f"--repeat must be >= 1, got {args.repeat}")
+    resolve_chunk(args)
     from poisson_tpu_torch import obs
 
-    if args.trace_dir or args.metrics_out:
-        obs.configure(trace_dir=args.trace_dir, metrics_path=args.metrics_out)
+    if args.trace_dir or args.metrics_out or args.stream_every:
+        obs.configure(trace_dir=args.trace_dir, metrics_path=args.metrics_out,
+                      stream_every=args.stream_every,
+                      stream_live=sys.stderr.isatty() and not args.json)
     problem = Problem(M=args.M, N=args.N, delta=args.delta,
                       max_iter=args.max_iter,
                       weighted_norm=not args.unweighted_norm)
     visible = visible_devices(args.device)
     backend = pick_backend(args.backend, args.dtype, visible, args.mesh,
-                           args.checkpoint, args.setup, args.preconditioner)
+                           args.checkpoint, args.setup, args.preconditioner,
+                           args.resilient)
 
     check_flags(args, backend)
+    check_resilience(args, backend)
+    if args.fault_corrupt_checkpoint is not None:
+        corrupt_checkpoint(args)
+    watchdog, on_chunk = resilience_kit(args)
+    try:
+        return _solve(args, problem, backend, visible, watchdog, on_chunk)
+    except KeyboardInterrupt:
+        # The chunked drivers turn a watchdog interrupt into SolveTimeout;
+        # one that arrives here raw gets the same exit.
+        if watchdog is not None and watchdog.fired:
+            print("watchdog timeout: solve aborted (diagnostics next to "
+                  "the heartbeat file)", file=sys.stderr)
+            obs.finalize()
+            return 124
+        raise
+    except Exception as e:
+        from poisson_tpu_torch.parallel.watchdog import SolveTimeout
+        from poisson_tpu_torch.testing.faults import PreemptionInjected
+
+        if isinstance(e, SolveTimeout):
+            print(f"{e}", file=sys.stderr)
+            obs.finalize()
+            return 124
+        if on_chunk is not None and isinstance(e, PreemptionInjected):
+            print(f"{e}; checkpoint retained at {args.checkpoint}"
+                  if args.checkpoint else str(e), file=sys.stderr)
+            obs.finalize()
+            return 75   # EX_TEMPFAIL: rerun to resume
+        raise
+
+
+def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
+           on_chunk) -> int:
+    """Run the resolved backend's solve, time it, and print the report."""
+    from poisson_tpu_torch import obs
 
     from poisson_tpu_torch.analysis import l2_error_host
     from poisson_tpu_torch.ops.ca_cg import (
@@ -408,17 +672,42 @@ def main(argv=None) -> int:
         mesh = build_mesh(args, visible)
         run = ((lambda: pcg_solve_sharded_checkpointed(
                     problem, mesh, args.checkpoint, dtype=args.dtype,
-                    **ckpt))
+                    stagnation_window=args.stagnation_window or 0,
+                    watchdog=watchdog, on_chunk=on_chunk, **ckpt))
                if args.checkpoint else
                (lambda: pcg_solve_sharded(problem, mesh, dtype=args.dtype,
                                           setup=args.setup)))
+    elif args.resilient:
+        from poisson_tpu_torch.solvers.resilient import (
+            RecoveryPolicy,
+            pcg_solve_resilient,
+        )
+
+        policy = RecoveryPolicy(
+            max_restarts=args.max_restarts, escalate=args.escalate_precision,
+            stagnation_window=(200 if args.stagnation_window is None
+                               else args.stagnation_window))
+        run = lambda: pcg_solve_resilient(
+            problem, dtype=args.dtype, chunk=args.chunk, policy=policy,
+            checkpoint_path=args.checkpoint, keep_last=args.keep_last,
+            stream_every=args.stream_every, watchdog=watchdog,
+            on_chunk=on_chunk, verify_every=args.verify_every,
+            verify_tol=args.verify_tol, preconditioner=args.preconditioner,
+            device=device)
     elif args.checkpoint:
         run = lambda: pcg_solve_checkpointed(
             problem, args.checkpoint, dtype=args.dtype, device=device,
-            preconditioner=args.preconditioner, **ckpt)
+            preconditioner=args.preconditioner,
+            stagnation_window=args.stagnation_window or 0,
+            stream_every=args.stream_every, watchdog=watchdog,
+            on_chunk=on_chunk, verify_every=args.verify_every,
+            verify_tol=args.verify_tol, **ckpt)
     else:
         run = lambda: pcg_solve(problem, dtype=args.dtype, device=device,
-                                preconditioner=args.preconditioner)
+                                preconditioner=args.preconditioner,
+                                stream_every=args.stream_every,
+                                verify_every=args.verify_every,
+                                verify_tol=args.verify_tol)
 
     bytes_per_iter = None
     # A device rate only from a device run.
@@ -440,9 +729,19 @@ def main(argv=None) -> int:
                              resolve_scaled(None, args.dtype), device=device)
     with timer.phase("first_solve"):   # builds kernels and canvases
         result = run()
+    # Recovery provenance can land on any run (an injected fault fires once
+    # per hook, usually in the first): keep it for the report.
+    recovered = (result.restarts, result.recovery_history)
+    if int(result.flag) not in (FLAG_NONE, FLAG_CONVERGED):
+        # A failed solve is reported as it ran: a timed re-run could
+        # resume from the last good generation and mask the verdict.
+        repeats = 0
     for i in range(repeats):
         with timer.phase(f"solve_{i}"):
             result = run()
+    if recovered[0] and not result.restarts:
+        result = result._replace(restarts=recovered[0],
+                                 recovery_history=recovered[1])
     first = timer.times["first_solve"]
     best = min((timer.times[f"solve_{i}"] for i in range(repeats)),
                default=first)
@@ -464,6 +763,9 @@ def main(argv=None) -> int:
         stopped=stopped,
         mesh=None if mesh is None else (mesh.px, mesh.py),
         hierarchy_seconds=timer.times.get("mg_hierarchy"),
+        restarts=int(result.restarts) if result.restarts else None,
+        recovery=(tuple(result.recovery_history) if result.restarts
+                  else None),
     )
     count_solve(result, compile_seconds=first - best, solve_seconds=best)
     # The report is itself an event, so a trace directory alone holds the
@@ -522,9 +824,11 @@ def build_batched_parser() -> argparse.ArgumentParser:
     p.add_argument("--geometry", metavar="SPEC", action="append",
                    default=None, help="not ported yet (ROADMAP item 6)")
     p.add_argument("--verify-every", type=int, default=0, metavar="K",
-                   help="not ported yet (ROADMAP item 7)")
+                   help="per-member in-loop integrity probe every K "
+                        "iterations (0 = off; not on a --mesh)")
     p.add_argument("--verify-tol", type=float, default=None,
-                   help="not ported yet (ROADMAP item 7)")
+                   help="relative drift tolerance for --verify-every "
+                        "(default: dtype-aware)")
     p.add_argument("--preconditioner", choices=("jacobi", "mg"),
                    default="jacobi",
                    help="per-member M^-1: jacobi (default) or mg, one "
@@ -545,11 +849,8 @@ def main_solve_batched(argv) -> int:
         raise SystemExit(f"--batch must be >= 1, got {args.batch}")
     if args.repeat < 1:
         raise SystemExit(f"--repeat must be >= 1, got {args.repeat}")
-    from poisson_tpu_torch.solvers.batched import (
-        bucket_size,
-        not_ported,
-        solve_batched,
-    )
+    from poisson_tpu_torch.solvers.batched import bucket_size, solve_batched
+    from poisson_tpu_torch.solvers.pcg import not_ported
 
     if args.preconditioner == "mg":
         # The JAX CLI's refusals, then its grid check.
@@ -564,12 +865,14 @@ def main_solve_batched(argv) -> int:
                 "mesh program has yet; dispatch MG batches on a single "
                 "device (drop --mesh)")
         check_mg_grid(args)
-    for flag, unported, what in (
-            ("--geometry", args.geometry, "geometries"),
-            ("--verify-every", args.verify_every, "verify_every"),
-            ("--verify-tol", args.verify_tol is not None, "verify_every")):
-        if unported:
-            raise SystemExit(f"{flag}: {not_ported(what)}")
+    if args.geometry:
+        raise SystemExit(f"--geometry: {not_ported('geometries')}")
+    if args.verify_every < 0:
+        raise SystemExit(f"--verify-every must be >= 0, "
+                         f"got {args.verify_every}")
+    if args.verify_tol is not None and not args.verify_every:
+        raise SystemExit("--verify-tol tunes the integrity probe; pass "
+                         "--verify-every K to arm it")
     from poisson_tpu_torch import obs
     from poisson_tpu_torch.solvers.pcg import (
         FLAG_CONVERGED,
@@ -593,6 +896,8 @@ def main_solve_batched(argv) -> int:
         device, where = mesh.lead, dict(mesh=mesh)
     run = lambda: solve_batched(problem, rhs_gates=gates, dtype=args.dtype,
                                 bucket=args.bucket,
+                                verify_every=args.verify_every,
+                                verify_tol=args.verify_tol,
                                 preconditioner=args.preconditioner, **where)
     timer = PhaseTimer(device)
     with timer.phase("compile_and_first_solve"):
@@ -622,6 +927,8 @@ def main_solve_batched(argv) -> int:
         "converged": converged,
         "flags": sorted({FLAG_NAMES.get(f, str(f)) for f in flags}),
     }
+    if args.verify_every:
+        record["verify_every"] = args.verify_every
     if args.preconditioner != "jacobi":
         record["preconditioner"] = args.preconditioner
     if args.compare_sequential:

@@ -83,4 +83,4 @@ def mg_solve_setup(problem: Problem, dtype=None, scaled=None, device=None,
     return setup._replace(
         ops=setup.ops._replace(apply_Dinv=vcycle_preconditioner(
             problem, hier, config, setup.scaled)),
-        check_every=CHECK_EVERY_MG)
+        check_every=CHECK_EVERY_MG, preconditioner="mg")

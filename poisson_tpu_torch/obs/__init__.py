@@ -4,25 +4,28 @@
 - **spans** (:mod:`poisson_tpu_torch.obs.trace`) — nestable, fenced timed
   regions, written as Chrome/Perfetto trace JSON and a JSONL event log;
 - **counters** (:mod:`poisson_tpu_torch.obs.metrics`) — an always-on
-  registry, snapshotted to JSON at :func:`finalize` and merged per rank.
+  registry, snapshotted to JSON at :func:`finalize` and merged per rank;
+- **streamed convergence** (:mod:`poisson_tpu_torch.obs.stream`) — opt-in
+  (k, ‖Δw‖) samples out of a running solve, staged on the device and
+  emitted at the loop's checks (off by default; counts stay bit for bit).
 
 The file formats and the counter and event names are the JAX package's,
 so either package reads the other's trace directory and snapshots.
 
-Usage (the CLI wires this from ``--trace-dir``/``--metrics-out``)::
+Usage (the CLI wires this from ``--trace-dir``/``--metrics-out``/
+``--stream-every``)::
 
     from poisson_tpu_torch import obs
-    obs.configure(trace_dir="tm", metrics_path="m.json")
+    obs.configure(trace_dir="tm", metrics_path="m.json", stream_every=50)
     with obs.span("solve"):
-        result = pcg_solve(problem)
+        result = pcg_solve(problem, stream_every=50)
     obs.finalize()
 
 Unconfigured, ``obs.span`` is a null context (no fence), ``obs.event``
 drops the record, and counters still count.
 
-Not ported yet: streamed convergence (``obs/stream.py``, with the
-resilience layer), and the profiler capture, Prometheus exposition and
-HTTP endpoint, flight recorder, cost model, forecast and roofline layers
+Not ported yet: the profiler capture, Prometheus exposition and HTTP
+endpoint, flight recorder, cost model, forecast and roofline layers
 (ROADMAP Queue 1 item 11).
 """
 
@@ -33,7 +36,7 @@ import contextlib
 import os
 from typing import Optional
 
-from poisson_tpu_torch.obs import metrics, trace
+from poisson_tpu_torch.obs import metrics, stream, trace
 from poisson_tpu_torch.obs.metrics import gauge, inc
 from poisson_tpu_torch.obs.trace import (
     TraceRecorder,
@@ -45,27 +48,39 @@ from poisson_tpu_torch.obs.trace import (
 __all__ = ["TraceRecorder", "configure", "configure_from_env", "event",
            "finalize", "gauge", "inc", "load_events", "merge_trace_dir",
            "metrics", "normalize_event", "recent_events",
-           "shutdown", "span", "trace"]
+           "shutdown", "span", "stream", "stream_every", "trace"]
 
 _RECORDER: Optional[TraceRecorder] = None
 _METRICS_PATH: Optional[str] = None
+_STREAM_EVERY: int = 0
 _ATEXIT_REGISTERED = False
 
 
 def configure(trace_dir: Optional[str] = None,
               metrics_path: Optional[str] = None,
-              rank: Optional[int] = None) -> TraceRecorder:
+              rank: Optional[int] = None,
+              stream_every: int = 0,
+              stream_live: bool = False) -> TraceRecorder:
     """Install the process-wide telemetry configuration.
 
     ``trace_dir``: spans and events land in ``trace-rank{R}.trace.json``
     and ``events-rank{R}.jsonl`` there, plus ``metrics-rank{R}.json`` at
     finalize. ``metrics_path``: one more counters snapshot file.
-    Finalization runs at interpreter exit; call :func:`finalize` earlier
-    for deterministic artifact timing."""
-    global _RECORDER, _METRICS_PATH, _ATEXIT_REGISTERED
+    ``stream_every`` > 0 installs a :class:`~poisson_tpu_torch.obs.stream.
+    StreamSink` (writing ``stream-rank{R}.jsonl`` in ``trace_dir``, and a
+    live progress line on stderr with ``stream_live``); the stride must
+    also be passed to the solver, as in the JAX package. Finalization
+    runs at interpreter exit; call :func:`finalize` earlier for
+    deterministic artifact timing."""
+    global _RECORDER, _METRICS_PATH, _STREAM_EVERY, _ATEXIT_REGISTERED
     shutdown()
     _RECORDER = TraceRecorder(trace_dir=trace_dir, rank=rank)
     _METRICS_PATH = metrics_path
+    _STREAM_EVERY = max(0, int(stream_every))
+    if _STREAM_EVERY > 0:
+        path = (os.path.join(trace_dir, f"stream-rank{_RECORDER.rank}.jsonl")
+                if trace_dir else None)
+        stream.set_sink(stream.StreamSink(path=path, live=stream_live))
     if not _ATEXIT_REGISTERED:
         atexit.register(finalize)
         _ATEXIT_REGISTERED = True
@@ -74,13 +89,24 @@ def configure(trace_dir: Optional[str] = None,
 
 def configure_from_env() -> Optional[TraceRecorder]:
     """Configure from ``POISSON_TPU_TRACE_DIR`` / ``POISSON_TPU_METRICS_OUT``
-    (the JAX package's variables), for harnesses whose argv is spoken for.
-    No-op (returns None) when neither is set."""
+    / ``POISSON_TPU_STREAM_EVERY`` (the JAX package's variables), for
+    harnesses whose argv is spoken for. No-op (returns None) when none is
+    set."""
     trace_dir = os.environ.get("POISSON_TPU_TRACE_DIR") or None
     metrics_path = os.environ.get("POISSON_TPU_METRICS_OUT") or None
-    if not (trace_dir or metrics_path):
+    try:
+        every = int(os.environ.get("POISSON_TPU_STREAM_EVERY", "0"))
+    except ValueError:
+        every = 0
+    if not (trace_dir or metrics_path or every > 0):
         return None
-    return configure(trace_dir=trace_dir, metrics_path=metrics_path)
+    return configure(trace_dir=trace_dir, metrics_path=metrics_path,
+                     stream_every=every)
+
+
+def stream_every() -> int:
+    """The configured streaming stride (0 = off), for the solver calls."""
+    return _STREAM_EVERY
 
 
 def span(name: str, fence: bool = True, device=None, **args):
@@ -106,8 +132,11 @@ def recent_events() -> list:
 
 
 def finalize() -> None:
-    """Flush every artifact: the Chrome trace and the metrics
-    snapshot(s). Idempotent; safe with no configuration."""
+    """Flush every artifact: the Chrome trace, the metrics snapshot(s) and
+    the stream sink. Idempotent; safe with no configuration."""
+    sink = stream.get_sink()
+    if sink is not None:
+        sink.finish()
     rec = _RECORDER
     if rec is not None:
         rec.flush()
@@ -123,10 +152,12 @@ def finalize() -> None:
 def shutdown() -> None:
     """Finalize and tear down the configuration (tests; back-to-back runs
     in one process)."""
-    global _RECORDER, _METRICS_PATH
-    if _RECORDER is not None or _METRICS_PATH:
+    global _RECORDER, _METRICS_PATH, _STREAM_EVERY
+    if _RECORDER is not None or _METRICS_PATH or stream.get_sink():
         finalize()
     rec, _RECORDER = _RECORDER, None
     if rec is not None:
         rec.close()
+    stream.set_sink(None)
     _METRICS_PATH = None
+    _STREAM_EVERY = 0

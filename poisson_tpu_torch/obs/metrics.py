@@ -22,6 +22,13 @@ The names the port emits:
   ``checkpoint.crc_failures`` / ``checkpoint.generation_fallbacks`` /
   ``checkpoint.deadline_stops`` — the checkpoint layer
   (``solvers.checkpoint``);
+- ``resilient.restarts`` / ``resilient.escalations`` /
+  ``resilient.deadline_stops`` and ``integrity.checks`` /
+  ``integrity.detections`` / ``integrity.verified_restarts`` /
+  ``integrity.false_alarms`` — the self-healing solve
+  (``solvers.resilient``) and its integrity probe;
+- ``watchdog.beats`` / ``watchdog.stalls`` — the chunk-boundary watchdog
+  (``parallel.watchdog``);
 - ``batched.solves`` / ``batched.padding_members`` /
   ``batched.bucket_cache.hits`` / ``batched.bucket_cache.misses`` and the
   gauges ``batched.last_bucket`` / ``batched.solves_per_sec`` — the

@@ -45,9 +45,15 @@ buckets are their own family of keys, as in the JAX package. As there,
 MG does not co-batch per-member ``geometries`` and has no ``mesh=``
 program.
 
+``verify_every`` > 0 arms the integrity probe per member
+(``poisson_tpu_torch.integrity``): every member checks the true residual
+against its own right-hand side, so a corrupted member stops alone with
+FLAG_INTEGRITY and its batchmates run on untouched. As in the JAX package,
+the probe has no ``mesh=`` program, and ``solve_batched`` takes no
+``stream_every`` (streaming is per-solve telemetry).
+
 Not ported yet, refused with the ROADMAP item that ports them:
-per-member ``geometries`` (Queue 1 item 6), ``verify_every`` > 0 (item 7)
-and ``mode="block"`` (item 9).
+per-member ``geometries`` (Queue 1 item 6) and ``mode="block"`` (item 9).
 """
 
 from __future__ import annotations
@@ -74,8 +80,10 @@ from poisson_tpu_torch.solvers.pcg import (
     host_fields64,
     init_state,
     make_pcg_body,
+    not_ported,
     resolve_dtype,
     resolve_scaled,
+    resolve_verify_tol,
     solve_setup,
 )
 from poisson_tpu_torch.utils.platform import resolve_device
@@ -88,19 +96,6 @@ DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 # jit cache ((bucket, problem with f_val=1, dtype, scaled[, mesh])), so
 # the hit and miss counters follow a call sequence as JAX's do.
 _TRACED: set = set()
-
-# What each refused option waits for (ROADMAP Queue 1).
-_NOT_PORTED = {
-    "geometries": "per-member geometries (ROADMAP Queue 1 item 6)",
-    "verify_every": "the in-loop integrity probe, verify_every > 0 "
-                    "(ROADMAP Queue 1 item 7)",
-    "block": "mode='block', block CG (ROADMAP Queue 1 item 9)",
-}
-
-
-def not_ported(what: str) -> ValueError:
-    return ValueError(f"{_NOT_PORTED[what]} is not ported yet")
-
 
 def reset_bucket_cache() -> None:
     """Forget which bucket shapes this process has run (pair it with
@@ -121,14 +116,20 @@ def bucket_size(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
 def pcg_loop_batched(ops: PCGOps, rhs_stack, *, delta: float, max_iter: int,
                      weighted_norm: bool, h1: float, h2: float,
                      stagnation_window: int = 0,
-                     check_every: int = CHECK_EVERY) -> PCGState:
+                     check_every: int = CHECK_EVERY, verify_every: int = 0,
+                     verify_tol: float = 0.0,
+                     preconditioner: str = "jacobi") -> PCGState:
     """Run the shared PCG body over a (B, M+1, N+1) stack until every
     member is done or at the cap. ``ops`` must be a batched bundle (sums as
     (B, 1, 1) member scalars). Every member starts at k = 0 and ``drive``
     runs at most ``max_iter`` steps, so no member passes the cap; a done
-    member is frozen by the body."""
+    member is frozen by the body. ``verify_every`` > 0 arms the integrity
+    probe per member."""
     body = make_pcg_body(ops, delta=delta, weighted_norm=weighted_norm,
-                         h1=h1, h2=h2, stagnation_window=stagnation_window)
+                         h1=h1, h2=h2, stagnation_window=stagnation_window,
+                         verify_every=verify_every, verify_tol=verify_tol,
+                         verify_rhs=rhs_stack if verify_every else None,
+                         preconditioner=preconditioner)
     return drive(body, init_state(ops, rhs_stack), max_iter, check_every)
 
 
@@ -211,10 +212,13 @@ def _refuse_unported(geometries, verify_every, preconditioner, mode,
                 "geometries yet (each member would need its own level "
                 "hierarchy); dispatch geometry+MG requests solo via "
                 "pcg_solve(geometry=..., preconditioner='mg')")
+    if mesh is not None and int(verify_every) > 0:
+        raise ValueError(
+            "solve_batched(mesh=) does not trace the per-member "
+            "integrity probe yet; run verify_every=0 on the mesh "
+            "or verified buckets on a single device")
     if with_geometries:
         raise not_ported("geometries")
-    if int(verify_every) > 0:
-        raise not_ported("verify_every")
 
 
 def _member_ids(member_ids, batch: int) -> tuple:
@@ -262,8 +266,10 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
     ``parallel.mesh.Mesh``; one of the two). ``preconditioner="mg"`` (with
     ``mg_config``) runs every member with the V-cycle on one shared
     hierarchy; it takes no ``mesh`` and no ``geometries``, as in the JAX
-    package. ``geometries``, ``verify_every`` > 0 (and its
-    ``verify_tol``) and ``mode="block"`` are refused with the ROADMAP item
+    package. ``verify_every`` > 0 (with ``verify_tol``, default by dtype)
+    arms the integrity probe per member, on one device only; clean
+    verified members equal their unverified solves bit for bit.
+    ``geometries`` and ``mode="block"`` are refused with the ROADMAP item
     that ports them."""
     _refuse_unported(geometries, verify_every, preconditioner, mode, mesh)
     if mesh is not None and device is not None:
@@ -336,11 +342,17 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
         stack = torch.cat([stack, stack.new_zeros(
             (run - batch,) + tuple(stack.shape[1:]))])
 
+    verify_every = int(verify_every)
+    v_tol = (resolve_verify_tol(verify_tol, dtype_name)
+             if verify_every > 0 else 0.0)
     key = (size, jit_problem, dtype_name, use_scaled)
     if config is not None:
         # MG buckets are their own family, keyed with the cycle config.
         key += (("mg", config),)
         obs.inc("mg.solves", batch)
+    if verify_every > 0:
+        # The stride is part of the JAX package's executable identity.
+        key += (("verify", verify_every, v_tol),)
     if mesh is not None:
         from poisson_tpu_torch.parallel.pcg_sharded import (
             solve_batched_sharded,
@@ -355,7 +367,9 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
             setup.ops, stack, delta=problem.delta,
             max_iter=problem.iteration_cap,
             weighted_norm=problem.weighted_norm, h1=problem.h1,
-            h2=problem.h2, check_every=setup.check_every)
+            h2=problem.h2, check_every=setup.check_every,
+            verify_every=verify_every, verify_tol=v_tol,
+            preconditioner=setup.preconditioner)
         w = s.w * setup.aux if use_scaled else s.w
         result = batched_result(w, s)
     return sliced(result, batch, origin)

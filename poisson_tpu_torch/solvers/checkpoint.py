@@ -23,13 +23,19 @@ Hardening, as in the JAX package:
   for another problem;
 - a state whose verdict is FLAG_NONFINITE is never written.
 
+- a state whose verdict is FLAG_INTEGRITY (the integrity probe's) is never
+  written either: the CRC would seal its corrupt buffers.
+
 Telemetry, by the JAX package's names (``obs``): the counters
 ``checkpoint.writes``, ``checkpoint.corrupt``, ``checkpoint.crc_failures``,
 ``checkpoint.generation_fallbacks`` and ``checkpoint.deadline_stops``, an
-event beside each, and the ``checkpoint.write`` span around a write. Its
-residual-history tap and its ``Watchdog`` class are not ported yet; the
-``watchdog``, ``on_chunk`` and ``deadline`` hooks of :func:`run_chunked`
-take any object with the same methods.
+event beside each, and the ``checkpoint.write`` span around a write. The
+``watchdog`` hook of :func:`run_chunked` takes a
+``parallel.watchdog.Watchdog`` (or any object with its methods), and the
+chunked solves take the stream and the integrity probe
+(``stream_every``, ``verify_every``, ``verify_tol``). The JAX module's
+residual-history tap (``history=``, ``obs/forecast``) is not ported
+(ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from poisson_tpu_torch.mg.preconditioner import mg_solve_setup
 from poisson_tpu_torch.solvers.pcg import (
     FLAG_CONVERGED,
     FLAG_DEADLINE,
+    FLAG_INTEGRITY,
     FLAG_NONE,
     FLAG_NONFINITE,
     PCGResult,
@@ -57,6 +64,7 @@ from poisson_tpu_torch.solvers.pcg import (
     drive,
     init_state,
     make_pcg_body,
+    resolve_verify_tol,
     solve_setup,
 )
 
@@ -143,8 +151,10 @@ def run_chunked(state, *, advance, to_portable, path: Optional[str],
             chunks_done += 1
             if watchdog is not None:
                 watchdog.beat(k=int(state.k), diff=float(state.diff))
-            if _state_flag(state) == FLAG_NONFINITE:
-                break   # never overwrite the last good generation with NaNs
+            if _state_flag(state) in (FLAG_NONFINITE, FLAG_INTEGRITY):
+                # Never overwrite the last good generation with NaNs or
+                # with silently corrupted buffers.
+                break
             if _converged(state) and not keep_checkpoint:
                 break   # the file would be removed below: skip the write
             if path:
@@ -334,11 +344,17 @@ def _deadline_flag(state, deadline):
 
 def _chunked(problem: Problem, chunk: int, dtype, scaled, device,
              check_every: Optional[int], stagnation_window: int,
-             preconditioner: str = "jacobi", mg_config=None):
-    """(setup, advance, init) of the plain solve's chunk loop: a chunk runs
-    min(chunk, cap − k) steps of the body, which freezes a done state.
-    With ``preconditioner="mg"`` the body carries the V-cycle, and one
-    call counts one ``mg.solves``."""
+             preconditioner: str = "jacobi", mg_config=None,
+             stream_every: int = 0, verify_every: int = 0,
+             verify_tol=None):
+    """(setup, advance, init) of the plain solve's chunk loop, the seam of
+    every chunked driver (JAX's ``_chunk_ops_advance``): a chunk runs
+    min(chunk, cap − k) steps of the body, which freezes a done state. With
+    ``preconditioner="mg"`` the body carries the V-cycle. ``stream_every``
+    streams from the body; ``verify_every`` arms the integrity probe with
+    ``verify_tol`` (None: the dtype's default), and only then does the
+    body read the RHS. ``init`` builds the start state, so that the
+    resilient driver can rebuild a rung."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     config = mg_config_for(problem, preconditioner, mg_config)
@@ -346,10 +362,16 @@ def _chunked(problem: Problem, chunk: int, dtype, scaled, device,
         setup = solve_setup(problem, dtype, scaled, device)
     else:
         setup = mg_solve_setup(problem, dtype, scaled, device, config=config)
-        obs.inc("mg.solves")
+    verify_every = int(verify_every)
+    tol = (resolve_verify_tol(verify_tol, setup.dtype_name)
+           if verify_every > 0 else 0.0)
     body = make_pcg_body(setup.ops, delta=problem.delta,
                          weighted_norm=problem.weighted_norm, h1=problem.h1,
-                         h2=problem.h2, stagnation_window=stagnation_window)
+                         h2=problem.h2, stagnation_window=stagnation_window,
+                         stream_every=int(stream_every),
+                         verify_every=verify_every, verify_tol=tol,
+                         verify_rhs=setup.rhs if verify_every > 0 else None,
+                         preconditioner=setup.preconditioner)
     cap = problem.iteration_cap
     if check_every is None:
         check_every = setup.check_every
@@ -372,17 +394,24 @@ def pcg_solve_checkpointed(problem: Problem, checkpoint_path: str,
                            on_chunk=None, deadline=None, device=None,
                            check_every: Optional[int] = None,
                            preconditioner: str = "jacobi",
-                           mg_config=None) -> PCGResult:
+                           mg_config=None, stream_every: int = 0,
+                           verify_every: int = 0,
+                           verify_tol=None) -> PCGResult:
     """The plain solve (``solvers.pcg``) with its state written every
     ``chunk`` iterations and resumed from ``checkpoint_path`` when a
     trustworthy file for this problem exists. Converged runs remove their
     files unless ``keep_checkpoint``; a cap-hit or a divergence keeps them.
     The chunked solve equals the one-shot ``pcg_solve`` bit for bit, with
     either ``preconditioner`` (an MG file carries the cycle config in its
-    fingerprint, so it never resumes under Jacobi, nor the reverse)."""
+    fingerprint, so it never resumes under Jacobi, nor the reverse).
+    ``stream_every``, ``verify_every`` and ``verify_tol`` are
+    ``pcg_solve``'s; a FLAG_INTEGRITY stop is never persisted."""
     setup, advance, init = _chunked(problem, chunk, dtype, scaled, device,
                                     check_every, stagnation_window,
-                                    preconditioner, mg_config)
+                                    preconditioner, mg_config, stream_every,
+                                    verify_every, verify_tol)
+    if setup.preconditioner != "jacobi":
+        obs.inc("mg.solves")    # one driver call is one MG solve
     fp = _fingerprint(problem, setup.dtype_name, setup.scaled,
                       preconditioner, mg_config)
     saved = load_state(checkpoint_path, fp, keep_last=keep_last)
@@ -402,15 +431,20 @@ def pcg_solve_chunked(problem: Problem, chunk: int = 100, dtype=None,
                       scaled=None, stagnation_window: int = 0,
                       watchdog=None, on_chunk=None, deadline=None,
                       device=None, check_every: Optional[int] = None,
-                      preconditioner: str = "jacobi", mg_config=None
-                      ) -> PCGResult:
+                      preconditioner: str = "jacobi", mg_config=None,
+                      stream_every: int = 0, verify_every: int = 0,
+                      verify_tol=None) -> PCGResult:
     """The same chunk loop without persistence: a solve that can be
     stopped at a chunk boundary by its ``deadline`` (FLAG_DEADLINE on the
     result), with the one-shot iterates when it converges (either
-    ``preconditioner``)."""
+    ``preconditioner``). ``stream_every``, ``verify_every`` and
+    ``verify_tol`` are ``pcg_solve``'s."""
     setup, advance, init = _chunked(problem, chunk, dtype, scaled, device,
                                     check_every, stagnation_window,
-                                    preconditioner, mg_config)
+                                    preconditioner, mg_config, stream_every,
+                                    verify_every, verify_tol)
+    if setup.preconditioner != "jacobi":
+        obs.inc("mg.solves")    # one driver call is one MG solve
     state = run_chunked(
         init(), advance=advance, to_portable=lambda s: s, path=None,
         fingerprint="", cap=problem.iteration_cap, keep_checkpoint=False,

@@ -29,8 +29,13 @@ on one shared hierarchy (``poisson_tpu_torch.mg``); a spliced member is
 the MG solve's ``init_state``, so it still equals its solo solve. As in
 the JAX package, MG lanes carry no per-lane geometries.
 
-Not ported yet, refused with their ROADMAP items: ``multi_geometry``
-(Queue 1 item 6) and ``verify_every`` > 0 (item 7).
+``verify_every`` > 0 arms the integrity probe per lane: a verified table
+carries each lane's own right-hand side beside the state (written at
+splice), so a flipped bit in one lane stops that lane alone with
+FLAG_INTEGRITY (``testing.faults.bitflip_lane`` is the drill).
+
+Not ported yet, refused with its ROADMAP item: ``multi_geometry`` (Queue 1
+item 6).
 """
 
 from __future__ import annotations
@@ -48,7 +53,6 @@ from poisson_tpu_torch.mg.hierarchy import (
 from poisson_tpu_torch.mg.preconditioner import mg_solve_setup
 from poisson_tpu_torch.solvers.batched import (
     member_rhs,
-    not_ported,
     step_members,
 )
 from poisson_tpu_torch.solvers.pcg import (
@@ -57,6 +61,8 @@ from poisson_tpu_torch.solvers.pcg import (
     gate_rhs,
     init_state,
     make_pcg_body,
+    not_ported,
+    resolve_verify_tol,
     solve_setup,
 )
 
@@ -88,8 +94,9 @@ class LaneBatch:
     takes the attributed result out and empties the lane. The caller owns
     the schedule; any interleaving keeps identities and trajectories.
     ``preconditioner="mg"`` (with ``mg_config``) runs the V-cycle in every
-    lane. ``multi_geometry`` and ``verify_every`` > 0 (``verify_tol``) are
-    refused with their ROADMAP items."""
+    lane; ``verify_every`` > 0 (``verify_tol``, default by dtype) arms the
+    per-lane integrity probe. ``multi_geometry`` is refused with its
+    ROADMAP item."""
 
     def __init__(self, problem: Problem, bucket: int, *, dtype=None,
                  scaled=None, chunk: int = 50, multi_geometry: bool = False,
@@ -107,8 +114,6 @@ class LaneBatch:
                 "geometry+MG requests solo")
         if multi_geometry:
             raise not_ported("geometries")
-        if int(verify_every) > 0:
-            raise not_ported("verify_every")
         self._mg_config = mg_config_for(problem, preconditioner, mg_config)
         self.problem = problem
         self.bucket = int(bucket)
@@ -126,14 +131,22 @@ class LaneBatch:
         self._check_every = setup.check_every
         self._rhs = member_rhs(problem, problem.f_val, setup.scaled,
                                setup.rhs.dtype, self.device)
-        self._body = make_pcg_body(
-            self._ops, delta=problem.delta,
-            weighted_norm=problem.weighted_norm, h1=problem.h1,
-            h2=problem.h2)
         # Every lane starts EMPTY: a zero member, stopped. Each field gets
         # its own storage (init_state aliases p with z and r with the
         # rhs), so a slot write touches one field only.
         zeros = self._rhs.new_zeros((self.bucket,) + problem.grid_shape)
+        # A verified table keeps each lane's own RHS (EMPTY lanes: zero),
+        # which the probe reads; unverified, nothing is kept.
+        self.verify_every = int(verify_every)
+        self.verify_tol = (resolve_verify_tol(verify_tol, self.dtype_name)
+                           if self.verify_every > 0 else 0.0)
+        self._rhs_stack = zeros.clone() if self.verify_every > 0 else None
+        self._body = make_pcg_body(
+            self._ops, delta=problem.delta,
+            weighted_norm=problem.weighted_norm, h1=problem.h1,
+            h2=problem.h2, verify_every=self.verify_every,
+            verify_tol=self.verify_tol, verify_rhs=self._rhs_stack,
+            preconditioner=setup.preconditioner)
         init = init_state(self._ops, zeros)
         self.state = PCGState(*(f.clone() for f in init._replace(
             done=torch.ones_like(init.done))))
@@ -185,6 +198,8 @@ class LaneBatch:
         if self._mg_config is not None:
             obs.inc("mg.solves")     # a lane splice is one MG solve
         self._write(lane, PCGState(*(f[0] for f in member)))
+        if self._rhs_stack is not None:
+            self._rhs_stack[lane].copy_(rhs)
         self.origin[lane] = member_id
         return lane
 

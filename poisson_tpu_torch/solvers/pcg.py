@@ -27,6 +27,11 @@ scalars are (B, 1, 1) member scalars that broadcast over the (B, M+1, N+1)
 fields, and each member's sums are its own solve's ``torch.sum`` calls
 (``ops.stencil.member_sums``), so member i of a batch equals its own solve
 bit for bit.
+
+The integrity probe (``verify_every``, ``poisson_tpu_torch.integrity``) and
+the streamed convergence samples (``stream_every``, ``obs.stream``) ride the
+same body (:func:`make_pcg_member_body`); at 0, the default, each adds no
+operation.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ FLAG_BREAKDOWN = 2   # |(Ap, p)| below the degenerate-direction guard
 FLAG_NONFINITE = 3   # NaN/Inf reached the residual or update norm
 FLAG_STAGNATED = 4   # no best-‖Δw‖ improvement for a full stagnation window
 FLAG_DEADLINE = 5    # a chunked solve's deadline expired (result only)
+FLAG_INTEGRITY = 6   # the integrity probe found silent corruption
 
 FLAG_NAMES = {
     FLAG_NONE: "running",
@@ -71,7 +77,21 @@ FLAG_NAMES = {
     FLAG_NONFINITE: "nonfinite",
     FLAG_STAGNATED: "stagnated",
     FLAG_DEADLINE: "deadline",
+    FLAG_INTEGRITY: "integrity",
 }
+
+# What each refused option waits for (ROADMAP Queue 1).
+_NOT_PORTED = {
+    "geometries": "per-member geometries (ROADMAP Queue 1 item 6)",
+    "geometry": "geometry= (ROADMAP Queue 1 item 6)",
+    "history_every": "history_every, the forecast history tap "
+                     "(ROADMAP Queue 1 item 11)",
+    "block": "mode='block', block CG (ROADMAP Queue 1 item 9)",
+}
+
+
+def not_ported(what: str) -> ValueError:
+    return ValueError(f"{_NOT_PORTED[what]} is not ported yet")
 
 
 def _unchanged(p):
@@ -123,6 +143,10 @@ class PCGResult(NamedTuple):
     flag: int | torch.Tensor = FLAG_NONE  # termination verdict (FLAG_*)
     max_iterations: object = None   # batched only: max over the members
     origin: object = None           # batched only: member ids, in order
+    # Recovery provenance, set by the resilient driver only: attempts
+    # taken and the ((iteration, verdict, action), …) history.
+    restarts: object = None
+    recovery_history: tuple = ()
 
 
 def iterations_scalar(iterations) -> int:
@@ -151,12 +175,15 @@ def drive(step, s, cap: int, check_every: int = CHECK_EVERY):
     when every member is."""
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
+    flush = getattr(step, "flush", None)   # a streaming body's tap
     ran = 0
     while ran < cap:
         n = min(check_every, cap - ran)
         for _ in range(n):
             s = step(s)
         ran += n
+        if flush is not None:
+            flush()
         if bool(torch.all(s.done)):
             break
     return s
@@ -181,18 +208,77 @@ def init_state(ops: PCGOps, rhs) -> PCGState:
     )
 
 
-def make_pcg_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
-                  h1: float, h2: float, stagnation_window: int = 0):
-    """One PCG iteration as a state→state function, with the JAX body's
-    in-loop verdicts (``poisson_tpu/solvers/pcg.py:268-395``): NaN/Inf in
-    the scalars sets FLAG_NONFINITE, the degenerate-direction break
+def restart_state(ops: PCGOps, rhs, w) -> PCGState:
+    """A fresh CG start from the iterate ``w``: r = B − Aw, z = M⁻¹r, p = z
+    (the resilient driver's restart; the Krylov history is dropped, the
+    solution kept). Built directly, not from :func:`init_state`, so that an
+    MG restart runs one V-cycle, not two."""
+    r = rhs - ops.apply_A(ops.exchange(w))
+    z = ops.apply_Dinv(r)
+    zr = ops.dot(z, r)
+    shape, device = tuple(zr.shape), zr.device
+    count = dict(dtype=torch.int32, device=device)
+    inf = torch.full(shape, float("inf"), dtype=zr.dtype, device=device)
+    return PCGState(
+        k=torch.zeros(shape, **count),
+        done=torch.zeros(shape, dtype=torch.bool, device=device),
+        w=w, r=r, z=z, p=z, zr=zr, diff=inf,
+        flag=torch.full(shape, FLAG_NONE, **count),
+        best=inf.clone(), stall=torch.zeros(shape, **count),
+    )
+
+
+def make_pcg_member_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
+                         h1: float, h2: float, stagnation_window: int = 0,
+                         stream_every: int = 0, verify_every: int = 0,
+                         verify_tol: float = 0.0,
+                         verify_jump: Optional[float] = None,
+                         verify_colsum=None,
+                         preconditioner: str = "jacobi"):
+    """One PCG iteration as ``body(state, rhs) -> state`` with the JAX
+    body's in-loop verdicts (``poisson_tpu/solvers/pcg.py:220-397``): NaN/Inf
+    in the scalars sets FLAG_NONFINITE, the degenerate-direction break
     FLAG_BREAKDOWN (state kept), and — when ``stagnation_window`` > 0 — that
-    many iterations without a new best ‖Δw‖ set FLAG_STAGNATED.
+    many iterations without a new best ‖Δw‖ set FLAG_STAGNATED. The second
+    argument is read only when ``verify_every`` > 0: it is the RHS the
+    integrity probe checks the true residual against (a (B, M+1, N+1) stack
+    with a batched bundle, so each member checks its own).
+
+    ``verify_every`` > 0 arms the probe (``poisson_tpu_torch.integrity``)
+    with JAX's verdict: the drift check on iterations where (k+1) is a
+    multiple of ``verify_every`` and on every convergence event (with the
+    ABFT identity when ``verify_colsum`` is given), and the jump and
+    collapse guards (``preconditioner``-calibrated ratios) on every
+    iteration; a corrupt verdict sets FLAG_INTEGRITY and keeps the
+    pre-step ``best``. Flags rank nonfinite > integrity > converged >
+    stagnated. The drift check is computed on every iteration and selected
+    where due, which keeps the host out of the loop; it only reads, so a
+    clean verified solve equals the unverified one bit for bit.
+
+    ``stream_every`` > 0 stages (k, ‖Δw‖) for ``obs.stream`` (the body's
+    ``flush`` emits them, see :func:`drive`). With both at 0 the body runs
+    exactly the operations of the plain iteration.
 
     A state that is already done passes through unchanged, count included,
     so the loop may run past the stop (see :func:`drive`)."""
+    if verify_every > 0:
+        from poisson_tpu_torch.integrity.probe import (
+            abft_drift_exceeds,
+            default_verify_collapse,
+            default_verify_jump,
+            drift_exceeds,
+        )
 
-    def body(s: PCGState) -> PCGState:
+        if verify_jump is None:
+            verify_jump = default_verify_jump(preconditioner)
+        verify_collapse = default_verify_collapse(preconditioner)
+    tap = None
+    if stream_every > 0:
+        from poisson_tpu_torch.obs.stream import StreamTap
+
+        tap = StreamTap(stream_every)
+
+    def body(s: PCGState, vrhs=None) -> PCGState:
         p = ops.exchange(s.p)
         Ap = ops.apply_A(p)
         denom = ops.dot(Ap, p)
@@ -219,17 +305,47 @@ def make_pcg_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
             stagnated = (~converged) & (stall_new >= stagnation_window)
         else:
             stagnated = torch.zeros_like(converged)
-        flag = torch.where(
-            nonfinite, FLAG_NONFINITE,
-            torch.where(converged, FLAG_CONVERGED,
-                        torch.where(stagnated, FLAG_STAGNATED, FLAG_NONE)),
-        ).to(torch.int32)
-        stop = degenerate | converged | nonfinite | stagnated
+        if verify_every > 0:
+            due = (((s.k + 1) % verify_every) == 0) | converged
+            bad = drift_exceeds(ops, w_new, r_new, vrhs, verify_tol)
+            if verify_colsum is not None:
+                bad = bad | abft_drift_exceeds(verify_colsum, p, Ap,
+                                               verify_tol)
+            # The jump guard (a convergence whose previous best sat far
+            # above this step's ‖Δw‖) and the collapse guard (a one-step
+            # drop without converging): the flipped-direction faces the
+            # drift check cannot see. isfinite exempts the first step
+            # after an init or restart.
+            suspicious = (converged & torch.isfinite(s.best)
+                          & (s.best > verify_jump * diff))
+            collapsed = ((~converged) & torch.isfinite(s.diff)
+                         & (s.diff > verify_collapse * diff))
+            corrupt = ((due & bad) | suspicious | collapsed) & ~nonfinite
+            best_new = torch.where(corrupt, s.best, best_new)
+            flag = torch.where(
+                nonfinite, FLAG_NONFINITE,
+                torch.where(corrupt, FLAG_INTEGRITY,
+                            torch.where(converged, FLAG_CONVERGED,
+                                        torch.where(stagnated,
+                                                    FLAG_STAGNATED,
+                                                    FLAG_NONE))),
+            ).to(torch.int32)
+            stop = degenerate | converged | nonfinite | stagnated | corrupt
+        else:
+            flag = torch.where(
+                nonfinite, FLAG_NONFINITE,
+                torch.where(converged, FLAG_CONVERGED,
+                            torch.where(stagnated, FLAG_STAGNATED,
+                                        FLAG_NONE)),
+            ).to(torch.int32)
+            stop = degenerate | converged | nonfinite | stagnated
 
         # Degenerate break happens before any update (stage2:…cpp:410-415):
         # keep the old state, counting the iteration. Convergence keeps this
         # iteration's updates. A done state keeps everything.
         k = s.k + (~s.done).to(torch.int32)
+        if tap is not None:
+            tap.record(s.k, k, diff)
         done = s.done | stop
         flag = torch.where(
             s.done, s.flag,
@@ -241,18 +357,66 @@ def make_pcg_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
         kept = s._replace(k=k, done=done, flag=flag)
         return _select(s.done | degenerate, kept, candidate)
 
+    if tap is not None:
+        body.flush = tap.flush
+    return body
+
+
+def make_pcg_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
+                  h1: float, h2: float, stagnation_window: int = 0,
+                  stream_every: int = 0, verify_every: int = 0,
+                  verify_tol: float = 0.0,
+                  verify_jump: Optional[float] = None,
+                  verify_rhs=None, verify_colsum=None,
+                  preconditioner: str = "jacobi"):
+    """One PCG iteration as a state→state function: the member body of
+    :func:`make_pcg_member_body`, with the probe (``verify_every`` > 0)
+    checking ``verify_rhs``."""
+    if verify_every > 0 and verify_rhs is None:
+        raise ValueError(
+            "verify_every > 0 needs verify_rhs — the in-loop integrity "
+            "probe recomputes the true residual b - Aw against it")
+    member = make_pcg_member_body(
+        ops, delta=delta, weighted_norm=weighted_norm, h1=h1, h2=h2,
+        stagnation_window=stagnation_window, stream_every=stream_every,
+        verify_every=verify_every, verify_tol=verify_tol,
+        verify_jump=verify_jump, verify_colsum=verify_colsum,
+        preconditioner=preconditioner)
+    if verify_every == 0:
+        return member     # vrhs defaults to None and is never read
+
+    def body(s: PCGState) -> PCGState:
+        return member(s, verify_rhs)
+
+    if hasattr(member, "flush"):
+        body.flush = member.flush
     return body
 
 
 def pcg_loop(ops: PCGOps, rhs, *, delta: float, max_iter: int,
              weighted_norm: bool, h1: float, h2: float,
              stagnation_window: int = 0,
-             check_every: int = CHECK_EVERY) -> PCGState:
+             check_every: int = CHECK_EVERY, stream_every: int = 0,
+             verify_every: int = 0, verify_tol: float = 0.0,
+             verify_abft: bool = False,
+             preconditioner: str = "jacobi") -> PCGState:
     """Run the PCG iteration to convergence. The body freezes a done state,
     so the iterations :func:`drive` runs between two reads of ``done``
-    leave the result and the count untouched."""
-    body = make_pcg_body(ops, delta=delta, weighted_norm=weighted_norm,
-                         h1=h1, h2=h2, stagnation_window=stagnation_window)
+    leave the result and the count untouched. ``verify_every`` /
+    ``verify_tol`` arm the integrity probe against this solve's own RHS;
+    ``verify_abft`` adds the ABFT identity (its column sums computed once
+    here)."""
+    colsum = None
+    if verify_every > 0 and verify_abft:
+        from poisson_tpu_torch.integrity.probe import abft_colsum
+
+        colsum = abft_colsum(ops, rhs)
+    body = make_pcg_body(
+        ops, delta=delta, weighted_norm=weighted_norm, h1=h1, h2=h2,
+        stagnation_window=stagnation_window, stream_every=stream_every,
+        verify_every=verify_every, verify_tol=verify_tol,
+        verify_rhs=(rhs if verify_every > 0 else None),
+        verify_colsum=colsum, preconditioner=preconditioner)
     return drive(body, init_state(ops, rhs), max_iter, check_every)
 
 
@@ -355,9 +519,21 @@ def resolve_scaled(scaled, dtype_name: str) -> bool:
     return bool(scaled)
 
 
+def resolve_verify_tol(verify_tol, dtype_name: str) -> float:
+    """The probe's relative drift tolerance: the caller's, else the
+    dtype-aware default (``integrity.probe.default_verify_tol``)."""
+    if verify_tol is not None:
+        return float(verify_tol)
+    from poisson_tpu_torch.integrity.probe import default_verify_tol
+
+    return default_verify_tol(dtype_name)
+
+
 class SolveSetup(NamedTuple):
-    """The plain solve's operands on one device, and how often its loop
-    reads ``done`` (``mg.preconditioner`` reads it every iteration)."""
+    """The plain solve's operands on one device, how often its loop reads
+    ``done`` (``mg.preconditioner`` reads it every iteration), and the
+    preconditioner its ``apply_Dinv`` applies (it picks the integrity
+    probe's guard ratios)."""
 
     ops: PCGOps
     rhs: torch.Tensor
@@ -365,6 +541,7 @@ class SolveSetup(NamedTuple):
     dtype_name: str
     scaled: bool
     check_every: int = CHECK_EVERY
+    preconditioner: str = "jacobi"
 
 
 def solve_setup(problem: Problem, dtype=None, scaled=None,
@@ -396,7 +573,10 @@ def gate_rhs(rhs: torch.Tensor, rhs_gate) -> torch.Tensor:
 
 def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
               check_every: Optional[int] = None, rhs_gate=None,
-              preconditioner: str = "jacobi", mg_config=None) -> PCGResult:
+              preconditioner: str = "jacobi", mg_config=None,
+              stream_every: int = 0, verify_every: int = 0,
+              verify_tol=None, verify_abft: bool = False,
+              geometry=None, history_every: int = 0) -> PCGResult:
     """Single-device plain solve. ``device`` defaults to ``cuda`` (raises
     without a card); setup runs on the host in fp64 and is cast once.
     ``rhs_gate``, if given, is a scalar the RHS is multiplied by (in the
@@ -409,9 +589,23 @@ def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
     ``mg.validate_mg_problem``), tuned by ``mg_config`` (an
     ``mg.MGConfig``; None for the defaults). ``check_every`` (see
     :func:`drive`) defaults to the setup's: CHECK_EVERY for Jacobi, 1 for
-    MG, whose few iterations are each dear."""
+    MG, whose few iterations are each dear.
+
+    ``stream_every`` > 0 streams (k, ‖Δw‖) to the ``obs.stream`` sink every
+    that many iterations. ``verify_every`` > 0 arms the in-loop integrity
+    probe (``poisson_tpu_torch.integrity``; see
+    :func:`make_pcg_member_body`): a detected corruption stops the solve
+    with FLAG_INTEGRITY. ``verify_tol`` defaults by dtype;
+    ``verify_abft`` adds the checksum-row identity (Jacobi only, as in the
+    JAX package). At 0 each is off and the loop is the plain one.
+    ``geometry=`` and ``history_every`` are refused with the ROADMAP items
+    that port them."""
     from poisson_tpu_torch.mg.hierarchy import mg_config_for
 
+    if geometry is not None:
+        raise not_ported("geometry")
+    if int(history_every) > 0:
+        raise not_ported("history_every")
     config = mg_config_for(problem, preconditioner, mg_config)
     if config is None:
         setup = solve_setup(problem, dtype, scaled, device)
@@ -419,15 +613,26 @@ def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
         from poisson_tpu_torch import obs
         from poisson_tpu_torch.mg.preconditioner import mg_solve_setup
 
+        if verify_abft:
+            raise ValueError(
+                "verify_abft is wired for the jacobi path only; drop it "
+                "or use preconditioner='jacobi'")
         setup = mg_solve_setup(problem, dtype, scaled, device, config=config)
         obs.inc("mg.solves")
+    verify_every = int(verify_every)
+    tol = (resolve_verify_tol(verify_tol, setup.dtype_name)
+           if verify_every > 0 else 0.0)
     rhs = setup.rhs if rhs_gate is None else gate_rhs(setup.rhs, rhs_gate)
     s = pcg_loop(setup.ops, rhs, delta=problem.delta,
                  max_iter=problem.iteration_cap,
                  weighted_norm=problem.weighted_norm,
                  h1=problem.h1, h2=problem.h2,
                  check_every=(setup.check_every if check_every is None
-                              else check_every))
+                              else check_every),
+                 stream_every=int(stream_every), verify_every=verify_every,
+                 verify_tol=tol,
+                 verify_abft=bool(verify_abft and verify_every > 0),
+                 preconditioner=setup.preconditioner)
     w = s.w * setup.aux if setup.scaled else s.w
     return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.zr,
                      flag=s.flag)

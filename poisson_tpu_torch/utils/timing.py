@@ -143,6 +143,10 @@ class SolveReport:
     # Host seconds of an MG solve's level hierarchy, built before the first
     # solve and in neither solve time.
     hierarchy_seconds: Optional[float] = None
+    # Recovery provenance of a resilient solve (the JAX report's fields):
+    # attempts taken and the (iteration, verdict, action) history.
+    restarts: Optional[int] = None
+    recovery: Optional[tuple] = None
 
     def json_line(self) -> str:
         return json.dumps(dataclasses.asdict(self))
@@ -167,6 +171,12 @@ class SolveReport:
         if self.hierarchy_seconds is not None:
             rows.append(f"  MG hierarchy build: {self.hierarchy_seconds:.2f} s "
                         "(host, before the first solve)")
+        if self.restarts:
+            detail = "; ".join(
+                f"iter {k}: {verdict} -> {action}"
+                for k, verdict, action in (self.recovery or ()))
+            rows.append(f"  recovered: {self.restarts} restart(s)"
+                        + (f" ({detail})" if detail else ""))
         if self.stopped is not None:
             rows.append(f"  WARNING: solve stopped without converging "
                         f"({self.stopped})")

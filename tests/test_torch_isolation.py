@@ -29,9 +29,11 @@ from poisson_tpu_torch.solvers import (
     batched,
     batched_selfcheck,
     checkpoint,
+    history,
     lanes,
     pcg,
     refine,
+    resilient,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -98,7 +100,10 @@ def test_no_module_imports_jax_or_the_reference():
                  "parallel.checkpoint_sharded", "obs", "obs.metrics",
                  "obs.trace", "solvers.batched", "solvers.lanes",
                  "solvers.batched_selfcheck", "mg", "mg.hierarchy",
-                 "mg.cycle", "mg.preconditioner", "mg.selfcheck"):
+                 "mg.cycle", "mg.preconditioner", "mg.selfcheck",
+                 "integrity", "integrity.probe", "testing",
+                 "testing.faults", "solvers.resilient", "solvers.history",
+                 "parallel.watchdog", "obs.stream"):
         assert f"poisson_tpu_torch.{name}" in modules
 
 
@@ -136,6 +141,13 @@ def test_no_module_imports_jax_or_the_reference():
     lambda: mg_hierarchy.device_hierarchy(Problem(M=20, N=20), "float32",
                                           True),
     lambda: mg_selfcheck.run_selfcheck(),
+    lambda: resilient.pcg_solve_resilient(Problem(M=10, N=10)),
+    lambda: history.pcg_solve_history(Problem(M=10, N=10), 5),
+    lambda: pcg.pcg_solve(Problem(M=10, N=10), verify_every=5,
+                          stream_every=5),
+    lambda: batched.solve_batched(Problem(M=10, N=10), rhs_gates=[1.0],
+                                  verify_every=5),
+    lambda: lanes.LaneBatch(Problem(M=10, N=10), 2, verify_every=5),
 ], ids=["fused_cg_solve", "pcg_solve", "build_canvases", "resident_cg_solve",
         "ca_cg_solve", "refined_solve", "make_solver_mesh",
         "fused_cg_solve_sharded", "ca_cg_solve_sharded",
@@ -146,7 +158,9 @@ def test_no_module_imports_jax_or_the_reference():
         "ca_cg_solve_sharded_checkpointed", "solve_batched", "LaneBatch",
         "batched_selfcheck", "pcg_solve_mg", "solve_batched_mg",
         "LaneBatch_mg", "pcg_solve_chunked_mg", "device_hierarchy",
-        "mg_selfcheck"])
+        "mg_selfcheck", "pcg_solve_resilient", "pcg_solve_history",
+        "pcg_solve_verified", "solve_batched_verified",
+        "LaneBatch_verified"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

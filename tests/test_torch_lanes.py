@@ -214,8 +214,10 @@ def test_state_carried_across_packages_finishes_with_the_same_counts(dtype):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(multi_geometry=True), "item 6"),
-    (dict(verify_every=5), "item 7"),
-    (dict(preconditioner="mg", verify_every=5), "item 7"),
+    # The probe is ported: a verified table still refuses what waits.
+    (dict(verify_every=5, multi_geometry=True), "item 6"),
+    (dict(preconditioner="mg", verify_every=5, multi_geometry=True),
+     "geometries"),
 ], ids=["multi_geometry", "verify_every", "mg"])
 def test_unported_options_are_refused_with_their_item(kwargs, item):
     with pytest.raises(ValueError, match=item):

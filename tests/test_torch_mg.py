@@ -388,7 +388,9 @@ def test_batched_mg_forms_equal_the_solo_solves(form):
 @pytest.mark.parametrize("kwargs,message", [
     (dict(mesh="2x2"), "dispatch MG batches on a single device"),
     (dict(geometries=[{"kind": "ellipse"}]), "co-batch"),
-    (dict(verify_every=5), "item 7"),
+    # MG verifies on one device (the probe is ported), not on a mesh.
+    (dict(verify_every=5, mesh="2x2"),
+     "dispatch MG batches on a single device"),
 ], ids=["mesh", "geometries", "verify_every"])
 def test_batched_mg_refuses_where_jax_refuses(kwargs, message):
     if kwargs.get("mesh"):

@@ -307,3 +307,123 @@ def test_cli_report_counters_and_events_match_jax(tmp_path):
         for reader in (metrics, jax_metrics):
             merged = reader.load_dir(str(tmp_path / tag))
             assert merged["counters"]["pcg.solves.converged"] == 1
+
+
+# -- streamed convergence (obs.stream) ------------------------------------
+
+
+def _jax_stream(run):
+    from poisson_tpu.obs import stream as jax_stream
+
+    sink = jax_stream.StreamSink()
+    jax_stream.set_sink(sink)
+    try:
+        res = run()
+        jax_stream.drain()
+    finally:
+        jax_stream.set_sink(None)
+    return res, sink.samples
+
+
+def _port_stream(run):
+    sink = obs.stream.StreamSink()
+    obs.stream.set_sink(sink)
+    try:
+        res = run()
+    finally:
+        obs.stream.set_sink(None)
+    return res, sink.samples
+
+
+def test_stream_samples_equal_jax_s_and_keep_the_bits():
+    """``stream_every=7`` at 40×40 fp64: JAX's k set (7 … 49), each ‖Δw‖
+    within 1e-12 of JAX's, in order, and the iterate and count of the
+    unstreamed solve bit for bit."""
+    from poisson_tpu.solvers.pcg import pcg_solve as jax_pcg_solve
+    from poisson_tpu_torch.solvers.pcg import pcg_solve
+
+    p = Problem(M=40, N=40)
+    plain = pcg_solve(p, device="cpu")
+    res, got = _port_stream(lambda: pcg_solve(p, device="cpu",
+                                              stream_every=7))
+    _, want = _jax_stream(lambda: jax_pcg_solve(JaxProblem(M=40, N=40),
+                                                stream_every=7))
+    assert [k for k, _ in got] == sorted(k for k, _ in want) == list(
+        range(7, 50, 7))
+    np.testing.assert_allclose([d for _, d in got],
+                               [d for _, d in sorted(want)], rtol=1e-12)
+    assert int(res.iterations) == int(plain.iterations) == 50
+    assert torch.equal(res.w, plain.w)
+
+
+def test_stream_without_a_sink_drops_samples():
+    from poisson_tpu_torch.solvers.pcg import pcg_solve
+
+    assert obs.stream.get_sink() is None
+    res = pcg_solve(Problem(M=40, N=40), device="cpu", stream_every=7)
+    assert int(res.iterations) == 50
+
+
+@pytest.mark.parametrize("driver", ["resilient", "chunked", "checkpointed"])
+def test_streamed_chunked_solves_keep_counts_and_emit_each_k_once(
+        tmp_path, driver):
+    """The chunked drivers stream through the same body: a chunk boundary
+    and the frozen steps after the stop emit nothing twice, and the
+    samples are JAX's resilient solve's (JAX's streamed resilient case)."""
+    from poisson_tpu.solvers.resilient import (
+        pcg_solve_resilient as jax_resilient,
+    )
+    from poisson_tpu_torch.solvers.resilient import pcg_solve_resilient
+
+    p = Problem(M=40, N=40)
+    run = {
+        "resilient": lambda: pcg_solve_resilient(p, chunk=10,
+                                                 stream_every=5,
+                                                 device="cpu"),
+        "chunked": lambda: checkpoint.pcg_solve_chunked(
+            p, chunk=10, stream_every=5, device="cpu"),
+        "checkpointed": lambda: checkpoint.pcg_solve_checkpointed(
+            p, str(tmp_path / "ck.npz"), chunk=10, stream_every=5,
+            device="cpu"),
+    }[driver]
+    res, got = _port_stream(run)
+    _, want = _jax_stream(lambda: jax_resilient(JaxProblem(M=40, N=40),
+                                                chunk=10, stream_every=5))
+    assert int(res.iterations) == 50
+    assert [k for k, _ in got] == sorted(k for k, _ in want) == list(
+        range(5, 51, 5))
+    np.testing.assert_allclose([d for _, d in got],
+                               [d for _, d in sorted(want)], rtol=1e-12)
+
+
+def test_configured_stream_file_loads_with_the_jax_readers(tmp_path,
+                                                          monkeypatch):
+    """``obs.configure(stream_every=)`` writes ``stream-rank0.jsonl`` in
+    the JAX package's format: the forensics loader of
+    ``benchmarks/summarize_session.py`` reads it, and
+    ``POISSON_TPU_STREAM_EVERY`` configures the stride from the env."""
+    import importlib.util
+
+    from poisson_tpu_torch.solvers.pcg import pcg_solve
+
+    tdir = tmp_path / "tr"
+    obs.configure(trace_dir=str(tdir), stream_every=10)
+    assert obs.stream_every() == 10
+    pcg_solve(Problem(M=40, N=40), device="cpu",
+              stream_every=obs.stream_every())
+    obs.finalize()
+    spec = importlib.util.spec_from_file_location(
+        "summarize_session", ROOT / "benchmarks" / "summarize_session.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _, _, _, streams = mod._load_telemetry(tdir)
+    assert [r["k"] for r in streams["0"]] == [10, 20, 30, 40, 50]
+    assert all(set(r) >= {"k", "diff", "at_unix", "at_mono"}
+               for r in streams["0"])
+    obs.shutdown()
+    assert obs.stream.get_sink() is None and obs.stream_every() == 0
+    monkeypatch.setenv("POISSON_TPU_STREAM_EVERY", "25")
+    monkeypatch.delenv("POISSON_TPU_TRACE_DIR", raising=False)
+    monkeypatch.delenv("POISSON_TPU_METRICS_OUT", raising=False)
+    assert obs.configure_from_env() is not None
+    assert obs.stream_every() == 25 and obs.stream.get_sink() is not None
