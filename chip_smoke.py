@@ -143,6 +143,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      gives 15 with no verdict; then µs per iteration with
      ``verify_every`` 0 / 32 / 5 / 1, a clean resilient solve and a
      streamed one, in turns;
+   - the geometry phase (``poisson_tpu_torch.geometry``, ``geometry=``
+     through the plain, MG, chunked, batched and lane solves,
+     ``solvers.adjoint``: plain PyTorch, no kernel launched), at 800×1200
+     with the eight families of ``geometry.manufactured.cases()``: the
+     host build seconds of each family's canvases, the default spec's
+     canvases bit for bit with the reference fields cast once (fp64 and
+     fp32), the canvas cache missing 8 then 0 times across a repeat; fp64
+     ``pcg_solve(geometry=)`` at the JAX package's count for each family
+     (``GEOM_JAX_ITERATIONS``, from ``python -m
+     benchmarks.geometry_goldens``), fp32 within 1e-5 of it, seconds and µs
+     per iteration beside the reference ellipse's plain solve; the
+     manufactured gate at 64×64 under JAX's floors and its refinement
+     rule (400×600 below 0.8× 200×300); 16 fp32 members (the families
+     twice, gates 1 + i/16) bit for bit with their solo solves (solves/s);
+     a multi-geometry ``LaneBatch`` at 400×600 splicing new families into
+     freed lanes, bit for bit with solo solves; fp64 MG on
+     ``ellipse-offset`` at JAX's 13; a verified (``verify_every=32``) and
+     a chunked geometry solve bit for bit with the plain one; shape
+     gradients (fp64, δ = 1e-11) against JAX's and central differences at
+     32×32, against JAX's zero and forward mode at 400×600, with forward +
+     adjoint seconds beside one forward solve; a "geometry phase" seconds
+     line;
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events, and for kernel S ``torch.sum`` over the same partials
@@ -388,6 +410,50 @@ MG_BATCH = 16          # fp32 members at MG_FLAGSHIP, gates 1 + i/16
 MG_LANES = (4, 6, 4)   # bucket, members, chunk: lanes at MG_MID, fp32
 MG_CHUNK = 4           # chunked and checkpointed MG solves at MG_FLAGSHIP
 MG_CAP = 8             # the capped MG run the checkpoint drill resumes
+# The geometry phase (``poisson_tpu_torch.geometry``, ``geometry=`` through
+# the plain, MG, chunked, batched and lane solves, ``solvers.adjoint``:
+# plain PyTorch, no kernel of the port), with the specs of
+# ``geometry.manufactured.cases()``. The JAX package's counts on the CPU
+# (x64 on), as ``python -m benchmarks.geometry_goldens`` prints them: fp64
+# pcg_solve(geometry=spec) at 800x1200, per family (its fp32 counts are the
+# same), and the fp64 MG count of GEOM_MG_CASE there.
+GEOM_FLAGSHIP = (800, 1200)
+GEOM_JAX_ITERATIONS = {"ellipse": 989, "ellipse-offset": 600,
+                       "rectangle": 623, "polygon": 623, "union": 425,
+                       "intersection": 367, "difference": 479, "sdf": 447}
+GEOM_MG_CASE, GEOM_MG_JAX_ITERATIONS = "ellipse-offset", 13
+GEOM_FP32_TOL = 1e-5          # fp32 geometry iterate vs the card's fp64
+# The manufactured gate: JAX's floors at 64x64
+# (tests/test_geometry_dsl.py:246-255), and the refinement rule on the
+# smooth-boundary families (the fine error below 0.8x the coarse one).
+GEOM_FLOOR_REL = {"ellipse": 6e-2, "ellipse-offset": 1e-1,
+                  "rectangle": 6e-2, "polygon": 6e-2, "union": 7e-2,
+                  "intersection": 1e-1, "difference": 5e-2, "sdf": 1.5e-1}
+GEOM_REFINE = ((200, 300), (400, 600), ("ellipse", "ellipse-offset", "sdf"),
+               0.8)
+GEOM_BATCH = 16               # fp32 members: the 8 families twice
+# Lanes at 400x600 fp32: the first four families in, then two more
+# spliced into the lanes the first to finish free.
+GEOM_LANES = (4, 64, ("ellipse-offset", "rectangle", "union", "sdf"),
+              ("intersection", "difference"))
+GEOM_VERIFY, GEOM_CHUNK = 32, 100   # the verified and chunked solves ...
+GEOM_SOLO_CASE = "intersection"     # ... of this family (the fewest steps)
+# Shape gradients (``shape_gradient``, fp64, δ = 1e-11, Ellipse(rx, ry)),
+# with JAX's loss Σ w·h1·h2 (tests/test_geometry_dsl.py:617-619) and the
+# JAX package's gradients on the CPU (benchmarks/geometry_goldens.py). At
+# 32x32, JAX's test grid, the gradient must match central differences of
+# step GEOM_FD_STEP to GEOM_FD_TOL. At 400x600 that loss's cotangent is
+# so small that the adjoint solve stops on the |(Ap, p)| < 1e-15 guard at
+# its first step in both packages (a zero gradient), and the discrete
+# objective has kinks denser than the step, so there the card is held to
+# JAX's gradient, and, with the unscaled loss Σ w, forward mode to
+# reverse mode (GEOM_MODES_TOL); its central differences are printed.
+GEOM_ADJOINT = ((400, 600), (32, 32))
+GEOM_ADJOINT_DELTA, GEOM_ADJOINT_PARAMS = 1e-11, (0.8, 0.42)
+GEOM_ADJOINT_JAX = {(400, 600): (0.0, 0.0),
+                    (32, 32): (0.0474388066439755, 0.20470295007078093)}
+GEOM_ADJOINT_JAX_TOL = 1e-6   # relative, or 1e-12 absolute at zero
+GEOM_FD_STEP, GEOM_FD_TOL, GEOM_MODES_TOL = 1e-5, 5e-3, 1e-4
 
 
 def ptxas_report(log: str, symbol: str) -> dict | None:
@@ -1349,6 +1415,304 @@ def check_mg(mg, bt, lanes, ck, pcg_solve, fp64: dict, figures: dict,
               "resumed_iterations": int(resumed.iterations),
               "resumed_bit_for_bit": torch.equal(resumed.w, one.w)}),
           flush=True)
+
+
+def check_geometry(pcg_solve, metrics, card: str) -> None:
+    """The geometry phase (no kernel of the port): the flagship canvases of
+    every family (host build seconds, the cache across a repeat, the
+    default spec against the reference fields), fp64 and fp32 solves of
+    each beside the reference ellipse's, the manufactured gate, a mixed
+    batch and multi-geometry lanes bit for bit with their solo solves, an
+    MG, a verified and a chunked geometry solve, and shape gradients."""
+    from poisson_tpu_torch.config import Problem
+    from poisson_tpu_torch.geometry import (
+        DEFAULT_ELLIPSE,
+        Ellipse,
+        canvas,
+        geometry_setup,
+        reset_geometry_cache,
+    )
+    from poisson_tpu_torch.geometry.manufactured import (
+        case_by_name,
+        cases,
+        manufactured_error,
+    )
+    from poisson_tpu_torch.mg.hierarchy import device_hierarchy
+    from poisson_tpu_torch.solvers import adjoint
+    from poisson_tpu_torch.solvers.batched import solve_batched
+    from poisson_tpu_torch.solvers.checkpoint import pcg_solve_chunked
+    from poisson_tpu_torch.solvers.lanes import LaneBatch
+    from poisson_tpu_torch.solvers.pcg import host_fields64
+
+    started = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    flagship = Problem(*GEOM_FLAGSHIP)
+    ftag = "x".join(map(str, GEOM_FLAGSHIP))
+    specs = {c.name: c.spec for c in cases()}
+
+    # Canvases: the host fp64 builds, each timed (the sampled families in
+    # blocks of faces on threads); then the cache across a repeat.
+    reset_geometry_cache()
+    build_s = {}
+    for name, spec in specs.items():
+        t0 = time.perf_counter()
+        canvas.host_fields(flagship, spec)
+        build_s[name] = time.perf_counter() - t0
+    for dtype, scaled in (("float64", False), ("float32", True)):
+        got = geometry_setup(flagship, DEFAULT_ELLIPSE, dtype, scaled,
+                             device="cuda")
+        want = host_fields64(flagship, scaled)
+        for name, g, w in zip(("a", "b", "rhs", "aux"), got, want):
+            ref = torch.tensor(w, dtype=getattr(torch, dtype), device="cuda")
+            check(torch.equal(g, ref), f"geometry canvases: the default "
+                                       f"spec's {name} ({dtype}) is not the "
+                                       "reference field cast once")
+    reset_geometry_cache()
+    for name in specs:             # the host builds stay: a device miss
+        canvas.host_fields(flagship, specs[name])
+    misses, hits = [], []
+    for _ in range(2):
+        m0 = metrics.get("geom.cache.misses") or 0
+        h0 = metrics.get("geom.cache.hits") or 0
+        for spec in specs.values():
+            geometry_setup(flagship, spec, "float32", True, device="cuda")
+        misses.append((metrics.get("geom.cache.misses") or 0) - m0)
+        hits.append((metrics.get("geom.cache.hits") or 0) - h0)
+    check(misses == [len(specs), 0] and hits == [0, len(specs)],
+          f"geometry cache across a repeat: misses {misses}, hits {hits}")
+    print(f"geometry canvases {ftag} [{card}]: " + json.dumps({
+        "host_build_s": build_s,
+        "sampler_threads": canvas.SAMPLE_WORKERS, "cache_misses": misses,
+        "cache_hits": hits,
+        "default_spec_is_reference_fields": True}), flush=True)
+
+    # Solves: fp64 at JAX's count, fp32 within GEOM_FP32_TOL of it, beside
+    # the reference ellipse's plain solve of this call.
+    ref32, ref32_s = timed(lambda: pcg_solve(flagship, dtype=f32))
+    ref64, ref64_s = timed(lambda: pcg_solve(flagship, dtype=f64))
+    fp32 = {}
+    for name, spec in specs.items():
+        r64, s64 = timed(lambda: pcg_solve(flagship, dtype=f64,
+                                           geometry=spec))
+        k64 = int(r64.iterations)
+        check(k64 == GEOM_JAX_ITERATIONS[name] and int(r64.flag) == 1,
+              f"geometry {name} fp64 {ftag}: {k64} iterations (flag "
+              f"{int(r64.flag)}), JAX {GEOM_JAX_ITERATIONS[name]}")
+        r32, s32 = timed(lambda: pcg_solve(flagship, dtype=f32,
+                                           geometry=spec))
+        k32 = int(r32.iterations)
+        gap = float((r32.w.double() - r64.w).abs().max())
+        check(int(r32.flag) == 1 and gap <= GEOM_FP32_TOL,
+              f"geometry {name} fp32 {ftag}: flag {int(r32.flag)}, "
+              f"{gap} from fp64")
+        fp32[name] = r32
+        print(f"geometry solve {name} {ftag} [{card}]: " + json.dumps({
+            "fp64": {"iterations": k64, "jax_iterations":
+                     GEOM_JAX_ITERATIONS[name], "seconds": s64,
+                     "us_per_iter": s64 / k64 * 1e6},
+            "fp32": {"iterations": k32, "seconds": s32,
+                     "us_per_iter": s32 / k32 * 1e6,
+                     "max_diff_vs_fp64": gap},
+            "reference_ellipse_plain": {
+                "fp64_iterations": int(ref64.iterations),
+                "fp64_us_per_iter": ref64_s / int(ref64.iterations) * 1e6,
+                "fp32_iterations": int(ref32.iterations),
+                "fp32_us_per_iter": ref32_s / int(ref32.iterations) * 1e6},
+            "host_build_s": build_s[name]}), flush=True)
+
+    # Accuracy: every family at its floor at 64x64; the smooth boundaries
+    # converge under refinement.
+    acc = {}
+    for case in cases():
+        r = manufactured_error(case, 64, 64)
+        check(r["flag"] == 1 and r["rel"] <= GEOM_FLOOR_REL[case.name],
+              f"manufactured {case.name} 64x64: rel {r['rel']} (floor "
+              f"{GEOM_FLOOR_REL[case.name]}), flag {r['flag']}")
+        acc[case.name] = {"rel": r["rel"], "iterations": r["iterations"]}
+    coarse, fine, names, ratio = GEOM_REFINE
+    for name in names:
+        rc = manufactured_error(case_by_name(name), *coarse)
+        rf = manufactured_error(case_by_name(name), *fine)
+        check(rf["rel"] < ratio * rc["rel"],
+              f"manufactured {name}: {rf['rel']} at {fine} is not below "
+              f"{ratio} x {rc['rel']} at {coarse}")
+        acc[name]["refined"] = {"x".join(map(str, coarse)): rc["rel"],
+                                "x".join(map(str, fine)): rf["rel"]}
+    print(f"geometry manufactured [{card}]: {json.dumps(acc)}", flush=True)
+
+    # The mixed batch: the families twice, gates 1 + i/16, fp32.
+    names = list(specs)
+    geoms = [specs[names[i % len(names)]] for i in range(GEOM_BATCH)]
+    gates = [1.0 + i / GEOM_BATCH for i in range(GEOM_BATCH)]
+    rb, sec = timed(lambda: solve_batched(flagship, rhs_gates=gates,
+                                          geometries=geoms, dtype=f32))
+    seq, seq_sec = timed(lambda: [pcg_solve(flagship, dtype=f32, geometry=g,
+                                            rhs_gate=gate)
+                                  for g, gate in zip(geoms, gates)])
+    for i, sq in enumerate(seq):
+        check(int(rb.iterations[i]) == int(sq.iterations)
+              and int(rb.flag[i]) == int(sq.flag) == 1
+              and torch.equal(rb.w[i], sq.w),
+              f"geometry batch member {i}: {int(rb.iterations[i])} "
+              f"iterations, solo {int(sq.iterations)}, bits equal "
+              f"{torch.equal(rb.w[i], sq.w)}")
+    print(f"geometry batched fp32 {ftag} B={GEOM_BATCH} [{card}]: "
+          + json.dumps({
+              "batch_seconds": sec, "solves_per_sec": GEOM_BATCH / sec,
+              "max_iterations": int(rb.max_iterations),
+              "iterations": rb.iterations.tolist(),
+              "sequential_seconds": seq_sec,
+              "speedup_vs_sequential": seq_sec / sec,
+              "bit_for_bit_with_solo": True}), flush=True)
+
+    # Multi-geometry lanes: new families spliced into freed lanes.
+    mid = Problem(400, 600)
+    bucket, chunk, first, later = GEOM_LANES
+    table = LaneBatch(mid, bucket, dtype=f32, chunk=chunk,
+                      multi_geometry=True)
+    for name in first:
+        table.splice(name, 1.0, geometry=specs[name])
+    queue, done, reused = list(later), {}, []
+    while table.occupied():
+        check(table.steps < 100, "geometry lanes: the schedule did not "
+                                 "drain")
+        table.step()
+        for view in table.lane_view():
+            if view["member_id"] is not None and view["done"]:
+                res = table.retire(view["lane"])
+                done[res.member_id] = res
+                if queue:
+                    name = queue.pop(0)
+                    table.splice(name, 1.0, geometry=specs[name],
+                                 lane=view["lane"])
+                    reused.append((name, view["lane"]))
+    check(not queue and len(reused) == len(later),
+          f"geometry lanes: spliced {reused}, left {queue}")
+    for name, res in done.items():
+        solo = pcg_solve(mid, dtype=f32, geometry=specs[name])
+        check(res.iterations == int(solo.iterations) and res.flag == 1
+              and torch.equal(res.w, solo.w),
+              f"geometry lane {name}: {res.iterations} iterations, solo "
+              f"{int(solo.iterations)}, bits equal "
+              f"{torch.equal(res.w, solo.w)}")
+    print(f"geometry lanes fp32 {mid.M}x{mid.N} bucket {bucket} [{card}]: "
+          + json.dumps({
+              "chunk": chunk, "steps": table.steps,
+              "spliced_into_freed_lanes": reused,
+              "iterations": {m: r.iterations for m, r in done.items()},
+              "bit_for_bit_with_solo": True}), flush=True)
+
+    # MG with a geometry (fp64, JAX's count), and the verified and chunked
+    # geometry solves bit for bit with the plain one.
+    spec = specs[GEOM_MG_CASE]
+    _, hier_s = timed(lambda: device_hierarchy(flagship, "float64", False,
+                                               geometry=spec,
+                                               device="cuda"))
+    rmg, mg_s = timed(lambda: pcg_solve(flagship, dtype=f64, geometry=spec,
+                                        preconditioner="mg"))
+    check(int(rmg.iterations) == GEOM_MG_JAX_ITERATIONS
+          and int(rmg.flag) == 1,
+          f"geometry MG {GEOM_MG_CASE} fp64: {int(rmg.iterations)} "
+          f"iterations (flag {int(rmg.flag)}), JAX "
+          f"{GEOM_MG_JAX_ITERATIONS}")
+    one = fp32[GEOM_SOLO_CASE]
+    solo_spec = specs[GEOM_SOLO_CASE]
+    ver, ver_s = timed(lambda: pcg_solve(flagship, dtype=f32,
+                                         geometry=solo_spec,
+                                         verify_every=GEOM_VERIFY))
+    chk, chk_s = timed(lambda: pcg_solve_chunked(flagship, chunk=GEOM_CHUNK,
+                                                 dtype=f32,
+                                                 geometry=solo_spec))
+    for label, r in (("verified", ver), ("chunked", chk)):
+        check(int(r.iterations) == int(one.iterations) and int(r.flag) == 1
+              and torch.equal(r.w, one.w),
+              f"geometry {label} {GEOM_SOLO_CASE}: {int(r.iterations)} "
+              f"iterations (flag {int(r.flag)}), plain "
+              f"{int(one.iterations)}, bits equal {torch.equal(r.w, one.w)}")
+    print(f"geometry composed {ftag} [{card}]: " + json.dumps({
+        "mg": {"case": GEOM_MG_CASE, "dtype": "float64",
+               "iterations": int(rmg.iterations),
+               "jax_iterations": GEOM_MG_JAX_ITERATIONS,
+               "hierarchy_build_s": hier_s, "seconds": mg_s},
+        "verified": {"case": GEOM_SOLO_CASE, "verify_every": GEOM_VERIFY,
+                     "iterations": int(ver.iterations), "seconds": ver_s,
+                     "bit_for_bit_with_plain": True},
+        "chunked": {"case": GEOM_SOLO_CASE, "chunk": GEOM_CHUNK,
+                    "iterations": int(chk.iterations), "seconds": chk_s,
+                    "bit_for_bit_with_one_shot": True}}), flush=True)
+
+    # Shape gradients (fp64).
+    spec_fn = lambda q: Ellipse(cx=0.0, cy=0.0, rx=q[0], ry=q[1])
+    params = list(GEOM_ADJOINT_PARAMS)
+    for grid in GEOM_ADJOINT:
+        p = Problem(*grid, delta=GEOM_ADJOINT_DELTA)
+        tag = "x".join(map(str, grid))
+        jax_loss = lambda w: w[1:-1, 1:-1].sum() * p.h1 * p.h2
+
+        def value(q, loss):
+            return float(loss(adjoint.differentiable_geometry_solve(
+                p, spec_fn(torch.tensor(q, dtype=f64, device="cuda")))))
+
+        def central(loss):
+            out = []
+            for k in range(len(params)):
+                hi, lo = list(params), list(params)
+                hi[k] += GEOM_FD_STEP
+                lo[k] -= GEOM_FD_STEP
+                out.append((value(hi, loss) - value(lo, loss))
+                           / (2 * GEOM_FD_STEP))
+            return out
+
+        (val, grad), grad_s = timed(lambda: adjoint.shape_gradient(
+            p, spec_fn, params, jax_loss))
+        grad = grad.tolist()
+        fd = central(jax_loss)
+        for g, want in zip(grad, GEOM_ADJOINT_JAX[grid]):
+            check(abs(g - want) <= max(1e-12, GEOM_ADJOINT_JAX_TOL
+                                       * abs(want)),
+                  f"shape gradient {tag}: {grad}, JAX "
+                  f"{GEOM_ADJOINT_JAX[grid]}")
+        rec = {"delta": GEOM_ADJOINT_DELTA, "params": params,
+               "loss": float(val), "grad": grad,
+               "jax_grad": list(GEOM_ADJOINT_JAX[grid]),
+               "central_differences": fd, "fd_step": GEOM_FD_STEP,
+               "forward_and_adjoint_s": grad_s}
+        if grid == (32, 32):
+            for g, f in zip(grad, fd):
+                check(abs(g - f) <= GEOM_FD_TOL * abs(f),
+                      f"shape gradient {tag}: {grad}, central differences "
+                      f"{fd}")
+        else:
+            # The unscaled loss: reverse mode against forward mode.
+            plain = lambda w: w[1:-1, 1:-1].sum()
+            (_, rev), rev_s = timed(lambda: adjoint.shape_gradient(
+                p, spec_fn, params, plain))
+            _, fwd_s = timed(lambda: value(params, plain))
+            import torch.autograd.forward_ad as fwAD
+
+            tangents = []
+            for k in range(len(params)):
+                t = torch.zeros(len(params), dtype=f64, device="cuda")
+                t[k] = 1.0
+                with fwAD.dual_level():
+                    q = fwAD.make_dual(torch.tensor(params, dtype=f64,
+                                                    device="cuda"), t)
+                    w = adjoint.differentiable_geometry_solve(p, spec_fn(q))
+                    tangents.append(float(fwAD.unpack_dual(
+                        plain(w)).tangent))
+            rev = rev.tolist()
+            for g, f in zip(rev, tangents):
+                check(abs(g - f) <= GEOM_MODES_TOL * abs(f),
+                      f"shape gradient {tag} (loss sum w): reverse {rev}, "
+                      f"forward {tangents}")
+            rec["sum_loss"] = {
+                "reverse": rev, "forward": tangents,
+                "forward_and_adjoint_s": rev_s, "forward_solve_s": fwd_s,
+                "ratio": rev_s / fwd_s}
+        print(f"geometry shape gradient {tag} fp64 [{card}]: "
+              f"{json.dumps(rec)}", flush=True)
+    print(f"geometry phase [{card}]: "
+          f"{time.perf_counter() - started:.1f} s", flush=True)
 
 
 def check_resilience(pcg_solve, metrics, card: str) -> None:
@@ -2378,6 +2742,12 @@ def main() -> None:
     expect_counts("the resilience phase", {})
 
     elapsed("resilience")
+    # --- the geometry phase: plain PyTorch, no kernel of the port.
+    reset_counts()
+    check_geometry(pcg_solve, metrics, card)
+    expect_counts("the geometry phase", {})
+
+    elapsed("geometry")
     for time_it in timers:
         time_it()
 

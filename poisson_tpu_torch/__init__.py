@@ -22,8 +22,15 @@ tolerance. It imports ``torch`` and ``numpy``, never ``jax`` or
                  format (``solvers.checkpoint``), batched multi-RHS solves
                  (``solvers.batched``), lane stepping for continuous
                  batching (``solvers.lanes``), the self-healing solve
-                 (``solvers.resilient``) and the fixed-budget history solve
-                 (``solvers.history``).
+                 (``solvers.resilient``), the fixed-budget history solve
+                 (``solvers.history``) and differentiable solves with
+                 shape gradients through an adjoint solve
+                 (``solvers.adjoint``).
+- ``geometry`` — geometry as data: the spec DSL (ellipses, rectangles,
+                 polygons, unions, intersections, differences, raw SDFs),
+                 the canvas compiler and its fingerprint cache, and the
+                 manufactured-solution gate; ``geometry=`` reaches the
+                 plain, MG, chunked, batched, lane and CLI solves.
 - ``integrity`` — the in-loop silent-corruption probe (``verify_every``).
 - ``testing``  — fault injection: NaNs, bit flips, preemption, corrupt
                  checkpoint files.
@@ -37,15 +44,15 @@ tolerance. It imports ``torch`` and ``numpy``, never ``jax`` or
                  heartbeat watchdog.
 - ``obs``      — spans, counters and streamed convergence in the JAX
                  package's formats.
-- ``interop``  — carries the JAX package's problem, canvases, MG levels
-                 and batched state across as plain data, for the parity
-                 tests.
+- ``interop``  — carries the JAX package's problem, canvases, MG levels,
+                 batched state and geometry specs across as plain data,
+                 for the parity tests.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"`` (a
 mesh of CPU devices for the sharded solves); without a card they raise.
 ``python -m poisson_tpu_torch M N`` is the CLI
 (``python -m poisson_tpu_torch solve-batched M N --batch B`` the batched
-one).
+one, ``python -m poisson_tpu_torch geometry SPEC`` the spec debugger).
 """
 
 from poisson_tpu_torch.config import FLAGSHIP, Problem

@@ -49,6 +49,14 @@ of ``--checkpoint`` on ``torch`` or ``sharded``. A preempted run exits 75
 backend it cannot reach, in the JAX CLI's words with ``torch`` for
 ``xla``.
 
+``--geometry SPEC`` (inline JSON or ``@file.json``) solves that domain
+instead of the reference ellipse (``poisson_tpu_torch.geometry``) on the
+``torch`` solve, which ``auto`` picks, as the JAX CLI's rides ``xla``; the
+kernel and sharded backends, ``--checkpoint`` and ``--resilient`` refuse
+it, and the record's ``l2_error`` is null (the ellipse's oracle does not
+apply). ``python -m poisson_tpu_torch geometry SPEC`` prints a spec's
+fingerprint, canonical form and canvas statistics, or an ASCII preview.
+
 ``solve-batched`` solves B right-hand sides of one operator together
 (``solvers.batched``; see :func:`main_solve_batched`).
 """
@@ -83,6 +91,24 @@ def parse_mesh(text: str) -> tuple[int, int]:
     if px < 1 or py < 1:
         raise argparse.ArgumentTypeError(f"--mesh {text}: both sides >= 1")
     return px, py
+
+
+def parse_geometry_arg(spec: str):
+    """A ``--geometry`` value, inline JSON or ``@file.json``, as a
+    normalized spec; a bad one exits like every other flag error."""
+    label = spec if len(spec) < 60 else spec[:57] + "..."
+    if spec.startswith("@"):
+        try:
+            with open(spec[1:]) as f:
+                spec = f.read()
+        except OSError as e:
+            raise SystemExit(f"--geometry {label}: {e}")
+    from poisson_tpu_torch.geometry import parse_geometry
+
+    try:
+        return parse_geometry(spec)
+    except ValueError as e:
+        raise SystemExit(f"--geometry {label}: {e}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -145,6 +171,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "reduction partials with kernel S, ordered and "
                         "Kahan-compensated as the JAX package's serial "
                         "kernels (default off)")
+    p.add_argument("--geometry", metavar="SPEC", default=None,
+                   help="solve this domain instead of the reference "
+                        "ellipse: a geometry-DSL JSON spec inline or "
+                        "@file.json (poisson_tpu_torch.geometry; the "
+                        "single-device torch backend). Preview specs with "
+                        "`python -m poisson_tpu_torch geometry SPEC`")
     p.add_argument("--preconditioner", choices=("jacobi", "mg"),
                    default="jacobi",
                    help="M^-1 of the CG recurrence: jacobi (the diagonal; "
@@ -249,16 +281,17 @@ def visible_devices(device: str) -> int:
 def pick_backend(backend: str, dtype: str, visible: int = 1,
                  mesh=None, checkpoint=None, setup: str = "host",
                  preconditioner: str = "jacobi",
-                 resilient: bool = False) -> str:
+                 resilient: bool = False, geometry=None) -> str:
     """The backend ``auto`` resolves to, by the JAX CLI's rule
     (``poisson_tpu/cli.py:340-377``) with the card in the TPU's place; an
     explicit backend is checked against the dtype and the mesh. With
     ``resilient`` ``auto`` is ``torch``, the single-device recovery
-    driver's, as the JAX CLI's is ``xla``. With ``preconditioner="mg"``
+    driver's, as the JAX CLI's is ``xla``; so it is with a ``geometry``,
+    whose canvases ride the plain solve. With ``preconditioner="mg"``
     ``auto`` is ``torch``, the plain solve the V-cycle rides; with a
     ``--mesh`` it is ``sharded``, which :func:`check_flags` then refuses
     (the mesh is not dropped)."""
-    if backend == "auto" and resilient:
+    if backend == "auto" and (resilient or geometry):
         return "torch"
     if backend == "auto" and preconditioner == "mg":
         backend = "torch" if mesh is None else "sharded"
@@ -285,7 +318,20 @@ SERIAL_BACKENDS = ("fused", "ca", "fused-sharded", "ca-sharded")
 def check_flags(args, backend: str) -> None:
     """Every geometry, reduction and checkpoint flag must reach the backend
     that was picked, as in the JAX CLI (``poisson_tpu/cli.py:538-544,
-    2003-2045``); anything else raises."""
+    2003-2058``); anything else raises."""
+    if args.geometry is not None:
+        if backend != "torch":
+            raise SystemExit(
+                f"--geometry drives the single-device torch solve "
+                f"(resolved backend: {backend}); the kernel and sharded "
+                f"paths bake the reference ellipse")
+        if args.resilient or args.checkpoint:
+            raise SystemExit(
+                "--geometry rides the plain torch solve; the "
+                "checkpointed/resilient CLI drivers are ellipse-only")
+        if args.mesh is not None:
+            raise SystemExit("--geometry drives the single-device torch "
+                             "solve; drop --mesh")
     if args.bn is not None and backend != "fused":
         raise SystemExit(f"--bn applies to the single-device fused backend "
                          f"(resolved backend: {backend})")
@@ -510,6 +556,8 @@ def main(argv=None) -> int:
         argv = sys.argv[1:]
     if argv and argv[0] == "solve-batched":
         return main_solve_batched(argv[1:])
+    if argv and argv[0] == "geometry":
+        return main_geometry(argv[1:])
     args = build_parser().parse_args(argv)
     _grid(args)
     if args.repeat < 1:
@@ -527,7 +575,7 @@ def main(argv=None) -> int:
     visible = visible_devices(args.device)
     backend = pick_backend(args.backend, args.dtype, visible, args.mesh,
                            args.checkpoint, args.setup, args.preconditioner,
-                           args.resilient)
+                           args.resilient, args.geometry)
 
     check_flags(args, backend)
     check_resilience(args, backend)
@@ -617,6 +665,7 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
         except ValueError as e:
             raise SystemExit(f"--backend resident: {e}") from None
     device = resolve_device(args.device)
+    geometry = parse_geometry_arg(args.geometry) if args.geometry else None
     serial = bool(args.serial_reduce)
     ckpt = dict(chunk=args.chunk, keep_last=args.keep_last)
     # (canvas of the solve, the solve) of each single-device kernel path.
@@ -704,6 +753,7 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
             verify_tol=args.verify_tol, **ckpt)
     else:
         run = lambda: pcg_solve(problem, dtype=args.dtype, device=device,
+                                geometry=geometry,
                                 preconditioner=args.preconditioner,
                                 stream_every=args.stream_every,
                                 verify_every=args.verify_every,
@@ -726,7 +776,8 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
 
         with timer.phase("mg_hierarchy"):
             device_hierarchy(problem, args.dtype,
-                             resolve_scaled(None, args.dtype), device=device)
+                             resolve_scaled(None, args.dtype),
+                             geometry=geometry, device=device)
     with timer.phase("first_solve"):   # builds kernels and canvases
         result = run()
     # Recovery provenance can land on any run (an injected fault fires once
@@ -756,7 +807,10 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
         mlups=mlups(problem, iters, best), final_diff=float(result.diff),
         dtype=args.dtype, backend=backend, device=device.type,
         device_kind=device_name(device),
-        l2_error=l2_error_host(problem, result.w),
+        # The analytic control is the ellipse's: another domain has its
+        # own manufactured gate (geometry.manufactured), not this error.
+        l2_error=(None if args.geometry
+                  else l2_error_host(problem, result.w)),
         bytes_per_iter=bytes_per_iter,
         achieved_gbps=(None if bytes_per_iter is None
                        else bytes_per_iter * iters / best / 1e9),
@@ -819,10 +873,12 @@ def build_batched_parser() -> argparse.ArgumentParser:
                    help="write the counters/gauges snapshot here at exit")
     p.add_argument("--json", action="store_true",
                    help="one JSON line instead of a table")
-    # The JAX CLI's flags for paths not ported yet: each is refused with
-    # its ROADMAP item.
     p.add_argument("--geometry", metavar="SPEC", action="append",
-                   default=None, help="not ported yet (ROADMAP item 6)")
+                   default=None,
+                   help="geometry-DSL JSON (inline or @file.json); "
+                        "repeatable: members take the specs round-robin "
+                        "and different domains solve in one batch "
+                        "(poisson_tpu_torch.geometry; no --mesh, no mg)")
     p.add_argument("--verify-every", type=int, default=0, metavar="K",
                    help="per-member in-loop integrity probe every K "
                         "iterations (0 = off; not on a --mesh)")
@@ -850,8 +906,12 @@ def main_solve_batched(argv) -> int:
     if args.repeat < 1:
         raise SystemExit(f"--repeat must be >= 1, got {args.repeat}")
     from poisson_tpu_torch.solvers.batched import bucket_size, solve_batched
-    from poisson_tpu_torch.solvers.pcg import not_ported
 
+    B = args.batch
+    geometries = None
+    if args.geometry:
+        specs = [parse_geometry_arg(g) for g in args.geometry]
+        geometries = [specs[i % len(specs)] for i in range(B)]
     if args.preconditioner == "mg":
         # The JAX CLI's refusals, then its grid check.
         if args.geometry:
@@ -865,8 +925,10 @@ def main_solve_batched(argv) -> int:
                 "mesh program has yet; dispatch MG batches on a single "
                 "device (drop --mesh)")
         check_mg_grid(args)
-    if args.geometry:
-        raise SystemExit(f"--geometry: {not_ported('geometries')}")
+    if geometries is not None and args.mesh is not None:
+        raise SystemExit(
+            "--geometry members carry their own canvases, which no mesh "
+            "program shards yet; drop --mesh")
     if args.verify_every < 0:
         raise SystemExit(f"--verify-every must be >= 0, "
                          f"got {args.verify_every}")
@@ -886,7 +948,6 @@ def main_solve_batched(argv) -> int:
         obs.configure(trace_dir=args.trace_dir, metrics_path=args.metrics_out)
     problem = Problem(M=args.M, N=args.N, delta=args.delta,
                       max_iter=args.max_iter)
-    B = args.batch
     gates = ([1.0 + i / B for i in range(B)] if args.vary_rhs
              else [1.0] * B)
     device = resolve_device(args.device)
@@ -895,7 +956,7 @@ def main_solve_batched(argv) -> int:
         mesh = build_mesh(args, visible_devices(args.device))
         device, where = mesh.lead, dict(mesh=mesh)
     run = lambda: solve_batched(problem, rhs_gates=gates, dtype=args.dtype,
-                                bucket=args.bucket,
+                                bucket=args.bucket, geometries=geometries,
                                 verify_every=args.verify_every,
                                 verify_tol=args.verify_tol,
                                 preconditioner=args.preconditioner, **where)
@@ -931,15 +992,21 @@ def main_solve_batched(argv) -> int:
         record["verify_every"] = args.verify_every
     if args.preconditioner != "jacobi":
         record["preconditioner"] = args.preconditioner
+    if geometries is not None:
+        record["geometry_mix"] = len(args.geometry)
+        record["geometries"] = sorted({g.fingerprint for g in geometries})
     if args.compare_sequential:
-        seq = lambda g: pcg_solve(problem, dtype=args.dtype, rhs_gate=g,
-                                  device=device,
-                                  preconditioner=args.preconditioner)
-        seq(gates[0])              # first-call setup outside the timing
+        geos = geometries or [None] * B
+        seq = lambda g, geo: pcg_solve(problem, dtype=args.dtype,
+                                       rhs_gate=g, geometry=geo,
+                                       device=device,
+                                       preconditioner=args.preconditioner)
+        seq(gates[0], geos[0])     # first-call setup outside the timing
         with obs.span("timed_sequential_solves", fence=False, batch=B):
             fence(device)
             t0 = time.perf_counter()
-            seq_iters = [int(seq(g).iterations) for g in gates]
+            seq_iters = [int(seq(g, geo).iterations)
+                         for g, geo in zip(gates, geos)]
             seq_seconds = time.perf_counter() - t0
         record["sequential_seconds"] = seq_seconds
         record["speedup_vs_sequential"] = seq_seconds / best
@@ -965,6 +1032,72 @@ def main_solve_batched(argv) -> int:
         print(f"  vs sequential: {record['speedup_vs_sequential']:.2f}x "
               f"({seq_seconds:.4f} s for {B} solves; per-member "
               f"iteration counts {match})")
+    return 0
+
+
+def build_geometry_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m poisson_tpu_torch geometry",
+        description="Geometry-spec debugger (poisson_tpu_torch.geometry): "
+                    "parse a DSL spec, print its fingerprint and "
+                    "canonical form, build its blend-coefficient "
+                    "canvases, and preview the domain as ASCII "
+                    "('#' inside, '+' cut faces, '.' outside).")
+    p.add_argument("spec", metavar="SPEC",
+                   help="geometry-DSL JSON, inline or @file.json")
+    p.add_argument("--M", type=int, default=64,
+                   help="grid cells in x for the canvas preview "
+                        "(default 64)")
+    p.add_argument("--N", type=int, default=64,
+                   help="grid cells in y (default 64)")
+    p.add_argument("--render", action="store_true",
+                   help="ASCII canvas preview (default unless --json)")
+    p.add_argument("--width", type=int, default=64,
+                   help="render columns (default 64)")
+    p.add_argument("--height", type=int, default=24,
+                   help="render rows (default 24)")
+    p.add_argument("--json", action="store_true",
+                   help="one JSON line (fingerprint, canonical spec, "
+                        "canvas stats) instead of the render")
+    return p
+
+
+def main_geometry(argv) -> int:
+    """``geometry``: the JAX CLI's spec debugger; its ``--json`` line is
+    the JAX CLI's for the same spec and grid (host numpy only)."""
+    import numpy as np
+
+    from poisson_tpu_torch.geometry import (
+        build_geometry_fields,
+        cut_face_mask,
+        render_ascii,
+    )
+
+    args = build_geometry_parser().parse_args(argv)
+    spec = parse_geometry_arg(args.spec)
+    problem = Problem(M=args.M, N=args.N)
+    a64, b64, rhs64 = build_geometry_fields(problem, spec)
+    cut = int(cut_face_mask(a64, b64, problem.eps).sum())
+    stats = {
+        "fingerprint": spec.fingerprint,
+        "spec": json.loads(spec.to_json()),
+        "M": problem.M, "N": problem.N,
+        "inside_nodes": int((rhs64 != 0).sum()),
+        "inside_fraction": round(float((rhs64 != 0).mean()), 4),
+        "cut_faces": cut,
+        "coeff_range": [float(np.min([a64.min(), b64.min()])),
+                        float(np.max([a64.max(), b64.max()]))],
+    }
+    if args.json:
+        print(json.dumps(stats))
+        return 0
+    print(f"fingerprint: {stats['fingerprint']}")
+    print(f"canonical:   {spec.to_json()}")
+    print(f"grid {problem.M}x{problem.N}: "
+          f"{stats['inside_nodes']} nodes inside "
+          f"({stats['inside_fraction']:.1%}), {cut} cut faces")
+    print(render_ascii(problem, spec, width=args.width,
+                       height=args.height))
     return 0
 
 

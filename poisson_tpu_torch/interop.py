@@ -4,8 +4,10 @@ The port never imports the JAX package; a caller that holds both (the
 parity tests) hands over plain fields and numpy arrays, so that both
 packages run on the very same inputs: single-device canvases, the
 stacked shard canvases of the sharded solves, a batched solver state
-(a lane table carried across mid-flight), or a multigrid level hierarchy
-(one V-cycle of each package under the same levels).
+(a lane table carried across mid-flight), a multigrid level hierarchy
+(one V-cycle of each package under the same levels), or a geometry spec
+(by its canonical JSON, fingerprint kept; geometry canvases are host
+numpy in both packages and need no converter).
 """
 
 from __future__ import annotations
@@ -124,3 +126,25 @@ def mg_levels_from_reference(levels, coarse_inv=None, scinv=None,
     return MGLevels(levels=tuple(tuple(cast(x) for x in level)
                                  for level in levels),
                     coarse_inv=cast(coarse_inv), scinv=cast(scinv))
+
+
+def spec_from_reference(spec):
+    """The port's geometry spec from a JAX ``GeometrySpec``: parsed from
+    its canonical JSON, so the fingerprint is the same. A raw ``SDF``
+    (no JSON form) crosses as its callable and name."""
+    from poisson_tpu_torch.geometry.dsl import SDF, parse_geometry
+
+    if type(spec).__name__ == "SDF":
+        return SDF(spec.fn, name=spec.name)
+    return parse_geometry(spec.to_json())
+
+
+def spec_to_reference(spec) -> str:
+    """A port spec as the canonical JSON the JAX package's
+    ``parse_geometry`` reads to the same fingerprint. ``SDF`` specs have
+    no JSON form (in either package) and raise."""
+    from poisson_tpu_torch.geometry.dsl import parse_geometry
+
+    text = spec.to_json()
+    parse_geometry(text)        # raises for a spec holding a callable
+    return text

@@ -25,8 +25,8 @@ level data the V-cycle consumes:
 Everything is derived on the host in numpy fp64, as the JAX package
 derives it, so the host arrays equal JAX's bit for bit; they are cast once
 to the state's dtype on an explicit device. Device hierarchies are cached
-per (problem with ``f_val`` = 1, dtype, scaled, config, device), counted
-by ``mg.hierarchy_cache.{hits,misses}``.
+per (problem with ``f_val`` = 1, dtype, scaled, geometry fingerprint,
+config, device), counted by ``mg.hierarchy_cache.{hits,misses}``.
 """
 
 from __future__ import annotations
@@ -247,9 +247,10 @@ def levels_to_device(host: dict, dtype_name: str, scaled: bool,
 
 
 # Device hierarchies this process has built, keyed by (problem with
-# f_val=1, dtype, scaled, config, device): the blend canvases do not depend
-# on f_val, so every RHS magnitude of a domain shares one hierarchy, and
-# a hierarchy on one device never serves a solve on another.
+# f_val=1, dtype, scaled, geometry fingerprint, config, device): the blend
+# canvases do not depend on f_val, so every RHS magnitude of a domain
+# shares one hierarchy, and a hierarchy on one device never serves a solve
+# on another.
 _HIERARCHIES: dict = {}
 
 
@@ -268,24 +269,33 @@ def _device_key(dev: torch.device) -> str:
 def device_hierarchy(problem: Problem, dtype_name: str, scaled: bool,
                      geometry=None, config: MGConfig = DEFAULT_MG,
                      device=None) -> MGLevels:
-    """The cached hierarchy for ``problem`` on ``device`` (default
-    ``cuda``): the host fp64 build and dense coarsest factorisation are
-    paid once per domain, dtype, scaling, config and device."""
-    if geometry is not None:
-        raise ValueError("geometry= is not ported yet (ROADMAP Queue 1 "
-                         "item 6): the hierarchy covers the reference "
-                         "ellipse only")
+    """The cached hierarchy for ``problem`` (and ``geometry``, a
+    ``poisson_tpu_torch.geometry`` spec; None is the reference ellipse) on
+    ``device`` (default ``cuda``): the host fp64 build and dense coarsest
+    factorisation are paid once per domain, dtype, scaling, config and
+    device."""
     dev = resolve_device(device)
-    key = (problem.with_(f_val=1.0), dtype_name, bool(scaled), config,
+    fp = None
+    if geometry is not None:
+        from poisson_tpu_torch.geometry.dsl import parse_geometry
+
+        geometry = parse_geometry(geometry)
+        fp = geometry.fingerprint
+    key = (problem.with_(f_val=1.0), dtype_name, bool(scaled), fp, config,
            _device_key(dev))
     cached = _HIERARCHIES.get(key)
     if cached is not None:
         obs.inc("mg.hierarchy_cache.hits")
         return cached
     obs.inc("mg.hierarchy_cache.misses")
-    from poisson_tpu_torch.solvers.pcg import host_fields64
+    if geometry is None:
+        from poisson_tpu_torch.solvers.pcg import host_fields64
 
-    a64, b64, _, _ = host_fields64(problem.with_(f_val=1.0), False)
+        a64, b64, _, _ = host_fields64(problem.with_(f_val=1.0), False)
+    else:
+        from poisson_tpu_torch.geometry.canvas import host_fields
+
+        a64, b64, _ = host_fields(problem, geometry)
     host = build_hierarchy64(problem, a64, b64, config)
     hier = levels_to_device(host, dtype_name, scaled, dev)
     _HIERARCHIES[key] = hier
@@ -295,7 +305,7 @@ def device_hierarchy(problem: Problem, dtype_name: str, scaled: bool,
               levels=len(hier.levels),
               coarsest="x".join(map(str, host["dims"][-1])),
               dense_coarse=hier.coarse_inv is not None,
-              fingerprint=None)
+              fingerprint=fp)
     return hier
 
 

@@ -74,12 +74,17 @@ def mg_ops(problem: Problem, a, b, aux, hier: MGLevels,
 
 def mg_solve_setup(problem: Problem, dtype=None, scaled=None, device=None,
                    members: bool = False,
-                   config: MGConfig = DEFAULT_MG) -> SolveSetup:
+                   config: MGConfig = DEFAULT_MG,
+                   geometry=None) -> SolveSetup:
     """``solvers.pcg.solve_setup`` with the V-cycle in ``apply_Dinv``, on
-    the cached hierarchy of ``problem`` on the same device."""
-    setup = solve_setup(problem, dtype, scaled, device, members)
+    the cached hierarchy of ``problem`` (and ``geometry``, whose canvases
+    both the operator and the hierarchy are built from) on the same
+    device."""
+    setup = solve_setup(problem, dtype, scaled, device, members,
+                        geometry=geometry)
     hier = device_hierarchy(problem, setup.dtype_name, setup.scaled,
-                            config=config, device=setup.rhs.device)
+                            geometry=geometry, config=config,
+                            device=setup.rhs.device)
     return setup._replace(
         ops=setup.ops._replace(apply_Dinv=vcycle_preconditioner(
             problem, hier, config, setup.scaled)),

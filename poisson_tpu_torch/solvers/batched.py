@@ -45,6 +45,15 @@ buckets are their own family of keys, as in the JAX package. As there,
 MG does not co-batch per-member ``geometries`` and has no ``mesh=``
 program.
 
+``geometries`` (one ``poisson_tpu_torch.geometry`` spec or None per
+member) gives each member its own domain: the canvases a, b and aux become
+(B, M+1, N+1) stacks beside the state, and every elementwise step and
+member sum reads each member's own, so member i is
+``pcg_solve(problem, geometry=g_i, rhs_gate=…)`` bit for bit. A None entry
+is the problem's reference ellipse; padding members reuse member 0's
+canvases. As in the JAX package, geometries have no ``mesh=`` program and
+do not co-batch with MG.
+
 ``verify_every`` > 0 arms the integrity probe per member
 (``poisson_tpu_torch.integrity``): every member checks the true residual
 against its own right-hand side, so a corrupted member stops alone with
@@ -52,8 +61,8 @@ FLAG_INTEGRITY and its batchmates run on untouched. As in the JAX package,
 the probe has no ``mesh=`` program, and ``solve_batched`` takes no
 ``stream_every`` (streaming is per-solve telemetry).
 
-Not ported yet, refused with the ROADMAP item that ports them:
-per-member ``geometries`` (Queue 1 item 6) and ``mode="block"`` (item 9).
+Not ported yet, refused with the ROADMAP item that ports it:
+``mode="block"`` (Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -84,6 +93,8 @@ from poisson_tpu_torch.solvers.pcg import (
     resolve_dtype,
     resolve_scaled,
     resolve_verify_tol,
+    setup_from_fields,
+    solve_fields,
     solve_setup,
 )
 from poisson_tpu_torch.utils.platform import resolve_device
@@ -198,8 +209,14 @@ def _refuse_unported(geometries, verify_every, preconditioner, mode,
         raise not_ported("block")
     with_geometries = geometries is not None and any(
         g is not None for g in geometries)
+    # The JAX package's refusals, in its words.
+    if mesh is not None and with_geometries:
+        raise ValueError(
+            "solve_batched(mesh=) does not carry per-member "
+            "geometries yet (stacked canvases need sharded blocks "
+            "per member); drop geometries= or dispatch on a single "
+            "device")
     if resolve_preconditioner(preconditioner) == "mg":
-        # The JAX package's refusals, in its words.
         if mesh is not None:
             raise ValueError(
                 "solve_batched(mesh=) composes with the Jacobi "
@@ -217,8 +234,19 @@ def _refuse_unported(geometries, verify_every, preconditioner, mode,
             "solve_batched(mesh=) does not trace the per-member "
             "integrity probe yet; run verify_every=0 on the mesh "
             "or verified buckets on a single device")
-    if with_geometries:
-        raise not_ported("geometries")
+
+
+def _member_canvases(problems, geo, dtype_name: str, scaled: bool, dev):
+    """One (a, b, rhs, aux) per member, each the fields its own
+    ``pcg_solve(p_i, geometry=g_i)`` runs on (a None spec is the
+    reference ellipse), stacked on a leading member axis."""
+    if len(geo) != len(problems):
+        raise ValueError(
+            f"geometries must have one entry per member: got "
+            f"{len(geo)} specs for batch {len(problems)}")
+    fields = [solve_fields(p, dtype_name, scaled, dev, g)
+              for p, g in zip(problems, geo)]
+    return [torch.stack(f) for f in zip(*fields)]
 
 
 def _member_ids(member_ids, batch: int) -> tuple:
@@ -269,8 +297,12 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
     package. ``verify_every`` > 0 (with ``verify_tol``, default by dtype)
     arms the integrity probe per member, on one device only; clean
     verified members equal their unverified solves bit for bit.
-    ``geometries`` and ``mode="block"`` are refused with the ROADMAP item
-    that ports them."""
+    ``geometries`` (one spec or None per member, the length of the batch)
+    gives each member its own domain: member i is
+    ``pcg_solve(problem, geometry=g_i, rhs_gate=…)`` bit for bit (with
+    the Problems form, ``pcg_solve(p_i, geometry=g_i)``); it takes no
+    ``mesh`` and no MG. ``mode="block"`` is refused with the ROADMAP item
+    that ports it."""
     _refuse_unported(geometries, verify_every, preconditioner, mode, mesh)
     if mesh is not None and device is not None:
         raise ValueError("give a mesh or a device, not both")
@@ -301,7 +333,15 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
     # operator setup) normalizes it away, as the JAX package's jit key does.
     jit_problem = problem.with_(f_val=1.0)
     config = mg_config_for(problem, preconditioner, mg_config)
-    if mesh is not None:
+    geo = None
+    # With MG or a mesh every entry is None (refused otherwise): the
+    # default domain, on the plain path.
+    if geometries is not None and config is None and mesh is None:
+        from poisson_tpu_torch.geometry.dsl import parse_geometry
+
+        geo = [None if g is None else parse_geometry(g) for g in geometries]
+    canvases = None
+    if mesh is not None or geo is not None:
         setup = None
     elif config is None:
         setup = solve_setup(jit_problem, dtype_name, use_scaled, dev,
@@ -311,25 +351,42 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
                                members=True, config=config)
 
     if member_problems is not None:
-        stack = torch.stack([member_rhs(problem, p.f_val, use_scaled, tdtype,
-                                        dev) for p in member_problems])
+        if geo is not None:
+            canvases = _member_canvases(member_problems, geo, dtype_name,
+                                        use_scaled, dev)
+            stack = canvases[2]
+        else:
+            stack = torch.stack([member_rhs(problem, p.f_val, use_scaled,
+                                            tdtype, dev)
+                                 for p in member_problems])
     elif rhs_gates is not None:
         gates = torch.as_tensor(rhs_gates, dtype=tdtype).reshape(-1)
         if gates.numel() < 1:
             raise ValueError("rhs_gates must have at least one member")
-        stack = gate_rhs(member_rhs(problem, problem.f_val, use_scaled,
-                                    tdtype, dev), gates.to(dev))
+        if geo is not None:
+            # Each member's own RHS times its gate: pcg_solve(problem,
+            # geometry=g, rhs_gate=gate)'s multiply.
+            canvases = _member_canvases([problem] * gates.numel(), geo,
+                                        dtype_name, use_scaled, dev)
+            stack = canvases[2] * gates.to(dev).reshape(-1, 1, 1)
+        else:
+            stack = gate_rhs(member_rhs(problem, problem.f_val, use_scaled,
+                                        tdtype, dev), gates.to(dev))
     else:
         stack = torch.as_tensor(rhs_stack, dtype=tdtype).to(dev)
         if stack.dim() != 3 or tuple(stack.shape[1:]) != problem.grid_shape:
             raise ValueError(
                 f"rhs_stack must be (B, {problem.grid_shape[0]}, "
                 f"{problem.grid_shape[1]}), got {tuple(stack.shape)}")
+        if geo is not None:
+            canvases = _member_canvases([jit_problem] * stack.shape[0], geo,
+                                        dtype_name, use_scaled, dev)
         if use_scaled:
             # Physical B → scaled b̃ = D^{-1/2}·B: aux is D^{-1/2} with a
-            # zero ring.
-            aux = torch.tensor(host_fields64(jit_problem, True)[3],
-                               dtype=tdtype, device=dev)
+            # zero ring (each member's own with geometries).
+            aux = (canvases[3] if canvases is not None else torch.tensor(
+                host_fields64(jit_problem, True)[3], dtype=tdtype,
+                device=dev))
             stack = stack * aux
     batch = stack.shape[0]
     origin = _member_ids(member_ids, batch)
@@ -341,11 +398,22 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
     if run > batch:
         stack = torch.cat([stack, stack.new_zeros(
             (run - batch,) + tuple(stack.shape[1:]))])
+    if canvases is not None:
+        # Padding members reuse member 0's canvases (their RHS is zero:
+        # they stop at iteration 1 whatever the operator).
+        a, b, _, aux = (torch.cat([c, c[:1].expand(
+            (run - batch,) + tuple(c.shape[1:]))]) for c in canvases)
+        setup = setup_from_fields(jit_problem, a, b, None, aux, dtype_name,
+                                  use_scaled, members=True)
 
     verify_every = int(verify_every)
     v_tol = (resolve_verify_tol(verify_tol, dtype_name)
              if verify_every > 0 else 0.0)
     key = (size, jit_problem, dtype_name, use_scaled)
+    if geo is not None:
+        # Stacked canvases are another operand signature in the JAX
+        # package, hence another executable; the fingerprints never enter.
+        key += ("geo",)
     if config is not None:
         # MG buckets are their own family, keyed with the cycle config.
         key += (("mg", config),)

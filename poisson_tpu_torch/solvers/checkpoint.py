@@ -346,22 +346,25 @@ def _chunked(problem: Problem, chunk: int, dtype, scaled, device,
              check_every: Optional[int], stagnation_window: int,
              preconditioner: str = "jacobi", mg_config=None,
              stream_every: int = 0, verify_every: int = 0,
-             verify_tol=None):
+             verify_tol=None, geometry=None):
     """(setup, advance, init) of the plain solve's chunk loop, the seam of
     every chunked driver (JAX's ``_chunk_ops_advance``): a chunk runs
     min(chunk, cap − k) steps of the body, which freezes a done state. With
     ``preconditioner="mg"`` the body carries the V-cycle. ``stream_every``
     streams from the body; ``verify_every`` arms the integrity probe with
     ``verify_tol`` (None: the dtype's default), and only then does the
-    body read the RHS. ``init`` builds the start state, so that the
-    resilient driver can rebuild a rung."""
+    body read the RHS. ``geometry`` swaps the reference ellipse's fields
+    for a spec's canvases (and, with MG, its hierarchy). ``init`` builds
+    the start state, so that the resilient driver can rebuild a rung."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     config = mg_config_for(problem, preconditioner, mg_config)
     if config is None:
-        setup = solve_setup(problem, dtype, scaled, device)
+        setup = solve_setup(problem, dtype, scaled, device,
+                            geometry=geometry)
     else:
-        setup = mg_solve_setup(problem, dtype, scaled, device, config=config)
+        setup = mg_solve_setup(problem, dtype, scaled, device, config=config,
+                               geometry=geometry)
     verify_every = int(verify_every)
     tol = (resolve_verify_tol(verify_tol, setup.dtype_name)
            if verify_every > 0 else 0.0)
@@ -433,16 +436,18 @@ def pcg_solve_chunked(problem: Problem, chunk: int = 100, dtype=None,
                       device=None, check_every: Optional[int] = None,
                       preconditioner: str = "jacobi", mg_config=None,
                       stream_every: int = 0, verify_every: int = 0,
-                      verify_tol=None) -> PCGResult:
+                      verify_tol=None, geometry=None) -> PCGResult:
     """The same chunk loop without persistence: a solve that can be
     stopped at a chunk boundary by its ``deadline`` (FLAG_DEADLINE on the
     result), with the one-shot iterates when it converges (either
-    ``preconditioner``). ``stream_every``, ``verify_every`` and
-    ``verify_tol`` are ``pcg_solve``'s."""
+    ``preconditioner``). ``stream_every``, ``verify_every``,
+    ``verify_tol`` and ``geometry`` are ``pcg_solve``'s: a geometry solve
+    chunked equals its one-shot solve bit for bit. (The checkpointed
+    driver takes no geometry, as in the JAX package.)"""
     setup, advance, init = _chunked(problem, chunk, dtype, scaled, device,
                                     check_every, stagnation_window,
                                     preconditioner, mg_config, stream_every,
-                                    verify_every, verify_tol)
+                                    verify_every, verify_tol, geometry)
     if setup.preconditioner != "jacobi":
         obs.inc("mg.solves")    # one driver call is one MG solve
     state = run_chunked(

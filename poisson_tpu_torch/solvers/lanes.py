@@ -29,13 +29,17 @@ on one shared hierarchy (``poisson_tpu_torch.mg``); a spliced member is
 the MG solve's ``init_state``, so it still equals its solo solve. As in
 the JAX package, MG lanes carry no per-lane geometries.
 
+``multi_geometry=True`` gives every lane its own canvases: a, b and aux
+are (bucket, M+1, N+1) stacks beside the state, seeded with the reference
+ellipse's, and ``splice(..., geometry=spec)`` copies the spec's
+fingerprint-cached canvases into the lane's slot in place, so the stepping
+of the other lanes is unchanged and the spliced member equals
+``pcg_solve(problem, geometry=spec, rhs_gate=…)`` bit for bit.
+
 ``verify_every`` > 0 arms the integrity probe per lane: a verified table
 carries each lane's own right-hand side beside the state (written at
 splice), so a flipped bit in one lane stops that lane alone with
 FLAG_INTEGRITY (``testing.faults.bitflip_lane`` is the drill).
-
-Not ported yet, refused with its ROADMAP item: ``multi_geometry`` (Queue 1
-item 6).
 """
 
 from __future__ import annotations
@@ -61,8 +65,9 @@ from poisson_tpu_torch.solvers.pcg import (
     gate_rhs,
     init_state,
     make_pcg_body,
-    not_ported,
     resolve_verify_tol,
+    setup_from_fields,
+    solve_fields,
     solve_setup,
 )
 
@@ -95,8 +100,8 @@ class LaneBatch:
     the schedule; any interleaving keeps identities and trajectories.
     ``preconditioner="mg"`` (with ``mg_config``) runs the V-cycle in every
     lane; ``verify_every`` > 0 (``verify_tol``, default by dtype) arms the
-    per-lane integrity probe. ``multi_geometry`` is refused with its
-    ROADMAP item."""
+    per-lane integrity probe; ``multi_geometry`` carries per-lane canvases
+    (``splice(..., geometry=)``), which MG lanes do not."""
 
     def __init__(self, problem: Problem, bucket: int, *, dtype=None,
                  scaled=None, chunk: int = 50, multi_geometry: bool = False,
@@ -112,8 +117,6 @@ class LaneBatch:
                 "preconditioner='mg' lanes do not carry per-lane "
                 "geometries yet; build a jacobi table or dispatch "
                 "geometry+MG requests solo")
-        if multi_geometry:
-            raise not_ported("geometries")
         self._mg_config = mg_config_for(problem, preconditioner, mg_config)
         self.problem = problem
         self.bucket = int(bucket)
@@ -131,6 +134,20 @@ class LaneBatch:
         self._check_every = setup.check_every
         self._rhs = member_rhs(problem, problem.f_val, setup.scaled,
                                setup.rhs.dtype, self.device)
+        self.multi_geometry = bool(multi_geometry)
+        self._unit = unit
+        if self.multi_geometry:
+            # Per-lane canvases, seeded with the reference ellipse's; an
+            # EMPTY lane keeps the last occupant's (it is frozen either
+            # way). A splice overwrites one slot of each in place.
+            self._default = solve_fields(problem, self.dtype_name,
+                                         self.use_scaled, self.device)
+            wide = (self.bucket,) + problem.grid_shape
+            self._a_stack, self._b_stack, self._aux_stack = (
+                self._default[i].expand(wide).clone() for i in (0, 1, 3))
+            self._ops = setup_from_fields(
+                unit, self._a_stack, self._b_stack, None, self._aux_stack,
+                self.dtype_name, self.use_scaled, members=True).ops
         # Every lane starts EMPTY: a zero member, stopped. Each field gets
         # its own storage (init_state aliases p with z and r with the
         # rhs), so a slot write touches one field only.
@@ -176,15 +193,19 @@ class LaneBatch:
                lane: Optional[int] = None, geometry=None) -> int:
         """EMPTY → ACTIVE: load ``member_id``'s solve into a free lane
         (the first, unless ``lane`` is given): the sequential solver's
-        ``init_state`` of ``rhs · rhs_gate``. Returns the lane."""
+        ``init_state`` of ``rhs · rhs_gate``. ``geometry`` (multi-geometry
+        tables only) puts the member's own canvases into the lane; None is
+        the reference ellipse. Returns the lane."""
         if member_id is None:
             raise ValueError("member_id must not be None (None marks an "
                              "EMPTY lane)")
         if member_id in self.origin:
             raise ValueError(f"member {member_id!r} already occupies lane "
                              f"{self.origin.index(member_id)}")
-        if geometry is not None:
-            raise not_ported("geometries")
+        if geometry is not None and not self.multi_geometry:
+            raise ValueError(
+                "this LaneBatch was built single-geometry; construct it "
+                "with multi_geometry=True to splice per-member domains")
         if lane is None:
             free = self.free_lanes()
             if not free:
@@ -193,8 +214,21 @@ class LaneBatch:
         elif self.origin[lane] is not None:
             raise ValueError(f"lane {lane} is ACTIVE (member "
                              f"{self.origin[lane]!r})")
-        rhs = gate_rhs(self._rhs, rhs_gate)
-        member = init_state(self._ops, rhs[None])
+        ops, rhs = self._ops, self._rhs
+        if self.multi_geometry:
+            # The member's own fields (pcg_solve(problem, geometry=)'s).
+            ga, gb, rhs, gaux = (
+                self._default if geometry is None else solve_fields(
+                    self.problem, self.dtype_name, self.use_scaled,
+                    self.device, geometry))
+            for stack, field in ((self._a_stack, ga), (self._b_stack, gb),
+                                 (self._aux_stack, gaux)):
+                stack[lane].copy_(field)
+            ops = setup_from_fields(self._unit, ga[None], gb[None], None,
+                                    gaux[None], self.dtype_name,
+                                    self.use_scaled, members=True).ops
+        rhs = gate_rhs(rhs, rhs_gate)
+        member = init_state(ops, rhs[None])
         if self._mg_config is not None:
             obs.inc("mg.solves")     # a lane splice is one MG solve
         self._write(lane, PCGState(*(f[0] for f in member)))
@@ -238,7 +272,8 @@ class LaneBatch:
             raise ValueError(f"lane {lane} is already EMPTY")
         member = PCGState(*(f[lane].clone() for f in self.state))
         self._write(lane, self._blank)
-        w = member.w * self._aux if self.use_scaled else member.w
+        aux = self._aux_stack[lane] if self.multi_geometry else self._aux
+        w = member.w * aux if self.use_scaled else member.w
         self.origin[lane] = None
         return LaneResult(member_id=member_id, lane=lane, w=w,
                           iterations=int(member.k), diff=float(member.diff),

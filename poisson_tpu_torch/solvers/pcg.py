@@ -47,7 +47,6 @@ from poisson_tpu_torch.models.fictitious_domain import build_fields
 from poisson_tpu_torch.ops.stencil import (
     apply_A,
     apply_Dinv,
-    diag_D,
     dot_weighted,
     member_sums,
 )
@@ -82,8 +81,8 @@ FLAG_NAMES = {
 
 # What each refused option waits for (ROADMAP Queue 1).
 _NOT_PORTED = {
-    "geometries": "per-member geometries (ROADMAP Queue 1 item 6)",
-    "geometry": "geometry= (ROADMAP Queue 1 item 6)",
+    "krylov": "krylov=, the Krylov-memory programs (ROADMAP Queue 1 "
+              "item 9)",
     "history_every": "history_every, the forecast history tap "
                      "(ROADMAP Queue 1 item 11)",
     "block": "mode='block', block CG (ROADMAP Queue 1 item 9)",
@@ -484,14 +483,10 @@ def host_fields64(problem: Problem, scaled: bool):
     (unscaled) or of D^{-1/2} (scaled); ``rhs_use`` is B or b̃ = D^{-1/2}B.
 
     Cached and shared between callers, so the arrays are read-only."""
-    a64, b64, rhs64 = build_fields(problem, dtype=np.float64)
-    d64 = diag_D(a64, b64, problem.h1, problem.h2)
-    if not scaled:
-        out = (a64, b64, rhs64, np.pad(d64, 1))
-    else:
-        inv_sqrt_d = 1.0 / np.sqrt(d64)
-        out = (a64, b64, np.pad(rhs64[1:-1, 1:-1] * inv_sqrt_d, 1),
-               np.pad(inv_sqrt_d, 1))
+    from poisson_tpu_torch.geometry.canvas import scaled_operands
+
+    out = scaled_operands(*build_fields(problem, dtype=np.float64),
+                          problem, scaled)
     for arr in out:
         arr.flags.writeable = False
     return out
@@ -544,20 +539,45 @@ class SolveSetup(NamedTuple):
     preconditioner: str = "jacobi"
 
 
+def solve_fields(problem: Problem, dtype_name: str, scaled: bool, device,
+                 geometry=None):
+    """(a, b, rhs, aux) on ``device`` in ``dtype_name``: the host fp64
+    setup of the reference ellipse cast once, or, with ``geometry``, the
+    fingerprint-cached canvases of ``geometry.canvas`` (same shapes, same
+    contract). The one setup seam of every plain solve, as the JAX
+    package's ``solve_setup``."""
+    if geometry is not None:
+        from poisson_tpu_torch.geometry.canvas import geometry_setup
+
+        return geometry_setup(problem, geometry, dtype_name, scaled, device)
+    tdtype = getattr(torch, dtype_name)
+    return tuple(torch.tensor(x, dtype=tdtype, device=device)
+                 for x in host_fields64(problem, scaled))
+
+
+def setup_from_fields(problem: Problem, a, b, rhs, aux, dtype_name: str,
+                      scaled: bool, members: bool = False) -> SolveSetup:
+    """The plain bundle over explicit fields (with ``members``, the batched
+    one; the fields may then be (B, M+1, N+1) stacks, one per member)."""
+    ops = (scaled_single_device_ops(problem, a, b, aux, members)
+           if scaled else single_device_ops(problem, a, b, aux, members))
+    return SolveSetup(ops, rhs, aux, dtype_name, scaled)
+
+
 def solve_setup(problem: Problem, dtype=None, scaled=None,
-                device=None, members: bool = False) -> SolveSetup:
+                device=None, members: bool = False,
+                geometry=None) -> SolveSetup:
     """Host fp64 setup cast once to the state precision on ``device``
     (default ``cuda``; raises without a card), and the backend bundle
-    (with ``members``, the batched one)."""
+    (with ``members``, the batched one). ``geometry`` (a
+    ``poisson_tpu_torch.geometry`` spec) swaps the reference ellipse's
+    fields for the spec's canvases."""
     dev = resolve_device(device)
     dtype_name = resolve_dtype(dtype)
     use_scaled = resolve_scaled(scaled, dtype_name)
-    tdtype = getattr(torch, dtype_name)
-    a, b, rhs, aux = (torch.tensor(x, dtype=tdtype, device=dev)
-                      for x in host_fields64(problem, use_scaled))
-    ops = (scaled_single_device_ops(problem, a, b, aux, members)
-           if use_scaled else single_device_ops(problem, a, b, aux, members))
-    return SolveSetup(ops, rhs, aux, dtype_name, use_scaled)
+    fields = solve_fields(problem, dtype_name, use_scaled, dev, geometry)
+    return setup_from_fields(problem, *fields, dtype_name, use_scaled,
+                             members)
 
 
 def gate_rhs(rhs: torch.Tensor, rhs_gate) -> torch.Tensor:
@@ -598,17 +618,21 @@ def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
     with FLAG_INTEGRITY. ``verify_tol`` defaults by dtype;
     ``verify_abft`` adds the checksum-row identity (Jacobi only, as in the
     JAX package). At 0 each is off and the loop is the plain one.
-    ``geometry=`` and ``history_every`` are refused with the ROADMAP items
-    that port them."""
+
+    ``geometry`` (a ``poisson_tpu_torch.geometry`` spec, a dict or its
+    JSON) solves that domain instead of the reference ellipse: same grid,
+    same loop, only the canvases change (fingerprint-cached,
+    ``geom.cache.*``); it composes with every option above. The default
+    spec is the no-geometry solve bit for bit. ``history_every`` is
+    refused with the ROADMAP item that ports it."""
     from poisson_tpu_torch.mg.hierarchy import mg_config_for
 
-    if geometry is not None:
-        raise not_ported("geometry")
     if int(history_every) > 0:
         raise not_ported("history_every")
     config = mg_config_for(problem, preconditioner, mg_config)
     if config is None:
-        setup = solve_setup(problem, dtype, scaled, device)
+        setup = solve_setup(problem, dtype, scaled, device,
+                            geometry=geometry)
     else:
         from poisson_tpu_torch import obs
         from poisson_tpu_torch.mg.preconditioner import mg_solve_setup
@@ -617,22 +641,31 @@ def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
             raise ValueError(
                 "verify_abft is wired for the jacobi path only; drop it "
                 "or use preconditioner='jacobi'")
-        setup = mg_solve_setup(problem, dtype, scaled, device, config=config)
+        setup = mg_solve_setup(problem, dtype, scaled, device, config=config,
+                               geometry=geometry)
         obs.inc("mg.solves")
     verify_every = int(verify_every)
     tol = (resolve_verify_tol(verify_tol, setup.dtype_name)
            if verify_every > 0 else 0.0)
     rhs = setup.rhs if rhs_gate is None else gate_rhs(setup.rhs, rhs_gate)
+    return run_setup(problem, setup, rhs, check_every=check_every,
+                     stream_every=int(stream_every),
+                     verify_every=verify_every, verify_tol=tol,
+                     verify_abft=bool(verify_abft and verify_every > 0))
+
+
+def run_setup(problem: Problem, setup: SolveSetup, rhs,
+              check_every: Optional[int] = None, **loop) -> PCGResult:
+    """The plain solve of ``rhs`` (the setup's system: b̃ when scaled) on
+    ``setup``'s bundle, the iterate mapped back to w. ``loop`` passes the
+    probe and stream options on to :func:`pcg_loop`."""
     s = pcg_loop(setup.ops, rhs, delta=problem.delta,
                  max_iter=problem.iteration_cap,
                  weighted_norm=problem.weighted_norm,
                  h1=problem.h1, h2=problem.h2,
                  check_every=(setup.check_every if check_every is None
                               else check_every),
-                 stream_every=int(stream_every), verify_every=verify_every,
-                 verify_tol=tol,
-                 verify_abft=bool(verify_abft and verify_every > 0),
-                 preconditioner=setup.preconditioner)
+                 preconditioner=setup.preconditioner, **loop)
     w = s.w * setup.aux if setup.scaled else s.w
     return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.zr,
                      flag=s.flag)

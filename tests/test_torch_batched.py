@@ -248,13 +248,12 @@ def test_mesh_rhs_stack_matches_the_unsharded_batch():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(geometries=[{"kind": "ellipse"}]), "item 6"),
     # The probe is ported; the JAX package has no mesh program for it.
     (dict(verify_every=5, mesh="2x2"), "integrity probe yet"),
     (dict(preconditioner="mg", verify_every=5, mesh="2x2"),
      "dispatch MG batches on a single device"),
     (dict(mode="block"), "item 9"),
-], ids=["geometries", "verify_every", "mg", "block"])
+], ids=["verify_every", "mg", "block"])
 def test_unported_options_are_refused_with_their_item(kwargs, item):
     if kwargs.get("mesh"):
         kwargs["mesh"] = make_solver_mesh(["cpu"] * 4, grid=(2, 2))
@@ -326,13 +325,12 @@ def test_cli_json_has_the_jax_keys_and_counts():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--geometry", '{"kind": "ellipse"}'], "item 6"),
     # The probe is ported: what stays refused is the JAX CLI's refusals.
     (["--verify-every", "-1"], "verify-every must be >= 0"),
     (["--verify-tol", "1e-3"], "pass --verify-every K to arm it"),
     (["--preconditioner", "mg", "--verify-every", "5", "--mesh", "2x2"],
      "sharded hierarchy"),
-], ids=["geometry", "verify_every", "verify_tol", "mg"])
+], ids=["verify_every", "verify_tol", "mg"])
 def test_cli_refuses_unported_flags_with_their_item(flag, item):
     from poisson_tpu_torch.cli import main
 

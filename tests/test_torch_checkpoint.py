@@ -362,13 +362,27 @@ PICK_CASES = [(dtype, visible, mesh, checkpoint, setup)
               for dtype in ("float32", "float64") for visible in (1, 4)
               for mesh in (None, (2, 2)) for checkpoint in (None, "x.npz")
               for setup in ("host", "device")]
+# The cases above keep the ids they had before geometry joined them; the
+# geometry cases (``--geometry`` given) follow with their own.
+_GEOMETRY = '{"type": "ellipse", "rx": 0.7, "ry": 0.4}'
+PICK_PARAMS = [
+    pytest.param(*case, None, id="-".join(
+        [str(case[0]), str(case[1]),
+         "None" if case[2] is None else f"mesh{i}", str(case[3]), case[4]]))
+    for i, case in enumerate(PICK_CASES)] + [
+    pytest.param(*case, _GEOMETRY, id="geometry-" + "-".join(
+        [str(case[0]), str(case[1]), "None" if case[2] is None else "mesh",
+         str(case[3]), case[4]]))
+    for case in PICK_CASES[::3]]
 
 
-@pytest.mark.parametrize("dtype,visible,mesh,checkpoint,setup", PICK_CASES)
+@pytest.mark.parametrize("dtype,visible,mesh,checkpoint,setup,geometry",
+                         PICK_PARAMS)
 def test_pick_backend_is_the_jax_choice(monkeypatch, dtype, visible, mesh,
-                                        checkpoint, setup):
+                                        checkpoint, setup, geometry):
     """``auto`` resolves as the JAX CLI's ``_pick_backend`` does on a host
-    of ``visible`` TPU chips, each JAX backend mapped to its port."""
+    of ``visible`` TPU chips, each JAX backend mapped to its port (with a
+    ``--geometry``, to the plain solve)."""
     import types
 
     import jax
@@ -377,9 +391,9 @@ def test_pick_backend_is_the_jax_choice(monkeypatch, dtype, visible, mesh,
     chip = types.SimpleNamespace(platform="tpu")
     monkeypatch.setattr(jax, "devices", lambda *a: [chip] * visible)
     args = types.SimpleNamespace(
-        backend="auto", resilient=False, geometry=None,
+        backend="auto", resilient=False, geometry=geometry,
         preconditioner="jacobi", mesh=mesh, dtype=dtype, setup=setup,
         checkpoint=checkpoint)
     want = _JAX_NAMES[jax_cli._pick_backend(args)]
     assert cli.pick_backend("auto", dtype, visible, mesh, checkpoint,
-                            setup) == want
+                            setup, geometry=geometry) == want

@@ -15,6 +15,7 @@ import torch
 
 import poisson_tpu_torch
 from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.geometry import canvas, dsl, manufactured
 from poisson_tpu_torch.mg import hierarchy as mg_hierarchy
 from poisson_tpu_torch.mg import selfcheck as mg_selfcheck
 from poisson_tpu_torch.ops import ca_cg, fused_cg, resident, serial
@@ -26,6 +27,7 @@ from poisson_tpu_torch.parallel import (
     pcg_sharded,
 )
 from poisson_tpu_torch.solvers import (
+    adjoint,
     batched,
     batched_selfcheck,
     checkpoint,
@@ -103,7 +105,9 @@ def test_no_module_imports_jax_or_the_reference():
                  "mg.cycle", "mg.preconditioner", "mg.selfcheck",
                  "integrity", "integrity.probe", "testing",
                  "testing.faults", "solvers.resilient", "solvers.history",
-                 "parallel.watchdog", "obs.stream"):
+                 "parallel.watchdog", "obs.stream", "geometry",
+                 "geometry.dsl", "geometry.canvas", "geometry.manufactured",
+                 "solvers.adjoint"):
         assert f"poisson_tpu_torch.{name}" in modules
 
 
@@ -148,6 +152,22 @@ def test_no_module_imports_jax_or_the_reference():
     lambda: batched.solve_batched(Problem(M=10, N=10), rhs_gates=[1.0],
                                   verify_every=5),
     lambda: lanes.LaneBatch(Problem(M=10, N=10), 2, verify_every=5),
+    lambda: pcg.pcg_solve(Problem(M=10, N=10),
+                          geometry={"type": "ellipse", "rx": 0.7}),
+    lambda: batched.solve_batched(Problem(M=10, N=10), rhs_gates=[1.0],
+                                  geometries=[{"type": "ellipse"}]),
+    lambda: lanes.LaneBatch(Problem(M=10, N=10), 2, multi_geometry=True),
+    lambda: checkpoint.pcg_solve_chunked(Problem(M=10, N=10),
+                                         geometry={"type": "ellipse"}),
+    lambda: canvas.geometry_setup(Problem(M=10, N=10), {"type": "ellipse"},
+                                  "float32", True),
+    lambda: manufactured.manufactured_error(manufactured.cases()[0], 10,
+                                            10),
+    lambda: adjoint.differentiable_solve(Problem(M=10, N=10),
+                                         torch.zeros(11, 11)),
+    lambda: adjoint.shape_gradient(
+        Problem(M=10, N=10), lambda q: dsl.Ellipse(rx=q[0], ry=q[1]),
+        [0.8, 0.42], lambda w: w.sum()),
 ], ids=["fused_cg_solve", "pcg_solve", "build_canvases", "resident_cg_solve",
         "ca_cg_solve", "refined_solve", "make_solver_mesh",
         "fused_cg_solve_sharded", "ca_cg_solve_sharded",
@@ -160,7 +180,10 @@ def test_no_module_imports_jax_or_the_reference():
         "LaneBatch_mg", "pcg_solve_chunked_mg", "device_hierarchy",
         "mg_selfcheck", "pcg_solve_resilient", "pcg_solve_history",
         "pcg_solve_verified", "solve_batched_verified",
-        "LaneBatch_verified"])
+        "LaneBatch_verified", "pcg_solve_geometry", "solve_batched_geometries",
+        "LaneBatch_multi_geometry", "pcg_solve_chunked_geometry",
+        "geometry_setup", "manufactured_error", "differentiable_solve",
+        "shape_gradient"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

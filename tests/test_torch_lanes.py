@@ -213,15 +213,16 @@ def test_state_carried_across_packages_finishes_with_the_same_counts(dtype):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(multi_geometry=True), "item 6"),
-    # The probe is ported: a verified table still refuses what waits.
-    (dict(verify_every=5, multi_geometry=True), "item 6"),
+    # MG lanes carry no per-lane geometries, in the JAX package's words.
     (dict(preconditioner="mg", verify_every=5, multi_geometry=True),
      "geometries"),
-], ids=["multi_geometry", "verify_every", "mg"])
+], ids=["mg"])
 def test_unported_options_are_refused_with_their_item(kwargs, item):
     with pytest.raises(ValueError, match=item):
         _lanes(bucket=2, **kwargs)
     if "multi_geometry" in kwargs:
-        with pytest.raises(ValueError, match=item):
-            _lanes(bucket=2).splice("a", 1.0, geometry={"kind": "ellipse"})
+        # A single-geometry table refuses a geometry splice, as JAX's
+        # does (poisson_tpu/solvers/lanes.py:432-435).
+        with pytest.raises(ValueError, match="built single-geometry; "
+                           "construct it with multi_geometry=True"):
+            _lanes(bucket=2).splice("a", 1.0, geometry={"type": "ellipse"})

@@ -132,12 +132,6 @@ def test_coarsening_is_jax_s_on_seeded_fields():
     np.testing.assert_array_equal(mg.coarsen_a(np.full((65, 97), 3.5)), 3.5)
 
 
-def test_geometry_is_refused_with_its_item():
-    with pytest.raises(ValueError, match="item 6"):
-        mg.device_hierarchy(Problem(M=40, N=40), "float64", False,
-                            geometry={"kind": "ellipse"}, device="cpu")
-
-
 # -- the cycle ----------------------------------------------------------
 
 
@@ -576,7 +570,8 @@ def test_cli_solve_batched_mg_matches_sequential(capsys):
 
 @pytest.mark.parametrize("extra,message", [
     (["--mesh", "2x2"], "drop --mesh"),
-    (["--geometry", '{"kind": "ellipse"}'], "co-batch"),
+    # A valid spec: the CLI parses --geometry first, as the JAX CLI does.
+    (["--geometry", '{"type": "ellipse", "rx": 0.7}'], "co-batch"),
 ], ids=["mesh", "geometry"])
 def test_cli_solve_batched_mg_refusals(extra, message):
     with pytest.raises(SystemExit, match=message):
