@@ -165,8 +165,17 @@ def manufactured_error(case: ManufacturedCase, M: int, N: int,
     Returns ``{"case", "l2", "rel", "iterations", "flag"}``; ``rel`` is the
     error relative to ‖u‖, which the per-family floors gate.
     ``preconditioner="mg"`` runs the same oracle through the V-cycle on a
-    hierarchy built from exactly the case's canvases. ``krylov`` is
-    refused with the ROADMAP item that ports it."""
+    hierarchy built from exactly the case's canvases.
+
+    ``krylov`` (a ``krylov.KrylovPolicy``) runs the same oracle through the
+    Krylov-memory programs, as the JAX package's does: ``mode="block"``
+    solves a 3-member block of the case's forcing at gates 1.0, 1.35, 0.75
+    (rank-deficient by construction) and reports the worst member against
+    its gate-scaled exact solution (adding ``flags`` and ``deficient``);
+    ``deflation=True`` harvests a basis from the cold solve of the case's
+    forcing and reports the warm deflated solve at gate 1.4 (adding
+    ``cold_iterations`` and ``basis_vectors``). Both run the jacobi body
+    only."""
     from poisson_tpu_torch.geometry.canvas import (
         build_geometry_fields,
         scaled_operands,
@@ -177,7 +186,6 @@ def manufactured_error(case: ManufacturedCase, M: int, N: int,
     )
     from poisson_tpu_torch.mg.preconditioner import CHECK_EVERY_MG, mg_ops
     from poisson_tpu_torch.solvers.pcg import (
-        not_ported,
         resolve_dtype,
         resolve_scaled,
         run_setup,
@@ -185,18 +193,38 @@ def manufactured_error(case: ManufacturedCase, M: int, N: int,
     )
     from poisson_tpu_torch.utils.platform import resolve_device
 
-    if krylov is not None:
-        raise not_ported("krylov")
     problem = Problem(M=M, N=N)
     dev = resolve_device(device)
     dtype_name = resolve_dtype(dtype)
     use_scaled = resolve_scaled(None, dtype_name)
-    config = mg_config_for(problem, preconditioner)
     a64, b64, rhs64 = build_geometry_fields(problem, case.spec,
                                             rhs_fn=case.f)
     tdtype = getattr(torch, dtype_name)
     fields = [torch.tensor(x, dtype=tdtype, device=dev)
               for x in scaled_operands(a64, b64, rhs64, problem, use_scaled)]
+
+    i_idx = np.arange(problem.M + 1)
+    j_idx = np.arange(problem.N + 1)
+    x = (problem.x_min + i_idx.astype(np.float64) * problem.h1)[:, None]
+    y = (problem.y_min + j_idx.astype(np.float64) * problem.h2)[None, :]
+    mask = case.spec.contains(x, y, np)
+
+    def rel_l2(w, gate=1.0):
+        """(l2, rel) of w − gate·u over the nodes strictly inside D (the
+        operator is linear: gate·f solves to gate·u)."""
+        u = np.where(mask, gate * case.u(x, y), 0.0)
+        w64 = w.detach().cpu().numpy().astype(np.float64)
+        werr = np.where(mask, (w64 - u) ** 2, 0.0)
+        wnorm = np.where(mask, u ** 2, 0.0)
+        scale = problem.h1 * problem.h2
+        l2 = float(np.sqrt(werr.sum() * scale))
+        norm = float(np.sqrt(wnorm.sum() * scale))
+        return l2, (l2 / norm if norm else float("inf"))
+
+    if krylov is not None:
+        return _krylov_error(case, problem, krylov, preconditioner, fields,
+                             use_scaled, rel_l2)
+    config = mg_config_for(problem, preconditioner)
     setup = setup_from_fields(problem, *fields, dtype_name, use_scaled)
     if config is not None:
         hier = hierarchy_from_fields(problem, a64, b64, dtype_name,
@@ -206,23 +234,75 @@ def manufactured_error(case: ManufacturedCase, M: int, N: int,
                        config, use_scaled),
             check_every=CHECK_EVERY_MG, preconditioner="mg")
     result = run_setup(problem, setup, setup.rhs)
-
-    i_idx = np.arange(problem.M + 1)
-    j_idx = np.arange(problem.N + 1)
-    x = (problem.x_min + i_idx.astype(np.float64) * problem.h1)[:, None]
-    y = (problem.y_min + j_idx.astype(np.float64) * problem.h2)[None, :]
-    mask = case.spec.contains(x, y, np)
-    u = np.where(mask, case.u(x, y), 0.0)
-    w64 = result.w.detach().cpu().numpy().astype(np.float64)
-    werr = np.where(mask, (w64 - u) ** 2, 0.0)
-    wnorm = np.where(mask, u ** 2, 0.0)
-    scale = problem.h1 * problem.h2
-    l2 = float(np.sqrt(werr.sum() * scale))
-    norm = float(np.sqrt(wnorm.sum() * scale))
+    l2, rel = rel_l2(result.w)
     return {
         "case": case.name,
         "l2": l2,
-        "rel": l2 / norm if norm else float("inf"),
+        "rel": rel,
         "iterations": int(result.iterations),
         "flag": int(result.flag),
+    }
+
+
+# The block gate's members and the deflation gate's warm gate (the JAX
+# package's).
+BLOCK_GATES = (1.0, 1.35, 0.75)
+DEFLATION_GATE = 1.4
+
+
+def _krylov_error(case: ManufacturedCase, problem: Problem, krylov,
+                  preconditioner: str, fields, scaled: bool,
+                  rel_l2) -> dict:
+    """The Krylov branch of :func:`manufactured_error` on the case's
+    (a, b, rhs, aux) tensors."""
+    from poisson_tpu_torch.krylov import KRYLOV_BLOCK, resolve_krylov
+
+    kp = resolve_krylov(krylov)
+    if preconditioner not in (None, "jacobi"):
+        raise ValueError(
+            "the krylov oracle gate runs the jacobi body (block/"
+            "deflated programs have no preconditioner composition "
+            f"yet); got preconditioner={preconditioner!r}")
+    A, Bc, rhs, aux = fields
+    if kp.mode == KRYLOV_BLOCK:
+        from poisson_tpu_torch.krylov.block import _solve_block
+
+        stack = torch.stack([rhs * g for g in BLOCK_GATES])
+        result = _solve_block(problem, scaled, A, Bc, stack, aux)
+        per = [rel_l2(result.w[j], g) for j, g in enumerate(BLOCK_GATES)]
+        worst = max(range(len(BLOCK_GATES)), key=lambda j: per[j][1])
+        return {
+            "case": case.name,
+            "l2": per[worst][0],
+            "rel": per[worst][1],
+            "iterations": int(result.max_iterations),
+            "flag": int(result.flag.max()),
+            "flags": [int(f) for f in result.flag],
+            "deficient": bool(result.deficient),
+        }
+    from poisson_tpu_torch.krylov.recycle import (
+        _solve_deflated,
+        _solve_harvest,
+        build_basis,
+    )
+
+    cold, y_w, V = _solve_harvest(problem, scaled, kp.harvest, A, Bc, rhs,
+                                  aux)
+    basis = build_basis(problem, scaled, A, Bc, aux, y_w, V,
+                        int(cold.iterations), kp)
+    if basis is None:
+        raise RuntimeError(
+            f"harvest produced no usable basis for {case.name} "
+            f"(cold flag {int(cold.flag)})")
+    result = _solve_deflated(problem, scaled, A, Bc, rhs * DEFLATION_GATE,
+                             aux, *basis)
+    l2, rel = rel_l2(result.w, DEFLATION_GATE)
+    return {
+        "case": case.name,
+        "l2": l2,
+        "rel": rel,
+        "iterations": int(result.iterations),
+        "flag": int(result.flag),
+        "cold_iterations": int(cold.iterations),
+        "basis_vectors": int(basis[0].shape[0]),
     }

@@ -59,8 +59,7 @@ def default_verify_collapse(preconditioner: str = "jacobi") -> float:
             else DEFAULT_VERIFY_COLLAPSE)
 
 
-# Relative drift tolerances by state dtype (the JAX package's table; the
-# port runs no bfloat16 state, the key is kept for parity).
+# Relative drift tolerances by state dtype (the JAX package's table).
 _VERIFY_TOLS = {
     "float64": 1e-6,
     # fp32 runs the scaled system, where a silent exponent flip is capped

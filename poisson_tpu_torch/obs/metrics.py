@@ -32,7 +32,23 @@ The names the port emits:
 - ``batched.solves`` / ``batched.padding_members`` /
   ``batched.bucket_cache.hits`` / ``batched.bucket_cache.misses`` and the
   gauges ``batched.last_bucket`` / ``batched.solves_per_sec`` — the
-  multi-RHS driver (``solvers.batched``) and its CLI.
+  multi-RHS driver (``solvers.batched``) and its CLI;
+- ``krylov.cache.hits`` / ``krylov.cache.misses`` /
+  ``krylov.cache.evictions`` / ``krylov.cache.invalidations`` — the
+  deflation-basis cache (``krylov.recycle``): a miss runs the harvesting
+  cold solve, a hit the warm deflated one; evictions over the byte budget,
+  invalidations for cause (each with a ``krylov.invalidate`` event);
+  ``krylov.harvests`` (converged cold solves whose window gave a basis),
+  ``krylov.warm_solves`` (warm solves that converged),
+  ``krylov.iterations_saved`` (Σ cold count − warm count) and
+  ``krylov.fallbacks`` (warm solves that did not converge and ran cold,
+  each with a ``krylov.fallback`` event); ``krylov.block.solves`` —
+  members dispatched through the block recurrence
+  (``solve_batched(mode="block")``);
+- ``session.steps`` / ``session.warm.hits`` / ``session.warm.fallbacks``
+  (with a ``session.warm.fallback`` event and its reason) /
+  ``session.setup.hits`` / ``session.setup.misses`` /
+  ``session.design.steps`` — the session steps (``solvers.session``).
 """
 
 from __future__ import annotations

@@ -25,6 +25,15 @@ import torch
 import torch.nn.functional as F
 
 
+def weak(c: float, dtype) -> float:
+    """A Python constant as it meets a ``dtype`` operand in the JAX package:
+    its weak typing rounds the constant to bfloat16 for a bf16 operand,
+    where torch would keep it in fp32. Other dtypes take it unchanged."""
+    if dtype == torch.bfloat16:
+        return float(torch.tensor(c, dtype=torch.bfloat16))
+    return c
+
+
 def interior(u):
     """Interior view u[…, 1:-1, 1:-1] (unknowns i=1..M-1, j=1..N-1)."""
     return u[..., 1:-1, 1:-1]
@@ -55,11 +64,11 @@ def apply_A(w, a, b, h1: float, h2: float):
     ax = (
         _cslice(a, slice(2, None), mid) * (w[..., 2:, 1:-1] - wc)
         - _cslice(a, mid, mid) * (wc - w[..., :-2, 1:-1])
-    ) / (h1 * h1)
+    ) / weak(h1 * h1, w.dtype)
     ay = (
         _cslice(b, mid, slice(2, None)) * (w[..., 1:-1, 2:] - wc)
         - _cslice(b, mid, mid) * (wc - w[..., 1:-1, :-2])
-    ) / (h2 * h2)
+    ) / weak(h2 * h2, w.dtype)
     return pad_interior(-(ax + ay))
 
 
@@ -85,12 +94,20 @@ def apply_Dinv(r, d):
     return pad_interior(z)
 
 
+def sum_products(u, v):
+    """Σ over the two trailing axes of u·v. The product of two bfloat16
+    values is exact in fp32, where the JAX package sums it unrounded, so
+    bf16 operands multiply in fp32 and only the sum rounds to bf16."""
+    if u.dtype == torch.bfloat16:
+        return torch.sum(u.float() * v.float(), dim=(-2, -1)).to(u.dtype)
+    return torch.sum(u * v, dim=(-2, -1))
+
+
 def dot_weighted(u, v, h1: float, h2: float):
     """Weighted inner product h1·h2·Σ_interior u·v, reduced per batch member:
     a 0-d tensor for 2D grids, shape (…,) for batched stacks."""
-    return torch.sum(
-        u[..., 1:-1, 1:-1] * v[..., 1:-1, 1:-1], dim=(-2, -1)
-    ) * (h1 * h2)
+    return sum_products(u[..., 1:-1, 1:-1], v[..., 1:-1, 1:-1]) * weak(
+        h1 * h2, u.dtype)
 
 
 # A member of a ``member_sums`` buffer starts on a multiple of this many

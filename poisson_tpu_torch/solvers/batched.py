@@ -61,8 +61,12 @@ FLAG_INTEGRITY and its batchmates run on untouched. As in the JAX package,
 the probe has no ``mesh=`` program, and ``solve_batched`` takes no
 ``stream_every`` (streaming is per-solve telemetry).
 
-Not ported yet, refused with the ROADMAP item that ports it:
-``mode="block"`` (Queue 1 item 9).
+``mode="block"`` runs the batch as one block recurrence
+(``krylov.block``, breakdown-free block CG) on ONE shared operator: at its
+exact size (a zero padding column would be pure rank deficiency), with
+``("block",)`` in its bucket key, ``krylov.block.solves`` counting its
+members and ``PCGResult.deficient`` set. As in the JAX package it takes no
+``mesh``, MG, ``verify_every`` or mixed-domain ``geometries``.
 """
 
 from __future__ import annotations
@@ -73,6 +77,9 @@ import torch
 
 from poisson_tpu_torch import obs
 from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.geometry.dsl import fingerprint_of
+from poisson_tpu_torch.krylov import KRYLOV_BLOCK, KRYLOV_MODES
+from poisson_tpu_torch.krylov.block import _solve_block
 from poisson_tpu_torch.mg.hierarchy import (
     mg_config_for,
     resolve_preconditioner,
@@ -89,7 +96,6 @@ from poisson_tpu_torch.solvers.pcg import (
     host_fields64,
     init_state,
     make_pcg_body,
-    not_ported,
     resolve_dtype,
     resolve_scaled,
     resolve_verify_tol,
@@ -200,16 +206,29 @@ def _count_bucket(key: tuple, batch: int, run: int) -> None:
     obs.gauge("batched.last_bucket", key[0])
 
 
-def _refuse_unported(geometries, verify_every, preconditioner, mode,
-                     mesh) -> None:
-    if mode not in ("independent", "block"):
-        raise ValueError(f"unknown mode {mode!r} — expected one of "
-                         "('independent', 'block')")
-    if mode == "block":
-        raise not_ported("block")
+def _refuse(geometries, verify_every, preconditioner, mode, mesh) -> None:
+    """The JAX package's refusals, in its words and its order."""
+    if mode not in KRYLOV_MODES:
+        raise ValueError(
+            f"unknown mode {mode!r} — expected one of {KRYLOV_MODES}")
+    if mode == KRYLOV_BLOCK:
+        # The block recurrence couples members through B×B solves, so it
+        # is defined for one shared operator on one device only.
+        if mesh is not None:
+            raise ValueError(
+                "mode='block' has no sharded program yet; drop mesh= "
+                "or use mode='independent'")
+        if preconditioner not in (None, "jacobi"):
+            raise ValueError(
+                "mode='block' composes with the jacobi (symmetric-"
+                f"scaling) body only; preconditioner={preconditioner!r} "
+                "has no block program — use mode='independent'")
+        if int(verify_every) > 0:
+            raise ValueError(
+                "mode='block' does not trace the per-member integrity "
+                "probe yet; run verify_every=0 or mode='independent'")
     with_geometries = geometries is not None and any(
         g is not None for g in geometries)
-    # The JAX package's refusals, in its words.
     if mesh is not None and with_geometries:
         raise ValueError(
             "solve_batched(mesh=) does not carry per-member "
@@ -301,9 +320,13 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
     gives each member its own domain: member i is
     ``pcg_solve(problem, geometry=g_i, rhs_gate=…)`` bit for bit (with
     the Problems form, ``pcg_solve(p_i, geometry=g_i)``); it takes no
-    ``mesh`` and no MG. ``mode="block"`` is refused with the ROADMAP item
-    that ports it."""
-    _refuse_unported(geometries, verify_every, preconditioner, mode, mesh)
+    ``mesh`` and no MG. ``mode="block"`` solves the batch as one block
+    recurrence (``krylov.block``) at its exact size: it needs one shared
+    operator (``geometries``, if given, all of one fingerprint) and takes
+    no ``bucket`` padding, ``mesh``, MG or ``verify_every``; its counts are
+    per-member first crossings of the coupled recurrence, not the
+    independent mode's, and ``deficient`` reports a rank truncation."""
+    _refuse(geometries, verify_every, preconditioner, mode, mesh)
     if mesh is not None and device is not None:
         raise ValueError("give a mesh or a device, not both")
     forms = sum(x is not None for x in (rhs_stack, rhs_gates))
@@ -340,8 +363,15 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
         from poisson_tpu_torch.geometry.dsl import parse_geometry
 
         geo = [None if g is None else parse_geometry(g) for g in geometries]
+        domains = len({fingerprint_of(g) for g in geo})
+        if mode == KRYLOV_BLOCK and domains != 1:
+            raise ValueError(
+                "mode='block' needs ONE shared operator: every "
+                "geometries entry must carry the same fingerprint "
+                f"(got {domains} distinct domains) — mixed-domain "
+                "batches use mode='independent'")
     canvases = None
-    if mesh is not None or geo is not None:
+    if mesh is not None or geo is not None or mode == KRYLOV_BLOCK:
         setup = None
     elif config is None:
         setup = solve_setup(jit_problem, dtype_name, use_scaled, dev,
@@ -390,6 +420,9 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
             stack = stack * aux
     batch = stack.shape[0]
     origin = _member_ids(member_ids, batch)
+    if mode == KRYLOV_BLOCK:
+        return _block(jit_problem, stack, canvases, geo is not None, bucket,
+                      dtype_name, use_scaled, dev)._replace(origin=origin)
 
     size = bucket_size(batch, buckets) if bucket is None else int(bucket)
     if size < batch:
@@ -441,6 +474,29 @@ def solve_batched(problems=None, *, rhs_stack=None, rhs_gates=None,
         w = s.w * setup.aux if use_scaled else s.w
         result = batched_result(w, s)
     return sliced(result, batch, origin)
+
+
+def _block(jit_problem: Problem, stack, canvases, with_geo: bool, bucket,
+           dtype_name: str, scaled: bool, dev) -> PCGResult:
+    """The block dispatch of a formed stack: exact size (a zero padding
+    column would be pure rank deficiency), on the one shared operator
+    (member 0's canvases with ``geometries``), counted under the block
+    family of bucket keys and ``krylov.block.solves``."""
+    batch = stack.shape[0]
+    if bucket is not None and int(bucket) != batch:
+        raise ValueError(
+            f"mode='block' dispatches exact-size blocks; bucket="
+            f"{bucket} cannot pad a batch of {batch}")
+    if canvases is not None:
+        a, b, aux = canvases[0][0], canvases[1][0], canvases[3][0]
+    else:
+        a, b, _, aux = solve_fields(jit_problem, dtype_name, scaled, dev)
+    key = (batch, jit_problem, dtype_name, scaled, ("block",))
+    if with_geo:
+        key += ("geo",)
+    _count_bucket(key, batch, batch)
+    obs.inc("krylov.block.solves", batch)
+    return _solve_block(jit_problem, scaled, a, b, stack, aux)
 
 
 def batched_result(w, s: PCGState) -> PCGResult:

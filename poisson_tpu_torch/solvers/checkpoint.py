@@ -62,6 +62,7 @@ from poisson_tpu_torch.solvers.pcg import (
     PCGResult,
     PCGState,
     drive,
+    gate_rhs,
     init_state,
     make_pcg_body,
     resolve_verify_tol,
@@ -100,9 +101,23 @@ def _fingerprint(problem: Problem, dtype_name: str, scaled: bool,
 
 
 def _host(x) -> np.ndarray:
+    """A state field as a numpy array; a bfloat16 one as its 2-byte words
+    (numpy has no bfloat16), the ``V2`` records the JAX package's files
+    hold for it."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view("V2")
+        return x.numpy()
     return np.asarray(x)
+
+
+def _tensor(arr) -> torch.Tensor:
+    """The inverse of :func:`_host`: a ``V2`` array back to bfloat16."""
+    arr = np.array(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _state_flag(state) -> Optional[int]:
@@ -190,12 +205,15 @@ def remove_generations(path: str, keep_last: int = 2) -> None:
 
 def _payload_crc(fingerprint: str, arrays: dict) -> int:
     """CRC32 over the fingerprint and, in key order, each array's key,
-    dtype string, shape string and bytes (the JAX package's rule)."""
+    dtype string, shape string and bytes (the JAX package's rule; a bf16
+    field, held as ``V2`` records, is named ``bfloat16`` as JAX names it
+    when it writes one)."""
     crc = zlib.crc32(fingerprint.encode())
     for key in sorted(arrays):
         a = np.ascontiguousarray(arrays[key])
+        dtype = "bfloat16" if a.dtype.kind == "V" else str(a.dtype)
         crc = zlib.crc32(key.encode(), crc)
-        crc = zlib.crc32(str(a.dtype).encode(), crc)
+        crc = zlib.crc32(dtype.encode(), crc)
         crc = zlib.crc32(str(a.shape).encode(), crc)
         crc = zlib.crc32(a, crc)
     return crc & 0xFFFFFFFF
@@ -272,15 +290,14 @@ def _read_state(path: str, fingerprint: str) -> PCGState:
             raise CorruptCheckpointError(
                 f"checkpoint {path} failed its integrity check (stored CRC32 "
                 f"{stored_crc:#010x}, payload {actual:#010x})")
-    dtype = vals["w"].dtype
-    scalar = lambda key, dt: torch.tensor(np.asarray(vals[key], dt))
-    arrays = {key: torch.from_numpy(np.array(vals[key]))
-              for key in ("w", "r", "z", "p")}
+    arrays = {key: _tensor(vals[key]) for key in ("w", "r", "z", "p")}
+    dtype = arrays["w"].dtype
+    scalar = lambda key, dt: _tensor(vals[key]).to(dt)
     return PCGState(
-        k=scalar("k", np.int32), done=torch.tensor(bool(vals["done"])),
+        k=scalar("k", torch.int32), done=torch.tensor(bool(vals["done"])),
         **arrays, zr=scalar("zr", dtype), diff=scalar("diff", dtype),
-        flag=scalar("flag", np.int32), best=scalar("best", dtype),
-        stall=scalar("stall", np.int32))
+        flag=scalar("flag", torch.int32), best=scalar("best", dtype),
+        stall=scalar("stall", torch.int32))
 
 
 def load_state_any(path: str, fingerprints, keep_last: int = 2,
@@ -346,7 +363,7 @@ def _chunked(problem: Problem, chunk: int, dtype, scaled, device,
              check_every: Optional[int], stagnation_window: int,
              preconditioner: str = "jacobi", mg_config=None,
              stream_every: int = 0, verify_every: int = 0,
-             verify_tol=None, geometry=None):
+             verify_tol=None, geometry=None, rhs_gate=None):
     """(setup, advance, init) of the plain solve's chunk loop, the seam of
     every chunked driver (JAX's ``_chunk_ops_advance``): a chunk runs
     min(chunk, cap − k) steps of the body, which freezes a done state. With
@@ -354,8 +371,10 @@ def _chunked(problem: Problem, chunk: int, dtype, scaled, device,
     streams from the body; ``verify_every`` arms the integrity probe with
     ``verify_tol`` (None: the dtype's default), and only then does the
     body read the RHS. ``geometry`` swaps the reference ellipse's fields
-    for a spec's canvases (and, with MG, its hierarchy). ``init`` builds
-    the start state, so that the resilient driver can rebuild a rung."""
+    for a spec's canvases (and, with MG, its hierarchy). ``rhs_gate``
+    scales the RHS after setup, as ``pcg_solve`` does; the returned
+    setup carries the gated RHS. ``init`` builds the start state, so that
+    the resilient driver can rebuild a rung."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     config = mg_config_for(problem, preconditioner, mg_config)
@@ -365,6 +384,8 @@ def _chunked(problem: Problem, chunk: int, dtype, scaled, device,
     else:
         setup = mg_solve_setup(problem, dtype, scaled, device, config=config,
                                geometry=geometry)
+    if rhs_gate is not None:
+        setup = setup._replace(rhs=gate_rhs(setup.rhs, rhs_gate))
     verify_every = int(verify_every)
     tol = (resolve_verify_tol(verify_tol, setup.dtype_name)
            if verify_every > 0 else 0.0)
@@ -436,18 +457,21 @@ def pcg_solve_chunked(problem: Problem, chunk: int = 100, dtype=None,
                       device=None, check_every: Optional[int] = None,
                       preconditioner: str = "jacobi", mg_config=None,
                       stream_every: int = 0, verify_every: int = 0,
-                      verify_tol=None, geometry=None) -> PCGResult:
+                      verify_tol=None, geometry=None,
+                      rhs_gate=None) -> PCGResult:
     """The same chunk loop without persistence: a solve that can be
     stopped at a chunk boundary by its ``deadline`` (FLAG_DEADLINE on the
     result), with the one-shot iterates when it converges (either
     ``preconditioner``). ``stream_every``, ``verify_every``,
-    ``verify_tol`` and ``geometry`` are ``pcg_solve``'s: a geometry solve
-    chunked equals its one-shot solve bit for bit. (The checkpointed
-    driver takes no geometry, as in the JAX package.)"""
+    ``verify_tol``, ``geometry`` and ``rhs_gate`` are ``pcg_solve``'s: a
+    geometry or gated solve chunked equals its one-shot solve bit for bit
+    (the probe checks the gated RHS). (The checkpointed driver takes no
+    geometry, as in the JAX package.)"""
     setup, advance, init = _chunked(problem, chunk, dtype, scaled, device,
                                     check_every, stagnation_window,
                                     preconditioner, mg_config, stream_every,
-                                    verify_every, verify_tol, geometry)
+                                    verify_every, verify_tol, geometry,
+                                    rhs_gate)
     if setup.preconditioner != "jacobi":
         obs.inc("mg.solves")    # one driver call is one MG solve
     state = run_chunked(

@@ -49,6 +49,8 @@ from poisson_tpu_torch.ops.stencil import (
     apply_Dinv,
     dot_weighted,
     member_sums,
+    sum_products,
+    weak,
 )
 from poisson_tpu_torch.utils.platform import resolve_device
 
@@ -81,11 +83,8 @@ FLAG_NAMES = {
 
 # What each refused option waits for (ROADMAP Queue 1).
 _NOT_PORTED = {
-    "krylov": "krylov=, the Krylov-memory programs (ROADMAP Queue 1 "
-              "item 9)",
     "history_every": "history_every, the forecast history tap "
                      "(ROADMAP Queue 1 item 11)",
-    "block": "mode='block', block CG (ROADMAP Queue 1 item 9)",
 }
 
 
@@ -133,7 +132,8 @@ class PCGResult(NamedTuple):
     """Solve result. A batched solve (``solvers.batched``) returns the same
     type with a leading batch axis on ``w``/``iterations``/``diff``/
     ``residual_dot``/``flag``, plus ``max_iterations`` (the count the batch
-    loop ran, its slowest member's) and ``origin`` (one id per member)."""
+    loop ran, its slowest member's) and ``origin`` (one id per member). A
+    block solve (``krylov.block``) also sets ``deficient``."""
 
     w: torch.Tensor            # full (…, M+1, N+1) solution grid(s)
     iterations: torch.Tensor   # iteration count; a vector when batched
@@ -146,6 +146,9 @@ class PCGResult(NamedTuple):
     # taken and the ((iteration, verdict, action), …) history.
     restarts: object = None
     recovery_history: tuple = ()
+    # Block solves only: whether the B×B coefficient solves truncated a
+    # rank-deficient direction (a bool tensor); None on every other path.
+    deficient: object = None
 
 
 def iterations_scalar(iterations) -> int:
@@ -288,7 +291,8 @@ def make_pcg_member_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
         w_new = s.w + dw
         r_new = s.r - alpha * Ap
         sq = ops.sqnorm(dw)
-        diff = torch.sqrt(sq * (h1 * h2)) if weighted_norm else torch.sqrt(sq)
+        diff = (torch.sqrt(sq * weak(h1 * h2, sq.dtype)) if weighted_norm
+                else torch.sqrt(sq))
 
         z_new = ops.apply_Dinv(r_new)
         zr_new = ops.dot(z_new, r_new)
@@ -432,9 +436,8 @@ def single_device_ops(problem: Problem, a, b, aux,
         sqnorm = lambda u: member_sums(torch.mul, u[..., 1:-1, 1:-1],
                                        u[..., 1:-1, 1:-1])
     else:
-        sqnorm = lambda u: torch.sum(
-            u[..., 1:-1, 1:-1] * u[..., 1:-1, 1:-1], dim=(-2, -1)
-        )
+        sqnorm = lambda u: sum_products(u[..., 1:-1, 1:-1],
+                                        u[..., 1:-1, 1:-1])
     return PCGOps(
         apply_A=lambda p: apply_A(p, a, b, h1, h2),
         apply_Dinv=lambda r: apply_Dinv(r, d),
@@ -447,7 +450,8 @@ def _dot(h1: float, h2: float, members: bool):
     """The weighted inner product; per member with ``members``."""
     if members:
         return lambda u, v: member_sums(
-            torch.mul, u[..., 1:-1, 1:-1], v[..., 1:-1, 1:-1]) * (h1 * h2)
+            torch.mul, u[..., 1:-1, 1:-1], v[..., 1:-1, 1:-1]) * weak(
+                h1 * h2, u.dtype)
     return lambda u, v: dot_weighted(u, v, h1, h2)
 
 
@@ -466,8 +470,9 @@ def scaled_single_device_ops(problem: Problem, a, b, sc,
         sqnorm = lambda u: member_sums(torch.pow,
                                        (u * sc)[..., 1:-1, 1:-1], 2)
     else:
-        sqnorm = lambda u: torch.sum((u * sc)[..., 1:-1, 1:-1] ** 2,
-                                     dim=(-2, -1))
+        def sqnorm(u):
+            v = (u * sc)[..., 1:-1, 1:-1]
+            return sum_products(v, v)
     return PCGOps(
         apply_A=lambda p: apply_A(p * sc, a, b, h1, h2) * sc,
         apply_Dinv=lambda r: r,
@@ -492,17 +497,25 @@ def host_fields64(problem: Problem, scaled: bool):
     return out
 
 
+STATE_DTYPES = ("bfloat16", "float32", "float64")
+
+
 def resolve_dtype(dtype) -> str:
     """The state precision's name. ``None`` is float64: unlike JAX without
-    x64, PyTorch always has it, and fp64 Jacobi is the oracle mode."""
+    x64, PyTorch always has it, and fp64 Jacobi is the oracle mode.
+    ``bfloat16`` runs the scaled system on the plain paths, as in the JAX
+    package; the kernel backends take fp32 only."""
     if dtype is None:
         return "float64"
     if isinstance(dtype, torch.dtype):
         name = str(dtype).removeprefix("torch.")
+    elif str(dtype) == "bfloat16":
+        name = "bfloat16"      # numpy alone has no bfloat16
     else:
         name = np.dtype(dtype).name
-    if name not in ("float32", "float64"):
-        raise ValueError(f"dtype must be float32 or float64, got {dtype!r}")
+    if name not in STATE_DTYPES:
+        raise ValueError(f"dtype must be bfloat16, float32 or float64, got "
+                         f"{dtype!r}")
     return name
 
 

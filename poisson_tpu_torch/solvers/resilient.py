@@ -23,9 +23,8 @@ Faults are injected between chunks through the ``on_chunk`` hook
 (``testing.faults``). The warnings' texts, the diagnostics and the
 counters (``resilient.*``, ``integrity.*``) are the JAX package's.
 
-The ladder keeps the JAX package's ``bfloat16`` rung for parity, but the
-port's state is fp32 or fp64 only: a ``bfloat16`` request raises as
-``pcg_solve`` does.
+The ladder is the JAX package's, ``bfloat16`` rung included: a bf16 solve
+runs the scaled system in bf16 and climbs to fp32, then fp64.
 """
 
 from __future__ import annotations

@@ -221,6 +221,75 @@ def test_chunked_plain_solve_equals_one_shot():
     np.testing.assert_allclose(one.w.numpy(), np.asarray(want), atol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_chunked_rhs_gate_is_jax_s(dtype):
+    """Fault 3: ``pcg_solve_chunked(rhs_gate=)`` scales the RHS after setup
+    as the JAX package does: 48 iterations at 40x40, the port's own gated
+    one-shot solve bit for bit, JAX's chunked iterate within 1e-12 (fp64)
+    or 1e-6 of JAX's fp64 one (fp32)."""
+    p = Problem(M=40, N=40)
+    got = ck.pcg_solve_chunked(p, chunk=16, rhs_gate=0.5, dtype=dtype,
+                               device="cpu")
+    one = pcg_solve(p, rhs_gate=0.5, dtype=dtype, device="cpu")
+    want = jck.pcg_solve_chunked(JaxProblem(M=40, N=40), chunk=16,
+                                 rhs_gate=0.5, dtype="float64")
+    assert int(got.iterations) == int(want.iterations) == 48
+    assert int(got.flag) == int(want.flag) == 1
+    assert torch.equal(got.w, one.w)
+    np.testing.assert_allclose(got.w.double().numpy(), np.asarray(want.w),
+                               rtol=0,
+                               atol=1e-12 if dtype == "float64" else 1e-6)
+
+
+@pytest.mark.parametrize("extra", ["geometry", "mg", "verify"])
+def test_chunked_rhs_gate_composes(extra):
+    """The gate composes with ``geometry=``, MG and the integrity probe
+    (which checks the gated RHS): each chunked solve is its one-shot
+    solve bit for bit."""
+    from poisson_tpu_torch.geometry.dsl import Ellipse
+
+    p = Problem(M=32, N=48)
+    kw = {"geometry": dict(geometry=Ellipse(cx=0.1, rx=0.7, ry=0.4)),
+          "mg": dict(preconditioner="mg"),
+          "verify": dict(verify_every=5)}[extra]
+    got = ck.pcg_solve_chunked(p, chunk=4, rhs_gate=1.7, dtype="float32",
+                               device="cpu", **kw)
+    one = pcg_solve(p, rhs_gate=1.7, dtype="float32", device="cpu", **kw)
+    assert int(got.flag) == int(one.flag) == 1
+    assert int(got.iterations) == int(one.iterations)
+    assert torch.equal(got.w, one.w)
+
+
+def test_bfloat16_files_are_jax_s(tmp_path):
+    """Fault 4: a bf16 state's file holds its 2-byte words as ``V2``
+    records, as the JAX package writes them (its own reader turns ``V2``
+    away, so JAX's bf16 files are write-only there): same keys, types and
+    bytes as JAX's file of the same run; the port reads JAX's file and its
+    own, and a chunked bf16 solve equals the one-shot one bit for bit."""
+    p, jp = Problem(M=40, N=40, max_iter=15), JaxProblem(M=40, N=40,
+                                                         max_iter=15)
+    fp = ck._fingerprint(p, "bfloat16", True)
+    mine, theirs = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    ck.pcg_solve_checkpointed(p, mine, chunk=5, dtype="bfloat16",
+                              device="cpu")
+    jck.pcg_solve_checkpointed(jp, theirs, chunk=5, dtype="bfloat16")
+    with np.load(mine) as a, np.load(theirs) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype, key
+            assert a[key].tobytes() == b[key].tobytes(), key
+        assert a["w"].dtype == np.dtype("V2")
+    for path in (mine, theirs):
+        state = ck._read_state(path, fp)
+        assert int(state.k) == 15
+        assert state.w.dtype == state.zr.dtype == torch.bfloat16
+    one = pcg_solve(Problem(M=40, N=40), dtype="bfloat16", device="cpu")
+    chunked = ck.pcg_solve_chunked(Problem(M=40, N=40), chunk=16,
+                                   dtype="bfloat16", device="cpu")
+    assert int(chunked.iterations) == int(one.iterations)
+    assert torch.equal(chunked.w, one.w)
+
+
 def test_checkpointed_plain_solve_equals_one_shot(tmp_path):
     p = Problem(M=40, N=40)
     path = str(tmp_path / "ck.npz")

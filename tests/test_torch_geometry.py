@@ -427,9 +427,14 @@ def test_manufactured_error_under_mg_is_jax_s(name):
 
 
 def test_manufactured_error_refuses_krylov():
-    with pytest.raises(ValueError, match="item 9"):
+    """The Krylov gate is ported; as in the JAX package it runs the jacobi
+    body only, and refuses MG in its words."""
+    from poisson_tpu_torch.krylov import KrylovPolicy
+
+    with pytest.raises(ValueError, match="jacobi"):
         manufactured.manufactured_error(manufactured.cases()[0], 16, 16,
-                                        krylov="block", **CPU)
+                                        krylov=KrylovPolicy(mode="block"),
+                                        preconditioner="mg", **CPU)
 
 
 # -- multigrid with a geometry ----------------------------------------------

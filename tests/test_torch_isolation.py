@@ -26,6 +26,7 @@ from poisson_tpu_torch.parallel import (
     mesh,
     pcg_sharded,
 )
+from poisson_tpu_torch.krylov import KrylovPolicy, recycle
 from poisson_tpu_torch.solvers import (
     adjoint,
     batched,
@@ -36,6 +37,7 @@ from poisson_tpu_torch.solvers import (
     pcg,
     refine,
     resilient,
+    session,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -107,7 +109,8 @@ def test_no_module_imports_jax_or_the_reference():
                  "testing.faults", "solvers.resilient", "solvers.history",
                  "parallel.watchdog", "obs.stream", "geometry",
                  "geometry.dsl", "geometry.canvas", "geometry.manufactured",
-                 "solvers.adjoint"):
+                 "solvers.adjoint", "krylov", "krylov.block",
+                 "krylov.recycle", "solvers.session"):
         assert f"poisson_tpu_torch.{name}" in modules
 
 
@@ -168,6 +171,21 @@ def test_no_module_imports_jax_or_the_reference():
     lambda: adjoint.shape_gradient(
         Problem(M=10, N=10), lambda q: dsl.Ellipse(rx=q[0], ry=q[1]),
         [0.8, 0.42], lambda w: w.sum()),
+    lambda: batched.solve_batched(Problem(M=10, N=10), rhs_gates=[1.0, 2.0],
+                                  mode="block"),
+    lambda: recycle.solve_recycled(Problem(M=10, N=10)),
+    lambda: recycle.has_basis(Problem(M=10, N=10)),
+    lambda: manufactured.manufactured_error(
+        manufactured.cases()[0], 10, 10, krylov=KrylovPolicy(mode="block")),
+    lambda: session.session_step_solve(Problem(M=10, N=10)),
+    lambda: session.session_step_solve(Problem(M=10, N=10), mass_shift=1.0),
+    lambda: session.shifted_setup(Problem(M=10, N=10), None, "float64",
+                                  False, 1.0),
+    lambda: session.design_step(
+        Problem(M=10, N=10), {"cx": 0.0, "cy": 0.0, "rx": 0.8, "ry": 0.4},
+        torch.zeros(11, 11), 0.1),
+    lambda: checkpoint.pcg_solve_chunked(Problem(M=10, N=10), rhs_gate=0.5),
+    lambda: pcg.pcg_solve(Problem(M=10, N=10), dtype="bfloat16"),
 ], ids=["fused_cg_solve", "pcg_solve", "build_canvases", "resident_cg_solve",
         "ca_cg_solve", "refined_solve", "make_solver_mesh",
         "fused_cg_solve_sharded", "ca_cg_solve_sharded",
@@ -183,7 +201,10 @@ def test_no_module_imports_jax_or_the_reference():
         "LaneBatch_verified", "pcg_solve_geometry", "solve_batched_geometries",
         "LaneBatch_multi_geometry", "pcg_solve_chunked_geometry",
         "geometry_setup", "manufactured_error", "differentiable_solve",
-        "shape_gradient"])
+        "shape_gradient", "solve_batched_block", "solve_recycled",
+        "has_basis", "manufactured_error_krylov", "session_step_solve",
+        "session_step_solve_heat", "shifted_setup", "design_step",
+        "pcg_solve_chunked_rhs_gate", "pcg_solve_bfloat16"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -165,10 +165,86 @@ def test_ladder_and_policy_equal_jax():
     assert resilient._LADDER == jax_resilient._LADDER
     assert resilient._rungs_above("float32") == ["float64"]
     assert resilient._rungs_above("float64") == []
+    assert resilient._rungs_above("bfloat16") == ["float32", "float64"]
     assert resilient.RecoveryPolicy() == resilient.RecoveryPolicy(
         **vars(jax_resilient.RecoveryPolicy()))
-    with pytest.raises(ValueError, match="float32 or float64"):
-        resilient.pcg_solve_resilient(P, dtype="bfloat16", device="cpu")
+    # The ladder's first rung runs: a bf16 resilient solve is JAX's, its
+    # count and every bit of its iterate (the port rounds where XLA does).
+    got = resilient.pcg_solve_resilient(P, dtype="bfloat16", device="cpu")
+    want = jax_resilient.pcg_solve_resilient(JP, dtype="bfloat16")
+    assert got.w.dtype == torch.bfloat16
+    assert int(got.flag) == int(want.flag) == FLAG_CONVERGED
+    assert int(got.iterations) == int(want.iterations)
+    assert got.recovery_history == want.recovery_history == ()
+    np.testing.assert_array_equal(got.w.float().numpy(),
+                                  np.asarray(want.w, np.float32))
+
+
+@pytest.mark.parametrize("grid", [(40, 40), (400, 600)])
+def test_bfloat16_plain_solve_is_jax_s(grid):
+    """Fault 4: the plain bf16 solve rounds where XLA does (every op in
+    bf16, products summed unrounded in fp32, Python constants weakly typed
+    to bf16), so it gives JAX's count (61 and 859 on the CPU) and flag,
+    and lies as far from the fp64 solve as JAX's does (1.9e-3, 1.57e-2).
+    The count may move with a sum order that flips one bf16 rounding: the
+    allowance is 2%; the distance is held to 2x JAX's."""
+    from poisson_tpu.solvers.pcg import pcg_solve as jax_pcg_solve
+
+    got = pcg_solve(Problem(*grid), dtype="bfloat16", device="cpu")
+    want = jax_pcg_solve(JaxProblem(*grid), dtype="bfloat16")
+    ref = pcg_solve(Problem(*grid), dtype="float64", device="cpu").w.numpy()
+    assert got.w.dtype == torch.bfloat16
+    assert int(got.flag) == int(want.flag) == FLAG_CONVERGED
+    assert abs(int(got.iterations) - int(want.iterations)) <= 0.02 * int(
+        want.iterations)
+    gap = np.abs(got.w.double().numpy() - ref).max()
+    jax_gap = np.abs(np.asarray(want.w, np.float64) - ref).max()
+    assert gap <= 2 * jax_gap
+
+
+def test_kernel_backends_refuse_bfloat16():
+    """The kernel backends take fp32 only, and say so for bf16 as for fp64;
+    both CLIs keep the JAX package's --dtype choices (bf16 is API only)."""
+    from poisson_tpu.cli import main as jax_cli_main
+    from poisson_tpu_torch import cli
+    from poisson_tpu_torch.ops import fused_cg
+
+    cv, *_ = fused_cg.build_canvases(Problem(M=40, N=40), "cpu")
+    z = torch.zeros((cv.rows, cv.cols), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="must be float32, got "
+                                         "torch.bfloat16"):
+        fused_cg.fused_update(cv, torch.zeros(1), z, z, z, z, z)
+    for main in (cli.main, jax_cli_main):
+        with pytest.raises(SystemExit) as e:
+            main(["40", "40", "--dtype", "bfloat16"])
+        assert e.value.code == 2
+
+
+def test_bfloat16_resilient_escalates_as_jax_does():
+    """Fault 4's reference: at 400x600 the bf16 solve stagnates twice with
+    the default policy and finishes in fp32, as the JAX package's does:
+    the same history, count and final dtype (on the CPU: 1750, with
+    ((724, stagnated, restart@bfloat16), (1224, stagnated,
+    escalate->float32)))."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = resilient.pcg_solve_resilient(Problem(400, 600),
+                                            dtype="bfloat16", device="cpu")
+        want = jax_resilient.pcg_solve_resilient(JaxProblem(400, 600),
+                                                 dtype="bfloat16")
+    assert [h[1:] for h in got.recovery_history] == [
+        h[1:] for h in want.recovery_history] == [
+        ("stagnated", "restart@bfloat16"),
+        ("stagnated", "escalate->float32")]
+    assert got.w.dtype == torch.float32
+    assert int(got.flag) == int(want.flag) == FLAG_CONVERGED
+    # Counts: equal on this drill (bf16 rounds at XLA's points); a sum
+    # order that flips one bf16 rounding may move a bf16 count, so the
+    # allowance is 2% (see CHANGES.md).
+    for g, w in zip(got.recovery_history, want.recovery_history):
+        assert abs(g[0] - w[0]) <= 0.02 * w[0]
+    assert abs(int(got.iterations) - int(want.iterations)) <= 0.02 * int(
+        want.iterations)
 
 
 def _escalate_then_preempt(inject, preempted):
