@@ -165,6 +165,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      32×32, against JAX's zero and forward mode at 400×600, with forward +
      adjoint seconds beside one forward solve; a "geometry phase" seconds
      line;
+   - the measurement phase (``poisson_tpu_torch.bench``, ``native``,
+     ``obs.costs``, ``obs.forecast``): the bench's flagship record at
+     800×1200 on the fused path (kernels A and B, launched exactly once per
+     driven step of its warm-up and three timed solves), 989 iterations,
+     no platform fallback, a ``costs.roofline`` block whose bytes model is
+     A + B's bytes (``obs.costs`` and this script's own formula agree) and
+     whose fraction of the card's bandwidth lies in (0, 1.05]; the
+     ``--batch 16``, ``--preconditioner mg`` and ``--verify-every 5``
+     records at 400×600 with their counts; the native fp64 oracle on the
+     card's host at 400×600, 546 iterations on one thread (±1 on the
+     default team), within 1e-10 of the card's fp64 plain solve, seconds
+     of each and ``has_openmp``; ``pcg_solve(history_every=50)`` fp32 at
+     800×1200 bit for bit with it off, µs per iteration of each in turns,
+     and the forecast remaining iterations at the halfway sample beside
+     the true remainder;
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events, and for kernel S ``torch.sum`` over the same partials
@@ -178,7 +193,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    solve at 800×1200 (launches, device and wall µs per iteration, the
    device's idle share), and of 64 fp32 flagship iterations plain, with
    ``verify_every=5`` and with ``stream_every=32`` (launches and device
-   µs per iteration);
+   µs per iteration); then the measurement phase's profiled part:
+   ``obs.profile.capture`` around one fused flagship solve (A and B once
+   per driven step), whose exported trace must name
+   ``direction_stencil_kernel`` and ``fused_update_kernel``; launches and
+   device µs per iteration of 128 capped fp32 iterations with
+   ``history_every`` 0 and 50; and this run's counters and gauges through
+   ``obs.export``: the textfile parses back to every numeric value, the
+   ``/metrics`` endpoint on 127.0.0.1 serves every one, and the ``top``
+   scoreboard renders from it;
 6. a ``kernels`` JSON line (twelve kernels), then the ``ok`` JSON line last.
 
 Without a CUDA device, or run outside a checkout (no ``poisson_tpu_torch``
@@ -515,6 +538,16 @@ KRY_BF16_JAX_GAP = 1.57e-2       # JAX's bf16 iterate from fp64 (2x held)
 KRY_BF16_JAX_HISTORY = ((724, "stagnated", "restart@bfloat16"),
                         (1224, "stagnated", "escalate->float32"))
 KRY_PROFILE_ITERS = 32           # the profiled capped block solve
+# The measurement phase (the bench's records, the native oracle, the
+# history seam, the profiler capture and the Prometheus exposition).
+MEAS_BATCH = 16                  # bench --batch, at the bench's 400x600
+MEAS_VERIFY = 5                  # bench --verify-every
+MEAS_NATIVE = (400, 600, 546)    # the oracle's grid and golden count
+MEAS_NATIVE_TOL = 1e-10          # oracle vs the card's fp64 plain solve
+MEAS_HISTORY = 50                # history_every of the flagship fp32 solve
+MEAS_HISTORY_ITERS = 128         # capped solves profiled with it off and on
+FRACTION_MAX = 1.05              # a larger roofline share is a fault
+
 
 def ptxas_report(log: str, symbol: str) -> dict | None:
     """Registers, shared memory, stack frame and spill bytes of the CUDA
@@ -656,7 +689,12 @@ def timer(results: dict, name: str, tag: str, run, plain, reps: int,
             library_ms = (kernel_device_ms(library, reps, None)
                           or events_ms(library, reps))
         if nbytes is None:
-            moved = (kernel.passes * points + kernel.extra_rows * cols) * 4
+            from poisson_tpu_torch.obs import costs
+
+            moved = costs.kernel_bytes(name, points, cols)
+            formula = (kernel.passes * points + kernel.extra_rows * cols) * 4
+            check(moved == formula, f"{name} {tag}: obs.costs bytes {moved} "
+                                    f"!= the smoke's formula {formula}")
         else:
             moved = nbytes
         bound_bytes_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -2372,6 +2410,221 @@ def check_resilience(pcg_solve, metrics, card: str) -> None:
         for name, secs in each.items()}), flush=True)
 
 
+def ab_bytes(fc, problem) -> tuple[int, int]:
+    """Kernels A + B's bytes per iteration at ``problem``'s flagship canvas:
+    (from ``obs.costs``, the smoke's own formula on ``KERNELS``)."""
+    from poisson_tpu_torch.obs import costs
+
+    cv = fc.canvas_spec(problem)
+    points = band_points(fc, cv)
+    names = ("direction_stencil", "fused_update")
+    return (sum(costs.kernel_bytes(n, points, cv.cols) for n in names),
+            sum((KERNELS[n].passes * points + KERNELS[n].extra_rows
+                 * cv.cols) * 4 for n in names))
+
+
+def check_front_door(fc, pcg_solve, fp64: dict, card: str) -> int:
+    """The measurement phase's timed part, before any profiler session:
+    the bench's flagship record (kernels A and B) and its ``--batch``,
+    ``--preconditioner mg`` and ``--verify-every`` records, the native
+    oracle on the card's host, and the history seam's cost. Returns the
+    launches of A and B it drove."""
+    from poisson_tpu_torch import bench
+    from poisson_tpu_torch.config import FLAGSHIP, Problem
+    from poisson_tpu_torch.native import build, has_openmp, native_solve
+    from poisson_tpu_torch.obs import forecast
+    from poisson_tpu_torch.solvers.pcg import CHECK_EVERY
+
+    dev = torch.device("cuda")
+    rec = bench.flagship_record(FLAGSHIP, dev)
+    print(f"bench record flagship [{card}]: {json.dumps(rec)}", flush=True)
+    det = rec["detail"]
+    check(det["iterations"] == 989,
+          f"bench flagship: {det['iterations']} iterations, expected 989")
+    check(det["platform_fallback"] is False and det["platform"] == "gpu"
+          and det["backend"] == "fused",
+          f"bench flagship: platform/backend {det}")
+    roof = (rec.get("costs") or {}).get("roofline")
+    check(roof is not None, "bench flagship: no costs.roofline block")
+    model, formula = ab_bytes(fc, FLAGSHIP)
+    check(model == formula, f"obs.costs A + B bytes {model} != the smoke's "
+                            f"formula {formula}")
+    check(roof["bytes_per_iter_model"] == model,
+          f"bench flagship: bytes model {roof['bytes_per_iter_model']}, "
+          f"A + B move {model}")
+    frac = roof["fraction"]
+    check(frac is not None and 0.0 < frac <= FRACTION_MAX,
+          f"bench flagship: roofline fraction {frac} outside (0, "
+          f"{FRACTION_MAX}]")
+    launches = (1 + bench.REPEATS) * driven_steps(989, FLAGSHIP.iteration_cap,
+                                                  CHECK_EVERY)
+    mid = Problem(*bench.MODE_GRID)
+    for mode, record in (
+            (f"--batch {MEAS_BATCH}",
+             lambda: bench.batched_record(mid, MEAS_BATCH, dev)),
+            ("--preconditioner mg",
+             lambda: bench.preconditioner_record(mid, "mg", dev)),
+            (f"--verify-every {MEAS_VERIFY}",
+             lambda: bench.verify_record(mid, MEAS_VERIFY, dev))):
+        rec = record()
+        print(f"bench record {mode} [{card}]: {json.dumps(rec)}", flush=True)
+        d = rec["detail"]
+        check(d["platform_fallback"] is False and d["platform"] == "gpu",
+              f"bench {mode}: platform {d['platform']}")
+        if "batch" in d:
+            check(d["iterations"] == 546 and d["iterations_match_sequential"]
+                  and d["converged"] == MEAS_BATCH,
+                  f"bench {mode}: {d}")
+        elif "preconditioner_ab" in d:
+            ab = d["preconditioner_ab"]
+            check(ab["jacobi"]["iterations"] == 546
+                  and ab["mg"]["iterations"] == 14,
+                  f"bench {mode}: counts {ab}")
+        else:
+            check(d["iterations"] == d["iterations_baseline"] == 546,
+                  f"bench {mode}: counts {d}")
+
+    # The fp64 oracle on the card's host, against the card's fp64 plain
+    # solve.
+    M, N, golden = MEAS_NATIVE
+    p = Problem(M=M, N=N)
+    t0 = time.perf_counter()
+    build()
+    build_s = time.perf_counter() - t0
+    one, one_s = timed(lambda: native_solve(p, num_threads=1))
+    team, team_s = timed(lambda: native_solve(p))
+    want = fp64[p].w.double().cpu().numpy()
+    gap = float(np.abs(one.w - want).max())
+    print(f"native {M}x{N} [{card}]: " + json.dumps({
+        "build_seconds": build_s, "has_openmp": has_openmp(),
+        "threads_1": {"iterations": one.iterations, "seconds": one_s},
+        "default_team": {"iterations": team.iterations, "seconds": team_s,
+                         "threads": os.cpu_count()},
+        "max_diff_vs_card_fp64": gap}), flush=True)
+    check(one.iterations == golden, f"native {M}x{N}: {one.iterations} "
+                                    f"iterations, expected {golden}")
+    check(abs(team.iterations - golden) <= 1,
+          f"native {M}x{N} default team: {team.iterations} iterations")
+    check(gap <= MEAS_NATIVE_TOL, f"native {M}x{N}: iterate {gap} from the "
+                                  "card's fp64 plain solve")
+
+    # The history seam on the flagship fp32 plain solve: bit for bit with it
+    # off, seconds of each, and the forecast at the halfway sample.
+    buf = forecast.HistoryBuffer()
+    prev = forecast.set_history(buf)
+    try:
+        runs = {}
+        for every in (0, MEAS_HISTORY) * 3:                 # in turns
+            buf.samples.clear()
+            runs.setdefault(every, []).append(timed(lambda: pcg_solve(
+                FLAGSHIP, dtype=torch.float32, history_every=every)))
+        samples = list(buf.samples)
+    finally:
+        forecast.set_history(prev)
+    off, on = runs[0][-1][0], runs[MEAS_HISTORY][-1][0]
+    k = int(on.iterations)
+    check(k == int(off.iterations) == 989 and torch.equal(on.w, off.w),
+          "history_every: the solve is not bit for bit with it off")
+    check([s[0] for s in samples]
+          == list(range(MEAS_HISTORY, k + 1, MEAS_HISTORY)),
+          f"history_every={MEAS_HISTORY}: samples at {samples}")
+    half = next(i for i, s in enumerate(samples) if s[0] >= k / 2)
+    slope = forecast.log_residual_slope(samples[:half + 1])
+    k_half, d_half = samples[half]
+    left = forecast.remaining_iterations(d_half, FLAGSHIP.delta, slope)
+    print(f"history flagship fp32 every {MEAS_HISTORY} [{card}]: "
+          + json.dumps({
+              "us_per_iter_off": min(s for _, s in runs[0]) / k * 1e6,
+              "us_per_iter_on": min(s for _, s in runs[MEAS_HISTORY])
+              / k * 1e6,
+              "samples": len(samples), "halfway_k": k_half,
+              "slope": slope, "remaining_forecast": left,
+              "remaining_true": k - k_half}), flush=True)
+    check(left is not None and left > 0, f"no forecast at k = {k_half}")
+    return launches
+
+
+def check_capture(fc, pcg_solve, metrics, card: str, root: str) -> int:
+    """The measurement phase's profiled part, after the other profiles:
+    ``obs.profile`` around one fused flagship solve (its trace must name
+    kernels A and B), the history seam's launches per iteration, and the
+    run's registry through ``obs.export`` (the textfile parses back, the
+    endpoint serves it) and the ``top`` scoreboard. Returns the launches
+    of A and B it drove."""
+    import urllib.request
+
+    from poisson_tpu_torch.config import FLAGSHIP
+    from poisson_tpu_torch.obs import export, forecast, profile
+    from poisson_tpu_torch.solvers.pcg import CHECK_EVERY
+
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_obs_", dir=root)
+    try:
+        with profile.capture("bench.solve", profile_dir=tmp) as out:
+            r = fc.fused_cg_solve(FLAGSHIP)
+        check(int(r.iterations) == 989, "profiled fused solve: "
+                                        f"{int(r.iterations)} iterations")
+        path = os.path.join(out, profile.TRACE_FILE)
+        check(os.path.exists(path), f"obs.profile wrote no {path}")
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f).get(
+                "traceEvents", [])}
+        found = {sym: any(named(n, sym) for n in names)
+                 for sym in ("direction_stencil_kernel",
+                             "fused_update_kernel")}
+        print(f"profile capture fused 800x1200 [{card}]: " + json.dumps({
+            "trace_bytes": os.path.getsize(path), "events": len(names),
+            "kernels_named": found,
+            "captures": metrics.get("profile.captures")}), flush=True)
+        check(all(found.values()), f"the capture's trace misses {found}")
+
+        capped = FLAGSHIP.with_(max_iter=MEAS_HISTORY_ITERS)
+        per_iter = {}
+        for every in (0, MEAS_HISTORY):
+            prof, wall = profile_kernels(lambda: pcg_solve(
+                capped, dtype=torch.float32, history_every=every))
+            if prof is not None:
+                per_iter[f"history_every_{every}"] = {
+                    "launches_per_iter": sum(n for n, _ in prof.values())
+                    / MEAS_HISTORY_ITERS,
+                    "device_us_per_iter": sum(us for _, us in prof.values())
+                    / MEAS_HISTORY_ITERS,
+                    "wall_us_per_iter": wall / MEAS_HISTORY_ITERS * 1e6}
+        print(f"profile history fp32 800x1200 ({MEAS_HISTORY_ITERS} "
+              f"iterations) [{card}]: " + json.dumps(per_iter), flush=True)
+
+        snap = metrics.snapshot()
+        prom = os.path.join(tmp, "metrics.prom")
+        export.write_textfile(prom, snap)
+        with open(prom) as f:
+            parsed = export.parse_text(f.read())
+        numeric = {export.metric_name(k): float(v)
+                   for section in ("counters", "gauges")
+                   for k, v in snap[section].items()
+                   if isinstance(v, (int, float)) and not isinstance(v, bool)}
+        bad = {k: v for k, v in numeric.items()
+               if parsed.get(k, {}).get("value") != v}
+        check(numeric and not bad, f"prometheus textfile: {len(bad)} values "
+                                   f"not read back, e.g. "
+                                   f"{list(bad.items())[:3]}")
+        server = export.start_http_server(0)
+        try:
+            url = f"http://127.0.0.1:{server.server_port}/metrics"
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                live = export.parse_text(resp.read().decode())
+        finally:
+            export.stop_http_server(server)
+        missing = sorted(set(numeric) - set(live))
+        check(not missing, f"/metrics misses {missing[:5]}")
+        board = forecast.build_scoreboard(parsed)
+        print(f"prometheus [{card}]: " + json.dumps({
+            "textfile_samples": len(parsed), "numeric_metrics": len(numeric),
+            "endpoint_samples": len(live)}), flush=True)
+        print("top:\n" + forecast.render_scoreboard(board), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return driven_steps(989, FLAGSHIP.iteration_cap, CHECK_EVERY)
+
+
 def main() -> None:
     started = time.perf_counter()
 
@@ -2396,7 +2649,7 @@ def main() -> None:
         from poisson_tpu_torch.parallel import fused_sharded as fs
         from poisson_tpu_torch.parallel import pcg_sharded as ps
         from poisson_tpu_torch.parallel.mesh import make_solver_mesh
-        from poisson_tpu_torch.obs import metrics
+        from poisson_tpu_torch.obs import costs, metrics
         from poisson_tpu_torch.solvers import batched as bt
         from poisson_tpu_torch.solvers import checkpoint as ck
         from poisson_tpu_torch.solvers import lanes
@@ -2516,7 +2769,11 @@ def main() -> None:
     l2 = l2_error_host(FLAGSHIP, fused.w)
     check(np.isfinite(l2) and l2 < 1e-3, f"800x1200: L2 error {l2}")
     flag_s = min(flag_times)
-    bytes_per_iter = 14 * band_points(fc, fc.canvas_spec(FLAGSHIP)) * 4
+    bytes_per_iter, formula = ab_bytes(fc, FLAGSHIP)
+    check(bytes_per_iter == formula == costs.iteration_bytes(FLAGSHIP,
+                                                             "fused"),
+          f"fused 800x1200: bytes models disagree ({bytes_per_iter}, "
+          f"{formula})")
     solve_line("fused", FLAGSHIP, fused, flag_s, l2, {
         "max_diff_vs_fp64": gap, "seconds_each": flag_times,
         "achieved_gbps": bytes_per_iter * iters / flag_s / 1e9})
@@ -2526,7 +2783,7 @@ def main() -> None:
     check(float(big_r.diff) < 1e-6, f"2400x3200: diff {float(big_r.diff)}")
     big_l2 = l2_error_host(big, big_r.w)
     check(np.isfinite(big_l2), "2400x3200: non-finite iterate")
-    big_bytes = 14 * band_points(fc, fc.canvas_spec(big)) * 4
+    big_bytes = costs.iteration_bytes(big, "fused")
     solve_line("fused", big, big_r, big_s, big_l2, {
         "achieved_gbps": big_bytes * big_iters / big_s / 1e9})
     total_iters = (1 + REPEATS) * iters + big_iters
@@ -2627,11 +2884,11 @@ def main() -> None:
         vs_fp64 = float((r.w.double() - fp64[p].w).abs().max())
         check(vs_fp64 <= ITERATE_TOL,
               f"ca {p.M}x{p.N}: iterate {vs_fp64} from the fp64 solve")
-        nbytes = ca.PASSES_PER_PAIR * band_points(fc, fc.canvas_spec(p)) * 4
+        nbytes = costs.iteration_bytes(p, "ca")
         solve_line("ca", p, r, s, l2_error_host(p, r.w), {
             "seconds_each": [t for _, t in ca_runs[p]],
             "max_diff_vs_fp64": vs_fp64,
-            "achieved_gbps": nbytes * k / 2 / s / 1e9})
+            "achieved_gbps": nbytes * k / s / 1e9})
         pairs += (1 + REPEATS) * ((k + 1) // 2)
     big_k = int(ca_big.iterations)
     check(abs(big_k - 2449) <= 1,
@@ -2640,9 +2897,9 @@ def main() -> None:
                                      f"{float(ca_big.diff)}")
     ca_big_l2 = l2_error_host(big, ca_big.w)
     check(np.isfinite(ca_big_l2), "ca 2400x3200: non-finite iterate")
-    nbytes = ca.PASSES_PER_PAIR * band_points(fc, fc.canvas_spec(big)) * 4
+    nbytes = costs.iteration_bytes(big, "ca")
     solve_line("ca", big, ca_big, ca_big_s, ca_big_l2, {
-        "achieved_gbps": nbytes * big_k / 2 / ca_big_s / 1e9})
+        "achieved_gbps": nbytes * big_k / ca_big_s / 1e9})
     pairs += (big_k + 1) // 2
     for name in ("basis_sweep", "pair_update"):
         check(counts[name] >= pairs,
@@ -2661,12 +2918,10 @@ def main() -> None:
         fs.shard_canvases(p, mesh, 1)
         fs.shard_canvases(p, mesh, cs_.RING)
     mesh_oneshot = {}    # the flagship iterate of each sharded path
-    # (path, kernels' module, solve, halo ring, iterations per step, canvas
-    # passes per iteration)
-    for path, module, solve, ring, per_step, passes in (
-            ("fused-sharded", fc, fs.fused_cg_solve_sharded, 1, 1, 14),
-            ("ca-sharded", ca, cs_.ca_cg_solve_sharded, cs_.RING, 2,
-             ca.PASSES_PER_PAIR / 2)):
+    # (path, kernels' module, solve, iterations per step)
+    for path, module, solve, per_step in (
+            ("fused-sharded", fc, fs.fused_cg_solve_sharded, 1),
+            ("ca-sharded", ca, cs_.ca_cg_solve_sharded, 2)):
         module.reset_launch_counts()
         sr.reset_launch_counts()
         steps = 0
@@ -2692,8 +2947,8 @@ def main() -> None:
                 extra["max_diff_vs_fp64"] = gap
             l2 = l2_error_host(p, r.w)
             check(np.isfinite(l2), f"{path} {M}x{N}: non-finite iterate")
-            spec = fs.shard_spec(p, mesh.px, mesh.py, ring)
-            nbytes = passes * shards * spec.m_blk * spec.cv.cols * 4
+            nbytes = costs.iteration_bytes(p, path,
+                                           mesh_shape=(mesh.px, mesh.py))
             extra["achieved_gbps"] = nbytes * k / sec / 1e9
             solve_line(path, p, r, sec, l2, extra)
             if p == FLAGSHIP:
@@ -2826,8 +3081,8 @@ def main() -> None:
             extra["max_diff_vs_fp64"] = gap
         l2 = l2_error_host(p, r.w)
         check(np.isfinite(l2), f"blocked {M}x{N}: non-finite iterate")
-        extra["achieved_gbps"] = (14 * fc.sweep_points(p, cv) * 4 * k / sec
-                                  / 1e9)
+        extra["achieved_gbps"] = (costs.iteration_bytes(p, "fused", bn=bn)
+                                  * k / sec / 1e9)
         solve_line("blocked", p, r, sec, l2, extra)
         steps += (runs + (runs > 1)) * driven_steps(k, p.iteration_cap,
                                                     CHECK_EVERY)
@@ -3138,6 +3393,14 @@ def main() -> None:
     expect_counts("the Krylov phase", {})
 
     elapsed("krylov")
+    # --- the measurement phase, timed part: the bench's records (its
+    # flagship drives kernels A and B), the native oracle, the history seam.
+    reset_counts()
+    ab = check_front_door(fc, pcg_solve, fp64, card)
+    expect_counts("the measurement phase",
+                  {"direction_and_stencil": ab, "fused_update": ab})
+
+    elapsed("measurement")
     for time_it in timers:
         time_it()
 
@@ -3297,6 +3560,14 @@ def main() -> None:
                 "wall_us_per_iter": prof_wall / RES_PROFILE_ITERS * 1e6}
     print(f"profile resilience fp32 800x1200 ({RES_PROFILE_ITERS} "
           f"iterations) [{card}]: " + json.dumps(per_iter), flush=True)
+
+    # --- the measurement phase, profiled part: obs.profile around one
+    # fused solve (kernels A and B), the history seam's launches, and the
+    # run's registry through obs.export.
+    reset_counts()
+    ab = check_capture(fc, pcg_solve, metrics, card, root)
+    expect_counts("the measurement capture",
+                  {"direction_and_stencil": ab, "fused_update": ab})
 
     elapsed("timers and profiles")
     line = []

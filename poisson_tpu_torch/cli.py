@@ -57,8 +57,22 @@ it, and the record's ``l2_error`` is null (the ellipse's oracle does not
 apply). ``python -m poisson_tpu_torch geometry SPEC`` prints a spec's
 fingerprint, canonical form and canvas statistics, or an ASCII preview.
 
+``--backend native`` runs the fp64 C++ oracle (``poisson_tpu_torch.native``,
+the JAX CLI's ``native``) on the host with ``--threads`` OpenMP threads; it
+refuses what the JAX CLI refuses with it, and ``--device`` changes nothing
+for it. ``auto`` never picks it.
+
+``--profile DIR`` (or ``POISSON_TPU_PROFILE_DIR``) captures a
+``torch.profiler`` trace of one extra, untimed solve (``obs.profile``);
+``--prom-out PATH`` writes the counters as a Prometheus textfile at exit and
+``--metrics-port PORT`` serves them live on 127.0.0.1 (``obs.export``). The
+report carries the backend's bytes model (``obs.costs.iteration_bytes``),
+the bandwidth it achieved on a card and its share of the card's ceiling.
+
 ``solve-batched`` solves B right-hand sides of one operator together
-(``solvers.batched``; see :func:`main_solve_batched`).
+(``solvers.batched``; see :func:`main_solve_batched`); ``top`` renders the
+fleet scoreboard (``obs.forecast``) from a live endpoint, a textfile or a
+metrics directory (see :func:`main_top`).
 """
 
 from __future__ import annotations
@@ -72,13 +86,9 @@ import time
 from poisson_tpu_torch.config import Problem
 
 BACKENDS = ("auto", "torch", "fused", "resident", "ca", "sharded",
-            "fused-sharded", "ca-sharded")
+            "fused-sharded", "ca-sharded", "native")
 FP32_BACKENDS = ("fused", "resident", "ca", "fused-sharded", "ca-sharded")
 SHARDED_BACKENDS = ("sharded", "fused-sharded", "ca-sharded")
-
-# Canvas passes per fused iteration: kernel A reads z, p, cS, cW, γ and
-# writes pn, Ap; kernel B reads p, Ap, sc², w, r and writes w, r.
-FUSED_PASSES_PER_ITER = 14
 
 
 def parse_mesh(text: str) -> tuple[int, int]:
@@ -146,7 +156,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "--mesh, else sharded; on one card fused for "
                         "float32, torch for float64. resident, ca and "
                         "ca-sharded are the other fp32 paths; torch and "
-                        "sharded the plain solve, on one card or the mesh")
+                        "sharded the plain solve, on one card or the mesh; "
+                        "native the fp64 C++ oracle on the host CPU")
     p.add_argument("--mesh", type=parse_mesh, default=None,
                    metavar="PXxPY",
                    help="shard grid of the sharded backends (default: "
@@ -157,6 +168,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sharded field setup: host fp64, or per shard on "
                         "its device in the state's dtype (--backend sharded "
                         "only)")
+    p.add_argument("--threads", type=int, default=0,
+                   help="OpenMP threads for --backend native (0 = runtime "
+                        "default)")
     p.add_argument("--bm", type=int, default=None,
                    help="strip height of the fused or ca canvas (a "
                         "multiple of 8; default: one strip, or the JAX "
@@ -264,6 +278,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stream (iteration, ||dw||) out of the torch solve "
                         "every K iterations: live progress and a recorded "
                         "curve (0 = off, the default)")
+    p.add_argument("--prom-out", metavar="PATH", default=None,
+                   help="write the counters/gauges as a Prometheus text-"
+                        "format snapshot to PATH at exit")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                   help="serve a live GET /metrics endpoint on "
+                        "127.0.0.1:PORT for the run's lifetime (0 = OS-"
+                        "assigned, reported on the export.http_port gauge)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="capture a torch.profiler trace of one extra, "
+                        "untimed solve into DIR")
     p.add_argument("--json", action="store_true",
                    help="one JSON line instead of a table")
     return p
@@ -551,6 +575,45 @@ def _grid(args) -> None:
         setattr(args, axis, pos if pos is not None else opt)
 
 
+def check_native(args) -> None:
+    """The JAX CLI's refusals with ``--backend native``
+    (``poisson_tpu/cli.py:1955-2011``), in its words with the port's
+    backends and kernels for its JAX and pallas ones."""
+    resilience_flags = (
+        args.resilient or args.heartbeat
+        or args.watchdog_timeout is not None
+        or args.stagnation_window is not None or args.keep_last != 2
+        or args.fault_nan_at is not None
+        or args.fault_preempt_after is not None
+        or args.fault_corrupt_checkpoint is not None
+        or args.fault_bitflip_at is not None
+        or args.verify_every != 0)
+    if args.checkpoint:
+        raise SystemExit("--checkpoint is supported on the torch and CUDA "
+                         "backends, not native")
+    if resilience_flags:
+        raise SystemExit("the resilience/fault-injection flags drive the "
+                         "torch chunked solvers; not available with "
+                         "--backend native")
+    if args.geometry is not None:
+        raise SystemExit("--geometry drives the single-device torch solve; "
+                         "the native C++ path bakes the reference ellipse")
+    if args.preconditioner == "mg":
+        raise SystemExit("--preconditioner mg drives the torch solve body "
+                         "(poisson_tpu_torch.mg); not available with "
+                         "--backend native")
+    if args.stream_every:
+        raise SystemExit("--stream-every streams from the torch solve loop; "
+                         "not available with --backend native")
+    if args.profile:
+        raise SystemExit("--profile captures a torch.profiler device trace; "
+                         "not available with --backend native")
+    if (args.bm is not None or args.bn is not None
+            or args.serial_reduce is not None):
+        raise SystemExit("--bm/--bn/--serial-reduce shape the CUDA kernels; "
+                         "not available with --backend native")
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -558,20 +621,32 @@ def main(argv=None) -> int:
         return main_solve_batched(argv[1:])
     if argv and argv[0] == "geometry":
         return main_geometry(argv[1:])
+    if argv and argv[0] == "top":
+        return main_top(argv[1:])
     args = build_parser().parse_args(argv)
     _grid(args)
     if args.repeat < 1:
         raise SystemExit(f"--repeat must be >= 1, got {args.repeat}")
     resolve_chunk(args)
     from poisson_tpu_torch import obs
+    from poisson_tpu_torch.obs import profile as obs_profile
 
-    if args.trace_dir or args.metrics_out or args.stream_every:
+    if (args.trace_dir or args.metrics_out or args.stream_every
+            or args.prom_out or args.metrics_port is not None):
         obs.configure(trace_dir=args.trace_dir, metrics_path=args.metrics_out,
                       stream_every=args.stream_every,
-                      stream_live=sys.stderr.isatty() and not args.json)
+                      stream_live=sys.stderr.isatty() and not args.json,
+                      prom_path=args.prom_out,
+                      metrics_port=args.metrics_port)
+    # Env-driven capture directory; an explicit --profile DIR wins for the
+    # CLI's own capture.
+    obs_profile.configure_from_env()
     problem = Problem(M=args.M, N=args.N, delta=args.delta,
                       max_iter=args.max_iter,
                       weighted_norm=not args.unweighted_norm)
+    if args.backend == "native":
+        check_native(args)
+        return _solve_native(args, problem)
     visible = visible_devices(args.device)
     backend = pick_backend(args.backend, args.dtype, visible, args.mesh,
                            args.checkpoint, args.setup, args.preconditioner,
@@ -609,14 +684,67 @@ def main(argv=None) -> int:
         raise
 
 
+def _emit(args, report, profiled: bool = False) -> int:
+    """The report as an event, the artifacts flushed, the line printed."""
+    from poisson_tpu_torch import obs
+
+    # The report is itself an event, so a trace directory alone holds the
+    # run's outcome (the JAX CLI's "solve.report").
+    obs.event("solve.report", **dataclasses.asdict(report))
+    obs.finalize()
+    print(report.json_line() if args.json else report.table())
+    if profiled and args.profile and not args.json:
+        print(f"profiler trace written to {args.profile}")
+    return 0
+
+
+def _solve_native(args, problem: Problem) -> int:
+    """``--backend native``: the fp64 C++ oracle on the host, first solve
+    and best of ``--repeat``, as the JAX CLI's ``_run_native``."""
+    from poisson_tpu_torch.analysis import l2_error_host
+    from poisson_tpu_torch.native import build, native_solve
+    from poisson_tpu_torch.utils.timing import (
+        PhaseTimer,
+        SolveReport,
+        count_solve,
+        mlups,
+    )
+
+    build()     # the one-time g++ compile stays out of the timed phases
+    timer = PhaseTimer("cpu")
+    with timer.phase("first_solve"):
+        result = native_solve(problem, num_threads=args.threads)
+    first = best = timer.times["first_solve"]
+    for _ in range(args.repeat - 1):
+        t0 = time.perf_counter()
+        result = native_solve(problem, num_threads=args.threads)
+        best = min(best, time.perf_counter() - t0)
+    iters = result.iterations
+    report = SolveReport(
+        M=problem.M, N=problem.N, iterations=iters, solve_seconds=best,
+        first_solve_seconds=first, us_per_iter=best / max(1, iters) * 1e6,
+        mlups=mlups(problem, iters, best), final_diff=result.diff,
+        dtype="float64", backend="native", device="cpu", device_kind="cpu",
+        l2_error=l2_error_host(problem, result.w), compile_seconds=0.0,
+        devices=0)
+    # The oracle tracks no verdict: counted "untracked", as in JAX.
+    count_solve(result, compile_seconds=0.0, solve_seconds=best)
+    return _emit(args, report)
+
+
 def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
            on_chunk) -> int:
     """Run the resolved backend's solve, time it, and print the report."""
-    from poisson_tpu_torch import obs
+    import torch
 
     from poisson_tpu_torch.analysis import l2_error_host
+    from poisson_tpu_torch.obs import profile as obs_profile
+    from poisson_tpu_torch.obs.costs import (
+        iteration_bytes,
+        mg_vcycle_cost,
+        roofline_summary,
+    )
     from poisson_tpu_torch.ops.ca_cg import (
-        PASSES_PER_PAIR,
         ca_cg_solve,
         ca_cg_solve_checkpointed,
     )
@@ -624,7 +752,6 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
         canvas_spec,
         fused_cg_solve,
         fused_cg_solve_checkpointed,
-        sweep_points,
     )
     from poisson_tpu_torch.ops.resident import (
         refuse_above_budget,
@@ -633,10 +760,8 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
     from poisson_tpu_torch.parallel.fused_sharded import (
         fused_cg_solve_sharded,
         fused_cg_solve_sharded_checkpointed,
-        shard_spec,
     )
     from poisson_tpu_torch.parallel.ca_sharded import (
-        RING,
         ca_cg_solve_sharded,
         ca_cg_solve_sharded_checkpointed,
     )
@@ -686,37 +811,25 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
             ca_cg_solve(problem, device=device, bm=args.bm,
                         serial=serial))),
     }
-    # (one-shot solve, checkpointed solve, halo ring) of each sharded
-    # kernel path.
+    # (one-shot solve, checkpointed solve) of each sharded kernel path.
     sharded = {"fused-sharded": (fused_cg_solve_sharded,
-                                 fused_cg_solve_sharded_checkpointed, 1),
+                                 fused_cg_solve_sharded_checkpointed),
                "ca-sharded": (ca_cg_solve_sharded,
-                              ca_cg_solve_sharded_checkpointed, RING)}
-    # Canvas passes per iteration of the streaming paths; the resident solve
-    # has no per-iteration device-memory figure (its state stays in L2).
-    passes = {"fused": FUSED_PASSES_PER_ITER, "ca": PASSES_PER_PAIR / 2,
-              "fused-sharded": FUSED_PASSES_PER_ITER,
-              "ca-sharded": PASSES_PER_PAIR / 2}
-    # Points whose bytes every sweep must move: the canvas's band (the
-    # grid's interior on a column-blocked canvas), or all the shards' bands.
-    points = None
+                              ca_cg_solve_sharded_checkpointed)}
     mesh = None
     if backend in solvers:
         canvas, run = solvers[backend]
         try:
-            cv = canvas()
+            canvas()
         except ValueError as e:
             raise SystemExit(f"--backend {backend}: {e}") from None
-        points = sweep_points(problem, cv)
     elif backend in sharded:
         mesh = build_mesh(args, visible)
-        solve, solve_ck, ring = sharded[backend]
+        solve, solve_ck = sharded[backend]
         run = ((lambda: solve_ck(problem, mesh, args.checkpoint,
                                  serial=serial, **ckpt))
                if args.checkpoint else
                (lambda: solve(problem, mesh, serial=serial)))
-        spec = shard_spec(problem, mesh.px, mesh.py, ring)
-        points = mesh.size * spec.m_blk * spec.cv.cols
     elif backend == "sharded":
         mesh = build_mesh(args, visible)
         run = ((lambda: pcg_solve_sharded_checkpointed(
@@ -759,10 +872,13 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
                                 verify_every=args.verify_every,
                                 verify_tol=args.verify_tol)
 
-    bytes_per_iter = None
-    # A device rate only from a device run.
-    if device.type == "cuda" and backend in passes:
-        bytes_per_iter = int(passes[backend] * points * 4)
+    dtype_bytes = getattr(torch, args.dtype).itemsize
+    bytes_per_iter = iteration_bytes(
+        problem, backend, args.bm, args.bn,
+        None if mesh is None else (mesh.px, mesh.py), dtype_bytes)
+    if bytes_per_iter is not None and args.preconditioner == "mg":
+        bytes_per_iter += mg_vcycle_cost(problem.M, problem.N,
+                                         dtype_bytes)["bytes"]
 
     # A checkpointed solve resumes from its own file, so a timed re-run of
     # a capped one would run no iteration: it runs once, and that is timed.
@@ -797,9 +913,22 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
     best = min((timer.times[f"solve_{i}"] for i in range(repeats)),
                default=first)
 
+    profiled = bool(args.profile) or obs_profile.enabled()
+    if profiled:
+        # One extra, untimed solve under the profiler.
+        with obs_profile.capture("cli.solve", profile_dir=args.profile):
+            run()
+
     iters = int(result.iterations)
     flag = int(result.flag)
     stopped = None if flag in (FLAG_NONE, FLAG_CONVERGED) else FLAG_NAMES[flag]
+    devices = 1 if mesh is None else mesh.size
+    roofline = {}
+    # A device rate only from a device run.
+    if device.type == "cuda" and bytes_per_iter is not None:
+        roofline = roofline_summary(
+            problem, backend, dtype_bytes, iters, best,
+            device_name(device), devices, bytes_per_iter=bytes_per_iter)
     report = SolveReport(
         M=problem.M, N=problem.N, iterations=iters, solve_seconds=best,
         first_solve_seconds=first,
@@ -811,9 +940,10 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
         # own manufactured gate (geometry.manufactured), not this error.
         l2_error=(None if args.geometry
                   else l2_error_host(problem, result.w)),
-        bytes_per_iter=bytes_per_iter,
-        achieved_gbps=(None if bytes_per_iter is None
-                       else bytes_per_iter * iters / best / 1e9),
+        bytes_per_iter_model=bytes_per_iter,
+        achieved_gbps=roofline.get("achieved_gbps"),
+        roofline_fraction=roofline.get("fraction"),
+        compile_seconds=first - best, devices=devices,
         stopped=stopped,
         mesh=None if mesh is None else (mesh.px, mesh.py),
         hierarchy_seconds=timer.times.get("mg_hierarchy"),
@@ -822,12 +952,7 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
                   else None),
     )
     count_solve(result, compile_seconds=first - best, solve_seconds=best)
-    # The report is itself an event, so a trace directory alone holds the
-    # run's outcome (the JAX CLI's "solve.report").
-    obs.event("solve.report", **dataclasses.asdict(report))
-    obs.finalize()
-    print(report.json_line() if args.json else report.table())
-    return 0
+    return _emit(args, report, profiled)
 
 
 def build_batched_parser() -> argparse.ArgumentParser:
@@ -871,6 +996,10 @@ def build_batched_parser() -> argparse.ArgumentParser:
                    help="write spans, events and counters here")
     p.add_argument("--metrics-out", metavar="PATH", default=None,
                    help="write the counters/gauges snapshot here at exit")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="capture a torch.profiler trace of one extra, "
+                        "untimed batched solve into DIR (also "
+                        "POISSON_TPU_PROFILE_DIR)")
     p.add_argument("--json", action="store_true",
                    help="one JSON line instead of a table")
     p.add_argument("--geometry", metavar="SPEC", action="append",
@@ -936,6 +1065,7 @@ def main_solve_batched(argv) -> int:
         raise SystemExit("--verify-tol tunes the integrity probe; pass "
                          "--verify-every K to arm it")
     from poisson_tpu_torch import obs
+    from poisson_tpu_torch.obs import profile as obs_profile
     from poisson_tpu_torch.solvers.pcg import (
         FLAG_CONVERGED,
         FLAG_NAMES,
@@ -946,6 +1076,7 @@ def main_solve_batched(argv) -> int:
 
     if args.trace_dir or args.metrics_out:
         obs.configure(trace_dir=args.trace_dir, metrics_path=args.metrics_out)
+    obs_profile.configure_from_env()
     problem = Problem(M=args.M, N=args.N, delta=args.delta,
                       max_iter=args.max_iter)
     gates = ([1.0 + i / B for i in range(B)] if args.vary_rhs
@@ -1012,6 +1143,9 @@ def main_solve_batched(argv) -> int:
         record["speedup_vs_sequential"] = seq_seconds / best
         record["iterations_match_sequential"] = seq_iters == iters
 
+    if args.profile or obs_profile.enabled():
+        with obs_profile.capture("solve_batched", profile_dir=args.profile):
+            run()
     obs.event("solve_batched.report", **record)
     obs.gauge("batched.solves_per_sec", record["solves_per_sec"])
     obs.finalize()
@@ -1033,6 +1167,75 @@ def main_solve_batched(argv) -> int:
               f"({seq_seconds:.4f} s for {B} solves; per-member "
               f"iteration counts {match})")
     return 0
+
+
+def build_top_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m poisson_tpu_torch top",
+        description="One-screen fleet scoreboard (obs.forecast), from a "
+                    "live Prometheus endpoint, a textfile export, or a "
+                    "telemetry directory (a dead process's "
+                    "metrics-rank*.json snapshots).")
+    p.add_argument("--endpoint", metavar="URL",
+                   help="live Prometheus endpoint "
+                        "(obs.export.start_http_server), e.g. "
+                        "http://127.0.0.1:9464/metrics")
+    p.add_argument("--textfile", metavar="PATH",
+                   help="Prometheus textfile (--prom-out, "
+                        "obs.export.write_textfile)")
+    p.add_argument("--metrics-dir", metavar="DIR",
+                   help="telemetry directory with metrics-rank*.json "
+                        "snapshots (--trace-dir)")
+    p.add_argument("--watch", type=float, default=0.0, metavar="N",
+                   help="re-render every N seconds until interrupted "
+                        "(default: render once)")
+    p.add_argument("--json", action="store_true",
+                   help="one JSON object per render instead of the screen")
+    return p
+
+
+def main_top(argv) -> int:
+    """``top``: the JAX CLI's scoreboard (``poisson_tpu/cli.py:1453``) over
+    the port's readers; stdlib only, no card needed."""
+    args = build_top_parser().parse_args(argv)
+    sources = [s for s in (args.endpoint, args.textfile,
+                           args.metrics_dir) if s]
+    if len(sources) != 1:
+        print("top needs exactly one of --endpoint / --textfile / "
+              "--metrics-dir", file=sys.stderr)
+        return 2
+    from poisson_tpu_torch.obs import export, forecast, metrics
+
+    def read_metrics() -> dict:
+        if args.endpoint:
+            import urllib.request
+
+            with urllib.request.urlopen(args.endpoint, timeout=5) as r:
+                return export.parse_text(r.read().decode("utf-8",
+                                                         "replace"))
+        if args.textfile:
+            with open(args.textfile, encoding="utf-8") as f:
+                return export.parse_text(f.read())
+        return metrics.load_dir(args.metrics_dir)
+
+    try:
+        while True:
+            try:
+                board = forecast.build_scoreboard(read_metrics())
+            except (OSError, ValueError) as e:
+                print(f"scoreboard source unreadable: {e}", file=sys.stderr)
+                return 1
+            if args.json:
+                print(json.dumps(board, sort_keys=True), flush=True)
+            else:
+                if args.watch:
+                    sys.stdout.write("\x1b[H\x1b[J")   # repaint in place
+                print(forecast.render_scoreboard(board), flush=True)
+            if not args.watch:
+                return 0
+            time.sleep(args.watch)
+    except KeyboardInterrupt:
+        return 0
 
 
 def build_geometry_parser() -> argparse.ArgumentParser:

@@ -7,7 +7,19 @@
   registry, snapshotted to JSON at :func:`finalize` and merged per rank;
 - **streamed convergence** (:mod:`poisson_tpu_torch.obs.stream`) — opt-in
   (k, ‖Δw‖) samples out of a running solve, staged on the device and
-  emitted at the loop's checks (off by default; counts stay bit for bit).
+  emitted at the loop's checks (off by default; counts stay bit for bit);
+- **performance attribution** (:mod:`poisson_tpu_torch.obs.costs`,
+  :mod:`poisson_tpu_torch.obs.roofline`) — the analytic stencil model, the
+  bytes each backend's kernels move, the counted plain iteration, and
+  achieved-vs-roofline fractions on bench records and solve reports;
+- **profiler capture** (:mod:`poisson_tpu_torch.obs.profile`) — fenced
+  ``torch.profiler`` regions (``profile_dir``, ``POISSON_TPU_PROFILE_DIR``);
+- **Prometheus exposition** (:mod:`poisson_tpu_torch.obs.export`) — a
+  textfile at finalize (``prom_path``, ``POISSON_TPU_PROM_OUT``) and a live
+  ``/metrics`` endpoint (``metrics_port``, ``POISSON_TPU_METRICS_PORT``);
+- **forecasts** (:mod:`poisson_tpu_torch.obs.forecast`) — the
+  residual-history seam (``history_every``), iteration and ETA estimates,
+  and the ``top`` scoreboard.
 
 The file formats and the counter and event names are the JAX package's,
 so either package reads the other's trace directory and snapshots.
@@ -22,11 +34,8 @@ Usage (the CLI wires this from ``--trace-dir``/``--metrics-out``/
     obs.finalize()
 
 Unconfigured, ``obs.span`` is a null context (no fence), ``obs.event``
-drops the record, and counters still count.
-
-Not ported yet: the profiler capture, Prometheus exposition and HTTP
-endpoint, flight recorder, cost model, forecast and roofline layers
-(ROADMAP Queue 1 item 11).
+drops the record, and counters still count. The flight recorder waits for
+the solve service (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -34,9 +43,10 @@ from __future__ import annotations
 import atexit
 import contextlib
 import os
+import sys
 from typing import Optional
 
-from poisson_tpu_torch.obs import metrics, stream, trace
+from poisson_tpu_torch.obs import metrics, profile, stream, trace
 from poisson_tpu_torch.obs.metrics import gauge, inc
 from poisson_tpu_torch.obs.trace import (
     TraceRecorder,
@@ -47,12 +57,14 @@ from poisson_tpu_torch.obs.trace import (
 
 __all__ = ["TraceRecorder", "configure", "configure_from_env", "event",
            "finalize", "gauge", "inc", "load_events", "merge_trace_dir",
-           "metrics", "normalize_event", "recent_events",
+           "metrics", "normalize_event", "profile", "recent_events",
            "shutdown", "span", "stream", "stream_every", "trace"]
 
 _RECORDER: Optional[TraceRecorder] = None
 _METRICS_PATH: Optional[str] = None
 _STREAM_EVERY: int = 0
+_PROM_PATH: Optional[str] = None
+_HTTP_SERVER = None
 _ATEXIT_REGISTERED = False
 
 
@@ -60,7 +72,10 @@ def configure(trace_dir: Optional[str] = None,
               metrics_path: Optional[str] = None,
               rank: Optional[int] = None,
               stream_every: int = 0,
-              stream_live: bool = False) -> TraceRecorder:
+              stream_live: bool = False,
+              profile_dir: Optional[str] = None,
+              prom_path: Optional[str] = None,
+              metrics_port: Optional[int] = None) -> TraceRecorder:
     """Install the process-wide telemetry configuration.
 
     ``trace_dir``: spans and events land in ``trace-rank{R}.trace.json``
@@ -69,14 +84,32 @@ def configure(trace_dir: Optional[str] = None,
     ``stream_every`` > 0 installs a :class:`~poisson_tpu_torch.obs.stream.
     StreamSink` (writing ``stream-rank{R}.jsonl`` in ``trace_dir``, and a
     live progress line on stderr with ``stream_live``); the stride must
-    also be passed to the solver, as in the JAX package. Finalization
-    runs at interpreter exit; call :func:`finalize` earlier for
-    deterministic artifact timing."""
+    also be passed to the solver, as in the JAX package. ``profile_dir``
+    enables :func:`poisson_tpu_torch.obs.profile.capture` regions.
+    ``prom_path``: a Prometheus textfile written at finalize.
+    ``metrics_port``: a live ``GET /metrics`` endpoint on 127.0.0.1:port
+    for the configuration's lifetime (0: the OS picks; the bound port is
+    the ``export.http_port`` gauge). Finalization runs at interpreter
+    exit; call :func:`finalize` earlier for deterministic artifact
+    timing."""
     global _RECORDER, _METRICS_PATH, _STREAM_EVERY, _ATEXIT_REGISTERED
+    global _PROM_PATH, _HTTP_SERVER
     shutdown()
     _RECORDER = TraceRecorder(trace_dir=trace_dir, rank=rank)
     _METRICS_PATH = metrics_path
     _STREAM_EVERY = max(0, int(stream_every))
+    _PROM_PATH = prom_path
+    profile.configure(profile_dir)
+    if metrics_port is not None:
+        from poisson_tpu_torch.obs import export
+
+        try:
+            _HTTP_SERVER = export.start_http_server(metrics_port)
+        except (OSError, OverflowError) as e:
+            # A taken or out-of-range port: say so, and solve without it.
+            print(f"obs: /metrics endpoint unavailable on port "
+                  f"{metrics_port}: {e}", file=sys.stderr)
+            _HTTP_SERVER = None
     if _STREAM_EVERY > 0:
         path = (os.path.join(trace_dir, f"stream-rank{_RECORDER.rank}.jsonl")
                 if trace_dir else None)
@@ -89,19 +122,29 @@ def configure(trace_dir: Optional[str] = None,
 
 def configure_from_env() -> Optional[TraceRecorder]:
     """Configure from ``POISSON_TPU_TRACE_DIR`` / ``POISSON_TPU_METRICS_OUT``
-    / ``POISSON_TPU_STREAM_EVERY`` (the JAX package's variables), for
-    harnesses whose argv is spoken for. No-op (returns None) when none is
-    set."""
+    / ``POISSON_TPU_STREAM_EVERY`` / ``POISSON_TPU_PROFILE_DIR`` /
+    ``POISSON_TPU_PROM_OUT`` / ``POISSON_TPU_METRICS_PORT`` (the JAX
+    package's variables), for harnesses whose argv is spoken for. No-op
+    (returns None) when none is set."""
     trace_dir = os.environ.get("POISSON_TPU_TRACE_DIR") or None
     metrics_path = os.environ.get("POISSON_TPU_METRICS_OUT") or None
+    profile_dir = os.environ.get("POISSON_TPU_PROFILE_DIR") or None
+    prom_path = os.environ.get("POISSON_TPU_PROM_OUT") or None
     try:
         every = int(os.environ.get("POISSON_TPU_STREAM_EVERY", "0"))
     except ValueError:
         every = 0
-    if not (trace_dir or metrics_path or every > 0):
+    try:
+        raw_port = os.environ.get("POISSON_TPU_METRICS_PORT")
+        metrics_port = int(raw_port) if raw_port else None
+    except ValueError:
+        metrics_port = None
+    if not (trace_dir or metrics_path or every > 0 or profile_dir
+            or prom_path or metrics_port is not None):
         return None
     return configure(trace_dir=trace_dir, metrics_path=metrics_path,
-                     stream_every=every)
+                     stream_every=every, profile_dir=profile_dir,
+                     prom_path=prom_path, metrics_port=metrics_port)
 
 
 def stream_every() -> int:
@@ -147,17 +190,29 @@ def finalize() -> None:
     if _METRICS_PATH:
         metrics.write_snapshot(_METRICS_PATH,
                                rank=rec.rank if rec else None)
+    if _PROM_PATH:
+        from poisson_tpu_torch.obs import export
+
+        export.write_textfile(_PROM_PATH)
 
 
 def shutdown() -> None:
     """Finalize and tear down the configuration (tests; back-to-back runs
     in one process)."""
-    global _RECORDER, _METRICS_PATH, _STREAM_EVERY
-    if _RECORDER is not None or _METRICS_PATH or stream.get_sink():
+    global _RECORDER, _METRICS_PATH, _STREAM_EVERY, _PROM_PATH, _HTTP_SERVER
+    if (_RECORDER is not None or _METRICS_PATH or _PROM_PATH
+            or stream.get_sink()):
         finalize()
     rec, _RECORDER = _RECORDER, None
     if rec is not None:
         rec.close()
     stream.set_sink(None)
+    if _HTTP_SERVER is not None:
+        from poisson_tpu_torch.obs import export
+
+        export.stop_http_server(_HTTP_SERVER)
+        _HTTP_SERVER = None
+    profile.configure(None)
     _METRICS_PATH = None
     _STREAM_EVERY = 0
+    _PROM_PATH = None

@@ -126,13 +126,16 @@ def emit_every(stream_every: int, k, diff) -> None:
 
 
 class StreamTap:
-    """One streaming body's staged samples (see the module docstring)."""
+    """One streaming body's staged samples (see the module docstring),
+    handed to ``emit(stream_every, k, diff)``: :func:`emit_every` by
+    default, ``obs.forecast.emit_history`` for the forecast's history."""
 
-    def __init__(self, stream_every: int):
+    def __init__(self, stream_every: int, emit=None):
         if stream_every < 1:
             raise ValueError(f"stream_every must be >= 1, got "
                              f"{stream_every}")
         self.stream_every = int(stream_every)
+        self._emit = emit_every if emit is None else emit
         self._staged: list[tuple] = []
 
     def record(self, k_before, k_after, diff) -> None:
@@ -149,5 +152,5 @@ class StreamTap:
                                 for col in zip(*staged))
         for kb, ka, diff in zip(before, after, diffs):
             if ka != kb:
-                emit_every(self.stream_every, ka, diff)
+                self._emit(self.stream_every, ka, diff)
 

@@ -33,9 +33,9 @@ event beside each, and the ``checkpoint.write`` span around a write. The
 ``watchdog`` hook of :func:`run_chunked` takes a
 ``parallel.watchdog.Watchdog`` (or any object with its methods), and the
 chunked solves take the stream and the integrity probe
-(``stream_every``, ``verify_every``, ``verify_tol``). The JAX module's
-residual-history tap (``history=``, ``obs/forecast``) is not ported
-(ROADMAP Queue 1 item 11).
+(``stream_every``, ``verify_every``, ``verify_tol``). ``history=True``
+feeds each chunk boundary's (k, ‖Δw‖) to the forecast residual-history
+sink (``obs.forecast``), host side only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -139,7 +139,7 @@ def _converged(state) -> bool:
 def run_chunked(state, *, advance, to_portable, path: Optional[str],
                 fingerprint: str, cap: int, keep_checkpoint: bool,
                 keep_last: int = 2, watchdog=None, on_chunk=None,
-                deadline=None):
+                deadline=None, history: bool = False):
     """The chunked driver loop shared by the checkpointed solvers: advance
     until done or ``cap``, persist ``to_portable(state)`` after every chunk,
     and remove a converged run's files (a cap-hit keeps them).
@@ -150,7 +150,8 @@ def run_chunked(state, *, advance, to_portable, path: Optional[str],
     before a chunk once it has expired; ``watchdog`` (``start()``,
     ``beat(k=, diff=)``, ``stop()``, ``raise_if_fired()``) is beaten at
     every chunk boundary; ``on_chunk(state, chunks_done)`` runs after each
-    chunk is persisted and may return a replacement state."""
+    chunk is persisted and may return a replacement state; ``history``
+    taps each boundary's (k, ‖Δw‖) into ``obs.forecast.history_tap``."""
     if watchdog is not None:
         watchdog.start()
     chunks_done = 0
@@ -166,6 +167,10 @@ def run_chunked(state, *, advance, to_portable, path: Optional[str],
             chunks_done += 1
             if watchdog is not None:
                 watchdog.beat(k=int(state.k), diff=float(state.diff))
+            if history:
+                from poisson_tpu_torch.obs.forecast import history_tap
+
+                history_tap(int(state.k), float(state.diff))
             if _state_flag(state) in (FLAG_NONFINITE, FLAG_INTEGRITY):
                 # Never overwrite the last good generation with NaNs or
                 # with silently corrupted buffers.
@@ -458,7 +463,7 @@ def pcg_solve_chunked(problem: Problem, chunk: int = 100, dtype=None,
                       preconditioner: str = "jacobi", mg_config=None,
                       stream_every: int = 0, verify_every: int = 0,
                       verify_tol=None, geometry=None,
-                      rhs_gate=None) -> PCGResult:
+                      rhs_gate=None, history: bool = False) -> PCGResult:
     """The same chunk loop without persistence: a solve that can be
     stopped at a chunk boundary by its ``deadline`` (FLAG_DEADLINE on the
     result), with the one-shot iterates when it converges (either
@@ -466,7 +471,8 @@ def pcg_solve_chunked(problem: Problem, chunk: int = 100, dtype=None,
     ``verify_tol``, ``geometry`` and ``rhs_gate`` are ``pcg_solve``'s: a
     geometry or gated solve chunked equals its one-shot solve bit for bit
     (the probe checks the gated RHS). (The checkpointed driver takes no
-    geometry, as in the JAX package.)"""
+    geometry, as in the JAX package.) ``history`` taps each chunk boundary
+    into the forecast history sink (see :func:`run_chunked`)."""
     setup, advance, init = _chunked(problem, chunk, dtype, scaled, device,
                                     check_every, stagnation_window,
                                     preconditioner, mg_config, stream_every,
@@ -477,5 +483,6 @@ def pcg_solve_chunked(problem: Problem, chunk: int = 100, dtype=None,
     state = run_chunked(
         init(), advance=advance, to_portable=lambda s: s, path=None,
         fingerprint="", cap=problem.iteration_cap, keep_checkpoint=False,
-        watchdog=watchdog, on_chunk=on_chunk, deadline=deadline)
+        watchdog=watchdog, on_chunk=on_chunk, deadline=deadline,
+        history=history)
     return _result(setup, state, deadline)

@@ -28,8 +28,9 @@ fields, and each member's sums are its own solve's ``torch.sum`` calls
 (``ops.stencil.member_sums``), so member i of a batch equals its own solve
 bit for bit.
 
-The integrity probe (``verify_every``, ``poisson_tpu_torch.integrity``) and
-the streamed convergence samples (``stream_every``, ``obs.stream``) ride the
+The integrity probe (``verify_every``, ``poisson_tpu_torch.integrity``), the
+streamed convergence samples (``stream_every``, ``obs.stream``) and the
+forecast's residual history (``history_every``, ``obs.forecast``) ride the
 same body (:func:`make_pcg_member_body`); at 0, the default, each adds no
 operation.
 """
@@ -80,17 +81,6 @@ FLAG_NAMES = {
     FLAG_DEADLINE: "deadline",
     FLAG_INTEGRITY: "integrity",
 }
-
-# What each refused option waits for (ROADMAP Queue 1).
-_NOT_PORTED = {
-    "history_every": "history_every, the forecast history tap "
-                     "(ROADMAP Queue 1 item 11)",
-}
-
-
-def not_ported(what: str) -> ValueError:
-    return ValueError(f"{_NOT_PORTED[what]} is not ported yet")
-
 
 def _unchanged(p):
     return p
@@ -236,7 +226,8 @@ def make_pcg_member_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
                          verify_tol: float = 0.0,
                          verify_jump: Optional[float] = None,
                          verify_colsum=None,
-                         preconditioner: str = "jacobi"):
+                         preconditioner: str = "jacobi",
+                         history_every: int = 0):
     """One PCG iteration as ``body(state, rhs) -> state`` with the JAX
     body's in-loop verdicts (``poisson_tpu/solvers/pcg.py:220-397``): NaN/Inf
     in the scalars sets FLAG_NONFINITE, the degenerate-direction break
@@ -257,9 +248,12 @@ def make_pcg_member_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
     where due, which keeps the host out of the loop; it only reads, so a
     clean verified solve equals the unverified one bit for bit.
 
-    ``stream_every`` > 0 stages (k, ‖Δw‖) for ``obs.stream`` (the body's
-    ``flush`` emits them, see :func:`drive`). With both at 0 the body runs
-    exactly the operations of the plain iteration.
+    ``stream_every`` > 0 stages (k, ‖Δw‖) for ``obs.stream``, and
+    ``history_every`` > 0 for the forecast history sink
+    (``obs.forecast.emit_history``): the step's own count and ‖Δw‖ tensors,
+    no launch added; the body's ``flush`` copies them to the host and emits
+    them (see :func:`drive`). With all three at 0 the body runs exactly the
+    operations of the plain iteration.
 
     A state that is already done passes through unchanged, count included,
     so the loop may run past the stop (see :func:`drive`)."""
@@ -274,11 +268,16 @@ def make_pcg_member_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
         if verify_jump is None:
             verify_jump = default_verify_jump(preconditioner)
         verify_collapse = default_verify_collapse(preconditioner)
-    tap = None
-    if stream_every > 0:
+    taps = []
+    if stream_every > 0 or history_every > 0:
         from poisson_tpu_torch.obs.stream import StreamTap
 
-        tap = StreamTap(stream_every)
+        if stream_every > 0:
+            taps.append(StreamTap(stream_every))
+        if history_every > 0:
+            from poisson_tpu_torch.obs.forecast import emit_history
+
+            taps.append(StreamTap(history_every, emit=emit_history))
 
     def body(s: PCGState, vrhs=None) -> PCGState:
         p = ops.exchange(s.p)
@@ -347,7 +346,7 @@ def make_pcg_member_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
         # keep the old state, counting the iteration. Convergence keeps this
         # iteration's updates. A done state keeps everything.
         k = s.k + (~s.done).to(torch.int32)
-        if tap is not None:
+        for tap in taps:
             tap.record(s.k, k, diff)
         done = s.done | stop
         flag = torch.where(
@@ -360,8 +359,12 @@ def make_pcg_member_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
         kept = s._replace(k=k, done=done, flag=flag)
         return _select(s.done | degenerate, kept, candidate)
 
-    if tap is not None:
-        body.flush = tap.flush
+    if taps:
+        def flush():
+            for tap in taps:
+                tap.flush()
+
+        body.flush = flush
     return body
 
 
@@ -371,7 +374,7 @@ def make_pcg_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
                   verify_tol: float = 0.0,
                   verify_jump: Optional[float] = None,
                   verify_rhs=None, verify_colsum=None,
-                  preconditioner: str = "jacobi"):
+                  preconditioner: str = "jacobi", history_every: int = 0):
     """One PCG iteration as a state→state function: the member body of
     :func:`make_pcg_member_body`, with the probe (``verify_every`` > 0)
     checking ``verify_rhs``."""
@@ -384,7 +387,7 @@ def make_pcg_body(ops: PCGOps, *, delta: float, weighted_norm: bool,
         stagnation_window=stagnation_window, stream_every=stream_every,
         verify_every=verify_every, verify_tol=verify_tol,
         verify_jump=verify_jump, verify_colsum=verify_colsum,
-        preconditioner=preconditioner)
+        preconditioner=preconditioner, history_every=history_every)
     if verify_every == 0:
         return member     # vrhs defaults to None and is never read
 
@@ -402,13 +405,14 @@ def pcg_loop(ops: PCGOps, rhs, *, delta: float, max_iter: int,
              check_every: int = CHECK_EVERY, stream_every: int = 0,
              verify_every: int = 0, verify_tol: float = 0.0,
              verify_abft: bool = False,
-             preconditioner: str = "jacobi") -> PCGState:
+             preconditioner: str = "jacobi",
+             history_every: int = 0) -> PCGState:
     """Run the PCG iteration to convergence. The body freezes a done state,
     so the iterations :func:`drive` runs between two reads of ``done``
     leave the result and the count untouched. ``verify_every`` /
     ``verify_tol`` arm the integrity probe against this solve's own RHS;
     ``verify_abft`` adds the ABFT identity (its column sums computed once
-    here)."""
+    here); ``history_every`` feeds the forecast history sink."""
     colsum = None
     if verify_every > 0 and verify_abft:
         from poisson_tpu_torch.integrity.probe import abft_colsum
@@ -419,7 +423,8 @@ def pcg_loop(ops: PCGOps, rhs, *, delta: float, max_iter: int,
         stagnation_window=stagnation_window, stream_every=stream_every,
         verify_every=verify_every, verify_tol=verify_tol,
         verify_rhs=(rhs if verify_every > 0 else None),
-        verify_colsum=colsum, preconditioner=preconditioner)
+        verify_colsum=colsum, preconditioner=preconditioner,
+        history_every=history_every)
     return drive(body, init_state(ops, rhs), max_iter, check_every)
 
 
@@ -636,12 +641,16 @@ def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
     JSON) solves that domain instead of the reference ellipse: same grid,
     same loop, only the canvases change (fingerprint-cached,
     ``geom.cache.*``); it composes with every option above. The default
-    spec is the no-geometry solve bit for bit. ``history_every`` is
-    refused with the ROADMAP item that ports it."""
+    spec is the no-geometry solve bit for bit.
+
+    ``history_every`` > 0 ships (k, ‖Δw‖) to the forecast history sink
+    (``obs.forecast``) every that many iterations, staged on the device
+    and copied to the host at the loop's reads of ``done``; counts and
+    iterates are those of ``history_every=0``. The Jacobi path only, as in
+    the JAX package."""
     from poisson_tpu_torch.mg.hierarchy import mg_config_for
 
-    if int(history_every) > 0:
-        raise not_ported("history_every")
+    history_every = int(history_every)
     config = mg_config_for(problem, preconditioner, mg_config)
     if config is None:
         setup = solve_setup(problem, dtype, scaled, device,
@@ -654,6 +663,10 @@ def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
             raise ValueError(
                 "verify_abft is wired for the jacobi path only; drop it "
                 "or use preconditioner='jacobi'")
+        if history_every > 0:
+            raise ValueError(
+                "history_every is wired for the jacobi path only; drop "
+                "it or use preconditioner='jacobi'")
         setup = mg_solve_setup(problem, dtype, scaled, device, config=config,
                                geometry=geometry)
         obs.inc("mg.solves")
@@ -664,7 +677,8 @@ def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
     return run_setup(problem, setup, rhs, check_every=check_every,
                      stream_every=int(stream_every),
                      verify_every=verify_every, verify_tol=tol,
-                     verify_abft=bool(verify_abft and verify_every > 0))
+                     verify_abft=bool(verify_abft and verify_every > 0),
+                     history_every=history_every)
 
 
 def run_setup(problem: Problem, setup: SolveSetup, rhs,

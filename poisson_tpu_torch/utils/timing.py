@@ -115,13 +115,19 @@ def mlups(problem: Problem, iterations: int, seconds: float) -> float:
 
 @dataclasses.dataclass
 class SolveReport:
-    """One solve's result line, as structured data.
+    """One solve's result line, as structured data, with the JAX report's
+    fields (``poisson_tpu/utils/timing.py:SolveReport``) beside the port's.
 
     ``first_solve_seconds`` includes the one-time work of the first call
     (kernel build and load, canvas setup and upload); ``solve_seconds`` is
-    the best of the timed repeats that follow. ``achieved_gbps`` is the
-    backend's bytes model (``bytes_per_iter``) over the measured time, None
-    where the backend has no model."""
+    the best of the timed repeats that follow, and ``compile_seconds`` the
+    first call's extra time over it. ``devices`` counts the cards the solve
+    ran on (0 for the native oracle on the host). ``bytes_per_iter_model``
+    is the backend's bytes model (``obs.costs.iteration_bytes``; also read
+    as ``bytes_per_iter``), ``achieved_gbps`` that model over the measured
+    time and ``roofline_fraction`` its share of the device's bandwidth
+    ceiling: None where the backend has no model, the run was not on a
+    card, or no ceiling is on file."""
 
     M: int
     N: int
@@ -136,8 +142,15 @@ class SolveReport:
     device: str
     device_kind: str
     l2_error: Optional[float] = None
-    bytes_per_iter: Optional[int] = None
+    bytes_per_iter_model: Optional[float] = None
     achieved_gbps: Optional[float] = None
+    roofline_fraction: Optional[float] = None
+    compile_seconds: Optional[float] = None
+    devices: int = 1
+    # Batched solves: the batch size and each member's count (``iterations``
+    # then holds the slowest member's).
+    batch: Optional[int] = None
+    iterations_per_member: Optional[list] = None
     stopped: Optional[str] = None
     mesh: Optional[tuple[int, int]] = None   # (Px, Py) of a sharded solve
     # Host seconds of an MG solve's level hierarchy, built before the first
@@ -147,6 +160,10 @@ class SolveReport:
     # attempts taken and the (iteration, verdict, action) history.
     restarts: Optional[int] = None
     recovery: Optional[tuple] = None
+
+    @property
+    def bytes_per_iter(self) -> Optional[float]:
+        return self.bytes_per_iter_model
 
     def json_line(self) -> str:
         return json.dumps(dataclasses.asdict(self))
@@ -166,8 +183,13 @@ class SolveReport:
                if self.l2_error is not None else ""),
         ]
         if self.achieved_gbps is not None:
-            rows.append(f"  attribution: {self.achieved_gbps:.1f} GB/s "
-                        f"({self.bytes_per_iter} bytes/iter model)")
+            rows.append(
+                f"  attribution: {self.achieved_gbps:.1f} GB/s "
+                f"({self.bytes_per_iter_model:.0f} bytes/iter model)"
+                + (f" = {self.roofline_fraction:.0%} of roofline"
+                   if self.roofline_fraction is not None
+                   else " (no bandwidth ceiling on file for this device; "
+                        "set POISSON_TPU_PEAK_GBPS)"))
         if self.hierarchy_seconds is not None:
             rows.append(f"  MG hierarchy build: {self.hierarchy_seconds:.2f} s "
                         "(host, before the first solve)")

@@ -110,7 +110,9 @@ def test_no_module_imports_jax_or_the_reference():
                  "parallel.watchdog", "obs.stream", "geometry",
                  "geometry.dsl", "geometry.canvas", "geometry.manufactured",
                  "solvers.adjoint", "krylov", "krylov.block",
-                 "krylov.recycle", "solvers.session"):
+                 "krylov.recycle", "solvers.session", "obs.costs",
+                 "obs.roofline", "obs.profile", "obs.export",
+                 "obs.forecast", "native", "bench"):
         assert f"poisson_tpu_torch.{name}" in modules
 
 
