@@ -180,6 +180,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      800×1200 bit for bit with it off, µs per iteration of each in turns,
      and the forecast remaining iterations at the halfway sample beside
      the true remainder;
+   - the service phase (``poisson_tpu_torch.serve``, ``testing.chaos``:
+     the plain solves, no kernel launched, since the router's execution
+     gate keeps every arm on the torch solve): 32 fp32 requests at
+     800×1200 with gates 1 + i/32 drained in batches of 16, all converged,
+     four members (over both batches) with the iterations, flag and
+     ``diff`` of their own ``pcg_solve(rhs_gate=…)`` exactly, the ledger
+     closing in ``metrics.snapshot()``, wall seconds, solves/s, p50 and p99
+     latency beside the same gates run straight through ``solve_batched``
+     in two batches; the same stream under ``scheduling="continuous"``
+     (refill chunk 50) with the same iterations, flags and diffs; one
+     request whose deadline is a tenth of its solve's time ending typed
+     (a partial result flagged at the deadline, or a ``deadline_expired``
+     shed); two workers on two slots of the card with a worker killed at
+     the second dispatch of 16 requests (batches of 8), the ledger
+     closing and the recovered requests finishing at the drain run's
+     counts; and the chaos campaign, all 35 scenarios on the card
+     (subprocess drills included), green, each closing its ledger, with
+     its seconds;
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events, and for kernel S ``torch.sum`` over the same partials
@@ -216,6 +234,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -547,6 +566,17 @@ MEAS_NATIVE_TOL = 1e-10          # oracle vs the card's fp64 plain solve
 MEAS_HISTORY = 50                # history_every of the flagship fp32 solve
 MEAS_HISTORY_ITERS = 128         # capped solves profiled with it off and on
 FRACTION_MAX = 1.05              # a larger roofline share is a fault
+# The service phase (the solve service on the card, then the chaos
+# campaign).
+SERVE_REQUESTS = 32              # fp32 requests at 800x1200, gates 1 + i/32
+SERVE_BATCH = 16                 # max_batch: two drained batches
+SERVE_CHECKED = (0, 9, 16, 31)   # members held to their own pcg_solve
+SERVE_PAIRS = 3                  # drains timed against straight batches
+SERVE_REFILL = 50                # the continuous run's refill chunk
+SERVE_DEADLINE = (0.1, 25)       # deadline as a share of one measured
+                                 # solve, and the chunk
+SERVE_FLEET = (2, 16, 8)         # workers (on two slots of the card),
+                                 # requests, max_batch
 
 
 def ptxas_report(log: str, symbol: str) -> dict | None:
@@ -2625,6 +2655,202 @@ def check_capture(fc, pcg_solve, metrics, card: str, root: str) -> int:
     return driven_steps(989, FLAGSHIP.iteration_cap, CHECK_EVERY)
 
 
+def check_serve(pcg_solve, metrics, card: str) -> None:
+    """The service phase: drain, continuous, deadline and fleet runs of
+    the solve service at 800x1200 on the card, then the chaos campaign
+    there. Every outcome is typed and the ledger closes in each run."""
+    from poisson_tpu_torch.config import Problem
+    from poisson_tpu_torch.serve import (OUTCOME_RESULT, OUTCOME_SHED,
+                                         SCHED_CONTINUOUS, FleetPolicy,
+                                         ServicePolicy, SolveRequest,
+                                         SolveService)
+    from poisson_tpu_torch.solvers.batched import solve_batched
+    from poisson_tpu_torch.testing import chaos
+    from poisson_tpu_torch.testing.faults import kill_worker_at
+
+    problem = Problem(M=800, N=1200)
+    tag = "800x1200"
+    gates = [1.0 + i / SERVE_REQUESTS for i in range(SERVE_REQUESTS)]
+
+    def ledger(name: str) -> dict:
+        c = metrics.snapshot()["counters"]
+        inv = {"admitted": c.get("serve.admitted", 0),
+               "terminated": c.get("serve.completed", 0)
+               + c.get("serve.errors", 0) + c.get("serve.shed", 0)}
+        check(inv["admitted"] == inv["terminated"] > 0,
+              f"serve {name}: the ledger does not close {inv}")
+        return inv
+
+    def serve_run(name: str, policy, n: int = SERVE_REQUESTS, **kw):
+        metrics.reset()
+        svc = SolveService(policy, device="cuda", **kw)
+        t0 = time.perf_counter()
+        for i in range(n):
+            svc.submit(SolveRequest(request_id=i, problem=problem,
+                                    rhs_gate=gates[i], dtype="float32"))
+        outs = svc.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        inv = ledger(name)
+        check(len(outs) == n and svc.stats()["lost"] == 0,
+              f"serve {name}: {len(outs)} outcomes for {n} requests")
+        return svc, {o.request_id: o for o in outs}, wall, inv
+
+    def straight() -> float:
+        # The yardstick: the same gates straight through solve_batched in
+        # two batches (the batched phase has run this bucket at this grid).
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for half in (gates[:SERVE_BATCH], gates[SERVE_BATCH:]):
+            solve_batched(problem, rhs_gates=half, dtype="float32",
+                          device="cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # 1. drain, timed against the yardstick in alternating pairs (straight,
+    # drain, drain, straight, ...); the first drain's outcomes are checked.
+    policy = ServicePolicy(capacity=4 * SERVE_REQUESTS,
+                           max_batch=SERVE_BATCH)
+    straights, walls, runs = [], [], []
+    for k in range(SERVE_PAIRS):
+        if k % 2 == 0:
+            straights.append(straight())
+        runs.append(serve_run("drain", policy))
+        walls.append(runs[-1][2])
+        if k % 2 == 1:
+            straights.append(straight())
+    svc, drain, _, inv = runs[0]
+    wall = statistics.median(walls)
+    overheads = [w - s for w, s in zip(walls, straights)]
+    check(all(o.kind == OUTCOME_RESULT and o.converged
+              for o in drain.values()),
+          "serve drain: not every request converged")
+    for _, again, _, _ in runs[1:]:
+        check(all((again[i].iterations, again[i].flag, again[i].diff)
+                  == (drain[i].iterations, drain[i].flag, drain[i].diff)
+                  for i in drain),
+              "serve drain: a repeated drain differs from the first")
+    solo_s = []
+    for i in SERVE_CHECKED:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = pcg_solve(problem, rhs_gate=gates[i], dtype="float32",
+                        device="cuda")
+        torch.cuda.synchronize()
+        solo_s.append(time.perf_counter() - t0)
+        o = drain[i]
+        check(o.iterations == int(ref.iterations) and o.flag == "converged"
+              and int(ref.flag) == 1 and o.diff == float(ref.diff),
+              f"serve drain member {i}: {o.iterations} {o.flag} {o.diff} "
+              f"against pcg_solve {int(ref.iterations)} {float(ref.diff)}")
+    lat = svc.stats()["latency_seconds"]
+    print(f"serve drain fp32 {tag} [{card}]: " + json.dumps({
+        "requests": SERVE_REQUESTS, "max_batch": SERVE_BATCH,
+        "wall_s": wall, "wall_s_runs": walls,
+        "solves_per_s": SERVE_REQUESTS / wall,
+        "p50_s": lat["p50"], "p99_s": lat["p99"],
+        "solve_batched_two_batches_s": statistics.median(straights),
+        "solve_batched_two_batches_s_runs": straights,
+        "pcg_solve_s": min(solo_s),
+        "overhead_s": statistics.median(overheads),
+        "overhead_s_pairs": overheads, "ledger": inv,
+        "iterations": sorted({o.iterations for o in drain.values()}),
+        "checked_members": list(SERVE_CHECKED)}), flush=True)
+
+    # 2. continuous
+    policy = ServicePolicy(capacity=4 * SERVE_REQUESTS,
+                           max_batch=SERVE_BATCH,
+                           scheduling=SCHED_CONTINUOUS,
+                           refill_chunk=SERVE_REFILL)
+    svc, cont, wall, inv = serve_run("continuous", policy)
+    differ = [i for i in drain
+              if (cont[i].iterations, cont[i].flag, cont[i].diff)
+              != (drain[i].iterations, drain[i].flag, drain[i].diff)]
+    check(not differ, f"serve continuous: requests {differ} differ from "
+                      "the drain run")
+    lat = svc.stats()["latency_seconds"]
+    print(f"serve continuous fp32 {tag} [{card}]: " + json.dumps({
+        "requests": SERVE_REQUESTS, "refill_chunk": SERVE_REFILL,
+        "wall_s": wall, "solves_per_s": SERVE_REQUESTS / wall,
+        "p50_s": lat["p50"], "p99_s": lat["p99"], "ledger": inv,
+        "same_as_drain": SERVE_REQUESTS - len(differ)}), flush=True)
+
+    # 3. a deadline shorter than the solve
+    metrics.reset()
+    svc = SolveService(ServicePolicy(), device="cuda")
+    share, chunk = SERVE_DEADLINE
+    seconds = share * min(solo_s)
+    t0 = time.perf_counter()
+    svc.submit(SolveRequest(request_id="late", problem=problem,
+                            dtype="float32", deadline_seconds=seconds,
+                            chunk=chunk))
+    outs = svc.drain()
+    wall = time.perf_counter() - t0
+    inv = ledger("deadline")
+    check(len(outs) == 1, f"serve deadline: {len(outs)} outcomes")
+    o = outs[0]
+    typed = ((o.kind == OUTCOME_RESULT and o.partial
+              and o.flag == "deadline")
+             or (o.kind == OUTCOME_SHED
+                 and o.shed_reason == "deadline_expired"))
+    check(typed, f"serve deadline: not a typed deadline outcome: {o}")
+    print(f"serve deadline fp32 {tag} [{card}]: " + json.dumps({
+        "deadline_s": seconds, "solve_s": min(solo_s), "chunk": chunk,
+        "kind": o.kind,
+        "flag": o.flag, "shed_reason": o.shed_reason,
+        "iterations": o.iterations, "wall_s": wall, "ledger": inv}),
+        flush=True)
+
+    # 4. the fleet: two workers on two slots of the card, the worker
+    # holding the second dispatch killed
+    workers, n, batch = SERVE_FLEET
+    dispatches = {"n": 0}
+    kill = kill_worker_at(1, lambda: dispatches["n"])
+
+    def fault(worker_id, requests, attempts):
+        try:
+            kill(worker_id, requests, attempts)
+        finally:
+            dispatches["n"] += 1
+
+    policy = ServicePolicy(capacity=4 * SERVE_REQUESTS, max_batch=batch,
+                           fleet=FleetPolicy(workers=workers,
+                                             devices=workers))
+    svc, fleet, wall, inv = serve_run("fleet", policy, n=n,
+                                      worker_fault=fault)
+    recovered = metrics.get("serve.fleet.recovered_requests")
+    retried = sorted(i for i, o in fleet.items() if o.attempts > 1)
+    check(kill.state["kills"] == 1 and recovered >= 1 and retried,
+          f"serve fleet: kills {kill.state}, recovered {recovered}")
+    check(all(o.converged and o.iterations == drain[i].iterations
+              for i, o in fleet.items()),
+          "serve fleet: a request finished off the drain run's count")
+    print(f"serve fleet fp32 {tag} [{card}]: " + json.dumps({
+        "workers": workers, "slots": workers, "requests": n,
+        "max_batch": batch, "wall_s": wall, "ledger": inv,
+        "recovered_requests": recovered, "retried": retried,
+        "quarantines": metrics.get("serve.fleet.quarantines"),
+        "bindings": {str(k): v for k, v in
+                     svc.stats()["placement"]["bindings"].items()}}),
+        flush=True)
+
+    # 5. the chaos campaign on the card
+    t0 = time.perf_counter()
+    report = chaos.run_campaign(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = {r["scenario"]: [k for k, v in r["checks"].items() if not v]
+           for r in report["scenarios"]
+           if not r["ok"] or r["invariant"]["lost"] != 0}
+    print(f"serve chaos [{card}]: " + json.dumps({
+        "scenarios": len(report["scenarios"]), "seconds": wall,
+        "admitted": sum(r["invariant"]["admitted"]
+                        for r in report["scenarios"]),
+        "failed": bad}), flush=True)
+    check(len(report["scenarios"]) == 35 and not bad and report["ok"],
+          f"serve chaos: scenarios not green: {bad}")
+
+
 def main() -> None:
     started = time.perf_counter()
 
@@ -3401,6 +3627,13 @@ def main() -> None:
                   {"direction_and_stencil": ab, "fused_update": ab})
 
     elapsed("measurement")
+    # --- the service phase: the solve service on the card and the chaos
+    # campaign; the plain solves, no kernel of the port.
+    reset_counts()
+    check_serve(pcg_solve, metrics, card)
+    expect_counts("the service phase", {})
+
+    elapsed("service")
     for time_it in timers:
         time_it()
 

@@ -623,6 +623,10 @@ def main(argv=None) -> int:
         return main_geometry(argv[1:])
     if argv and argv[0] == "top":
         return main_top(argv[1:])
+    if argv and argv[0] in ("serve", "session", "chaos", "trace"):
+        from poisson_tpu_torch import cli_serve
+
+        return getattr(cli_serve, f"main_{argv[0]}")(argv[1:])
     args = build_parser().parse_args(argv)
     _grid(args)
     if args.repeat < 1:

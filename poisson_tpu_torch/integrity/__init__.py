@@ -30,6 +30,7 @@ Counters, by the JAX package's names: ``integrity.checks``,
 
 from poisson_tpu_torch.integrity.probe import (
     DEFAULT_VERIFY_JUMP,
+    IntegrityPolicy,
     abft_colsum,
     abft_drift_exceeds,
     default_verify_tol,
@@ -40,6 +41,7 @@ from poisson_tpu_torch.integrity.probe import (
 
 __all__ = [
     "DEFAULT_VERIFY_JUMP",
+    "IntegrityPolicy",
     "abft_colsum",
     "abft_drift_exceeds",
     "default_verify_tol",

@@ -23,7 +23,9 @@ on the golden solves.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -79,6 +81,31 @@ def _dtype_name(dtype) -> str:
 def default_verify_tol(dtype_name) -> float:
     """The dtype-aware default relative drift tolerance."""
     return _VERIFY_TOLS.get(_dtype_name(dtype_name), 1e-3)
+
+
+@dataclasses.dataclass(frozen=True)
+class IntegrityPolicy:
+    """The numerical-integrity knobs, threaded through the solvers and the
+    solve service (``ServicePolicy.integrity``); the JAX package's fields
+    and defaults.
+
+    verify_every: in-loop verification stride (0: no probe, the body is
+        the unverified one and counts stay bit for bit).
+    verify_tol: relative drift tolerance (None: :func:`default_verify_tol`).
+    verify_on_suspect: once a dispatch on a (backend, device_kind) cohort
+        trips an integrity detection, later dispatches on that cohort run
+        with ``suspect_verify_every`` even when ``verify_every`` is 0.
+    suspect_verify_every: the stride for suspect cohorts (and for
+        integrity-escalated retries through the resilient driver).
+    abft: also check the checksum-row ABFT identity at each probe
+        (single-device solve paths).
+    """
+
+    verify_every: int = 0
+    verify_tol: Optional[float] = None
+    verify_on_suspect: bool = True
+    suspect_verify_every: int = 25
+    abft: bool = False
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:

@@ -127,9 +127,12 @@ def basis_key(problem: Problem, dtype_name: str, scaled: bool,
               fingerprint: str, preconditioner: str,
               kp: KrylovPolicy, device) -> tuple:
     """The cache key: the JAX package's, and the device the basis lives
-    on."""
+    on (``cuda`` and ``cuda:<current>`` are one device)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return (fingerprint, _operator_key(problem), dtype_name,
-            bool(scaled), preconditioner, kp.harvest, kp.keep, str(device))
+            bool(scaled), preconditioner, kp.harvest, kp.keep, str(dev))
 
 
 def has_basis(problem: Problem, dtype=None, scaled=None, geometry=None,

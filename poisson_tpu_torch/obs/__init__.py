@@ -34,8 +34,10 @@ Usage (the CLI wires this from ``--trace-dir``/``--metrics-out``/
     obs.finalize()
 
 Unconfigured, ``obs.span`` is a null context (no fence), ``obs.event``
-drops the record, and counters still count. The flight recorder waits for
-the solve service (ROADMAP Queue 1 item 12).
+drops the record, and counters still count.
+
+The solve service's per-request flight recorder and SLO tracker
+(:mod:`poisson_tpu_torch.obs.flight`) ride the same JSONL rails.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ from poisson_tpu_torch.obs.trace import (
 __all__ = ["TraceRecorder", "configure", "configure_from_env", "event",
            "finalize", "gauge", "inc", "load_events", "merge_trace_dir",
            "metrics", "normalize_event", "profile", "recent_events",
-           "shutdown", "span", "stream", "stream_every", "trace"]
+           "recorder", "shutdown", "span", "stream", "stream_every",
+           "trace"]
 
 _RECORDER: Optional[TraceRecorder] = None
 _METRICS_PATH: Optional[str] = None
@@ -145,6 +148,11 @@ def configure_from_env() -> Optional[TraceRecorder]:
     return configure(trace_dir=trace_dir, metrics_path=metrics_path,
                      stream_every=every, profile_dir=profile_dir,
                      prom_path=prom_path, metrics_port=metrics_port)
+
+
+def recorder() -> Optional[TraceRecorder]:
+    """The active recorder, or None when telemetry is unconfigured."""
+    return _RECORDER
 
 
 def stream_every() -> int:

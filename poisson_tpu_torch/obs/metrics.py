@@ -48,7 +48,81 @@ The names the port emits:
 - ``session.steps`` / ``session.warm.hits`` / ``session.warm.fallbacks``
   (with a ``session.warm.fallback`` event and its reason) /
   ``session.setup.hits`` / ``session.setup.misses`` /
-  ``session.design.steps`` — the session steps (``solvers.session``).
+  ``session.design.steps`` — the session steps (``solvers.session``);
+  the session host (``serve.session``) adds ``session.opens`` /
+  ``session.closes`` / ``session.recovered`` / ``session.recovery_errors``
+  / ``session.callback_errors`` / ``session.step.deadline_misses`` /
+  ``session.slo.good``.
+
+The solve service (:mod:`poisson_tpu_torch.serve`) emits the JAX
+package's ``serve.*`` families, by the same names:
+
+- the ``serve`` family — the request ledger, from which the chaos
+  campaign asserts the no-lost-request invariant
+  (``admitted == completed + errors + shed`` once drained):
+  ``serve.admitted`` / ``serve.completed`` (with
+  ``serve.completed.partial`` and ``serve.completed.recovered``) /
+  ``serve.errors`` and ``serve.errors.{divergence,transient,internal,
+  integrity,placement}`` / ``serve.shed`` and ``serve.shed.{queue_full,
+  breaker_open,deadline_expired,predicted_deadline,quota_exceeded}``;
+  the lifecycle: ``serve.dispatches`` / ``serve.batch_members`` /
+  ``serve.retries`` / ``serve.backoff_seconds`` / ``serve.escalations``
+  / ``serve.requeued.isolated`` / ``serve.requeued.geometry_isolated``
+  / ``serve.deadline.{expired_in_queue,expired_mid_solve}`` /
+  ``serve.breaker.{trips,half_opens,closes}`` / ``serve.recovered``
+  (requests re-enqueued from a journal replay, never re-counted as
+  admitted) / ``serve.dedup.hits``; the degradation ladder
+  ``serve.degraded.{padding,iteration_cap,precision,backend_downshift,
+  slo_driven,backlog_driven,mesh_shrink,single_device,mesh_shed}``; the
+  gauges ``serve.queue_depth`` / ``serve.load_level`` /
+  ``serve.latency_seconds`` / ``serve.p99_latency_seconds`` /
+  ``serve.shed_rate`` / ``serve.lost_requests``;
+- ``serve.refill.{splices,retired_lanes,idle_lane_steps,
+  refill_denied_by_breaker}`` and the gauge ``serve.refill.active_lanes``
+  — the continuous engine's lane table (``serve.refill``);
+- ``serve.fleet.{quarantines,restarts,warmup_solves,warmup_failures,
+  worker_deaths,hangs,recovered_requests,sticky_hits,sticky_misses,
+  device_losses}`` and the gauges ``serve.fleet.workers`` /
+  ``serve.fleet.live_workers`` — the supervised workers
+  (``serve.fleet``); ``device_losses`` counts devices, ``quarantines``
+  workers;
+- the ``serve.placement`` family — the device registry
+  (``serve.placement``): ``serve.placement.binds`` /
+  ``serve.placement.rebinds`` (workers rebound to a surviving device at
+  restart) / ``serve.placement.remapped`` (recovered requests whose
+  recorded device is gone, remapped audibly) /
+  ``serve.placement.replans`` and the gauges
+  ``serve.placement.{devices,alive,epoch}``;
+- ``serve.journal.{records,write_errors,replays,torn_records}`` — the
+  write-ahead journal (``serve.journal``);
+- the ``serve.integrity`` family — the service's silent-data-corruption
+  response (``ServicePolicy.integrity``):
+  ``serve.integrity.detections`` / ``serve.integrity.retries`` /
+  ``serve.integrity.suspect_cohorts`` (hardware cohorts tainted by a
+  first detection) / ``serve.integrity.suspect_dispatches`` (dispatches
+  verified only because their cohort was suspect);
+- the ``serve.router`` family — the backend router (``serve.router``):
+  ``serve.router.decisions`` / ``serve.router.{cold,warm}_decisions`` /
+  ``serve.router.chosen.<backend>`` (``torch``, ``resident``, ``ca``) /
+  ``serve.router.{mispredictions,demotions,half_opens,recoveries}`` /
+  ``serve.router.executor_fallbacks`` (routed to a kernel arm, run on
+  the torch solve: the closed gate) and the gauge
+  ``serve.router.demoted_arms``;
+- the ``serve.slo`` family — the SLO tracker (``obs.flight``):
+  ``serve.slo.good`` / ``serve.slo.bad`` and the gauges
+  ``serve.slo.latency_seconds`` (histogram-shaped; Prometheus renders it
+  as a histogram) / ``serve.slo.budget_remaining`` /
+  ``serve.slo.objective_seconds`` / ``serve.slo.burn_rate.<window>s``;
+  ``serve.tenant.slo.<tenant>.*`` is the same per tenant;
+- ``serve.forecast.{admission_checks,preempted}`` and the gauge
+  ``serve.forecast.backlog_seconds`` — the forecaster's service side;
+  ``serve.krylov.{sticky_hits,sticky_misses,verify_suspensions}``;
+  ``serve.session.shed_opens``;
+- the ``serve.tenant`` family — tenancy (``serve.tenancy``):
+  ``serve.tenant.{admitted,completed,errors,shed,dispatches,retries}.
+  <tenant>`` / ``serve.tenant.{quota_sheds,retry_exhausted,promotions,
+  lane_deferred,degraded_offender,degraded_spared}`` and the gauges
+  ``serve.tenant.{share,quota_tokens,retry_tokens,slo_burn}.<tenant>``.
 """
 
 from __future__ import annotations

@@ -104,7 +104,8 @@ class LaneBatch:
     (``splice(..., geometry=)``), which MG lanes do not."""
 
     def __init__(self, problem: Problem, bucket: int, *, dtype=None,
-                 scaled=None, chunk: int = 50, multi_geometry: bool = False,
+                 scaled=None, chunk: int = 50, on_boundary=None,
+                 multi_geometry: bool = False,
                  verify_every: int = 0, verify_tol=None,
                  preconditioner: str = "jacobi", mg_config=None,
                  device=None):
@@ -118,6 +119,10 @@ class LaneBatch:
                 "geometries yet; build a jacobi table or dispatch "
                 "geometry+MG requests solo")
         self._mg_config = mg_config_for(problem, preconditioner, mg_config)
+        # Observation only: called after every step with the step's
+        # {"step", "active", "idle", "chunk"}; the stepping is the same
+        # with or without it.
+        self.on_boundary = on_boundary
         self.problem = problem
         self.bucket = int(bucket)
         self.chunk = int(chunk)
@@ -251,6 +256,9 @@ class LaneBatch:
                                       self._check_every)
             self.steps += 1
             self.idle_lane_steps += idle
+            if self.on_boundary is not None:
+                self.on_boundary({"step": self.steps, "active": active,
+                                  "idle": idle, "chunk": self.chunk})
         return {"active": active, "idle": idle}
 
     def lane_view(self) -> List[dict]:

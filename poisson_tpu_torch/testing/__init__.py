@@ -1,5 +1,5 @@
 """Test support: fault injection for the resilience and integrity layers
-(the solver side of ``poisson_tpu/testing``)."""
+and the chaos campaign (counterpart of ``poisson_tpu/testing``)."""
 
 from poisson_tpu_torch.testing.faults import (
     FaultPlan,

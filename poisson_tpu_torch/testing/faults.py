@@ -1,5 +1,5 @@
 """Fault injection for the resilience and integrity layers, the solver
-side (counterpart of ``poisson_tpu/testing/faults.py:35-415``).
+side and the service side (counterpart of ``poisson_tpu/testing/faults.py``).
 
 - **NaN blow-up**: :func:`inject_nan` pokes a NaN into a solver buffer at a
   chunk boundary; the in-loop verdict (``solvers.pcg``) flags it and the
@@ -17,8 +17,14 @@ side (counterpart of ``poisson_tpu/testing/faults.py:35-415``).
 The element choice and the flipped bits are the JAX package's, in numpy
 with ``random.Random(seed)``: a buffer is copied to the host, flipped there
 and put back on its tensor's device, so the port corrupts the same element
-of the same array as the JAX package. The service-side faults (the JAX
-module's second half) wait for the solve service (ROADMAP Queue 1 item 12).
+of the same array as the JAX package.
+
+The service side (the JAX module's second half) injects into the solve
+service's seams (``serve.service``): :func:`poison_batch_fault` and
+:func:`slow_worker_fault` at ``dispatch_fault``; :func:`worker_kill_fault`,
+:func:`worker_hang_fault`, :func:`device_loss_fault`, :func:`host_drop_fault`,
+:func:`kill_device_at` and :func:`kill_worker_at` at ``worker_fault``;
+:func:`compose_faults` chains injectors of one seam.
 """
 
 from __future__ import annotations
@@ -394,3 +400,226 @@ def nan_per_solve_hook(at_iteration: int, buffer: str = "r"):
         return None
 
     return hook
+
+
+# -- service-level faults (poisson_tpu_torch.serve dispatch seam) -------
+
+
+def poison_batch_fault(poison_ids):
+    """A *repeated-poison-request* injector for the solve service's
+    ``dispatch_fault`` seam: any dispatch whose batch contains one of
+    ``poison_ids`` dies whole with :class:`~poisson_tpu_torch.serve.types.\
+TransientDispatchError` — the model of a member whose payload crashes the
+    device program and takes its batchmates with it. The service's
+    requeue isolation (mutual taint) must keep the poison from re-killing
+    the same batchmates on retry."""
+    poison = set(poison_ids)
+
+    def fault(requests, attempts):
+        hit = [r.request_id for r in requests if r.request_id in poison]
+        if hit:
+            from poisson_tpu_torch.serve.types import TransientDispatchError
+
+            raise TransientDispatchError(
+                f"injected device fault (poison member(s) {hit} in a "
+                f"batch of {len(requests)})"
+            )
+
+    return fault
+
+
+def slow_worker_fault(seconds: float, sleep):
+    """A *slow-worker* injector: every dispatch stalls for ``seconds`` on
+    the service's (virtual or real) clock before the solver runs —
+    queued deadlines burn down behind it, which is exactly the overload
+    pathology deadline-shedding exists for."""
+
+    def fault(requests, attempts):
+        sleep(seconds)
+
+    return fault
+
+
+def compose_faults(*faults):
+    """Run several same-seam injectors in order (first raise wins).
+    Arity-agnostic: composes ``dispatch_fault`` injectors
+    ``(requests, attempts)`` and ``worker_fault`` injectors
+    ``(worker_id, requests, attempts)`` alike — mixing seams in one
+    composition is a caller bug the signatures surface loudly."""
+
+    def fault(*args):
+        for f in faults:
+            f(*args)
+
+    return fault
+
+
+# -- fleet-level faults (poisson_tpu_torch.serve worker seam) ------------
+
+
+def worker_kill_fault(worker_ids, kills_per_worker: int = 1):
+    """A *worker-kill* injector for the service's ``worker_fault`` seam
+    (called as ``(worker_id, requests, attempts)``): the named workers
+    die with :class:`~poisson_tpu_torch.serve.fleet.WorkerCrashError` on their
+    first ``kills_per_worker`` dispatches — the model of a preempted or
+    OOM-killed execution engine. The supervisor must quarantine the
+    worker, recover its in-flight requests onto the survivors with
+    mutual taint, and restart it through warm-up."""
+    targets = set(worker_ids)
+    kills: dict = {}
+
+    def fault(worker_id, requests, attempts):
+        if worker_id in targets and kills.get(worker_id, 0) < kills_per_worker:
+            kills[worker_id] = kills.get(worker_id, 0) + 1
+            from poisson_tpu_torch.serve.fleet import WorkerCrashError
+
+            raise WorkerCrashError(
+                f"injected kill of worker {worker_id} "
+                f"(kill {kills[worker_id]}/{kills_per_worker}, "
+                f"{len(requests)} request(s) in flight)"
+            )
+
+    return fault
+
+
+def worker_hang_fault(worker_ids, stall_seconds: float, advance,
+                      hangs_per_worker: int = 1):
+    """A *worker-hang* injector: the named workers wedge mid-dispatch
+    for ``stall_seconds`` on the injected clock (``advance`` — a
+    ``VirtualClock.advance`` in chaos scenarios) and then surface
+    :class:`~poisson_tpu_torch.serve.fleet.WorkerHangError`. Sized past the
+    fleet's heartbeat timeout, the stall verdict must land on the
+    worker's watchdog (``watchdog.stalls``) before the supervisor
+    quarantines and recovers."""
+    targets = set(worker_ids)
+    hangs: dict = {}
+
+    def fault(worker_id, requests, attempts):
+        if worker_id in targets and hangs.get(worker_id, 0) < hangs_per_worker:
+            hangs[worker_id] = hangs.get(worker_id, 0) + 1
+            advance(stall_seconds)
+            from poisson_tpu_torch.serve.fleet import WorkerHangError
+
+            raise WorkerHangError(
+                f"worker {worker_id} wedged for {stall_seconds}s "
+                f"mid-dispatch (hang {hangs[worker_id]})"
+            )
+
+    return fault
+
+
+def device_loss_fault(device_ids, placement_of, losses_per_device: int = 1):
+    """A *device-loss* injector for the service's ``worker_fault`` seam:
+    the first ``losses_per_device`` dispatches (or chunk steps — the
+    seam fires at both) of any worker bound to one of ``device_ids``
+    raise :class:`~poisson_tpu_torch.serve.fleet.DeviceLossError` naming that
+    device — the device-unavailable shape of a card dropping off
+    the bus. The supervisor must mark the device lost
+    (placement epoch bump), quarantine EVERY worker in the fault
+    domain, recover their in-flight requests onto survivors with
+    mutual taint, and rebind the quarantined workers at restart.
+
+    ``placement_of`` maps a worker id to its bound device id (e.g.
+    ``service.worker_device``) — the injector targets silicon, and only
+    the placement registry knows who lives on it."""
+    targets = {int(d) for d in device_ids}
+    losses: dict = {}
+
+    def fault(worker_id, requests, attempts):
+        device = placement_of(worker_id)
+        if device is None or int(device) not in targets:
+            return
+        if losses.get(int(device), 0) >= losses_per_device:
+            return
+        losses[int(device)] = losses.get(int(device), 0) + 1
+        from poisson_tpu_torch.serve.fleet import DeviceLossError
+
+        raise DeviceLossError(
+            f"injected loss of device {device} under worker "
+            f"{worker_id} ({len(requests)} request(s) in flight)",
+            device_id=int(device),
+        )
+
+    return fault
+
+
+def host_drop_fault(host_devices, placement_of):
+    """A *host-drop* injector: every device of one host vanishes
+    together (``host_devices`` — the host's fault-domain slots, e.g.
+    a contiguous run of 4 chips). Each doomed device surfaces its own
+    :class:`~poisson_tpu_torch.serve.fleet.DeviceLossError` as a worker bound
+    to it next dispatches — the honest shape of a host dropping off
+    the network: losses arrive as the survivors notice, not as one
+    atomic event. The supervisor must drain the whole host's fault
+    domains and re-plan onto the surviving hosts."""
+    doomed = {int(d) for d in host_devices}
+    reported: set = set()
+
+    def fault(worker_id, requests, attempts):
+        device = placement_of(worker_id)
+        if device is None or int(device) not in doomed:
+            return
+        if int(device) in reported:
+            return
+        reported.add(int(device))
+        from poisson_tpu_torch.serve.fleet import DeviceLossError
+
+        raise DeviceLossError(
+            f"injected host drop: device {device} gone "
+            f"({len(reported)}/{len(doomed)} of the host's devices "
+            "reported)",
+            device_id=int(device),
+        )
+
+    return fault
+
+
+def kill_device_at(at_seconds: float, clock, losses: int = 1):
+    """Bench-churn injector (``bench.py --serve --devices D
+    --kill-device-at T``): once ``clock()`` passes ``at_seconds``, the
+    next ``losses`` dispatching workers lose their BOUND device —
+    ``DeviceLossError`` with ``device_id=None``, which the supervisor
+    resolves to the dispatching worker's fault domain. Device churn at
+    a wall-clock point in an open-loop run, whichever fault domain
+    happens to hold the dispatch."""
+    state = {"losses": 0}
+
+    def fault(worker_id, requests, attempts):
+        if state["losses"] < losses and clock() >= at_seconds:
+            state["losses"] += 1
+            from poisson_tpu_torch.serve.fleet import DeviceLossError
+
+            raise DeviceLossError(
+                f"injected churn: worker {worker_id}'s device lost at "
+                f"t={clock():.3f}s (loss {state['losses']}/{losses})"
+            )
+
+    # Bench reads this to tell a churned run from one that finished
+    # before the loss was due (see kill_worker_at).
+    fault.state = state
+    return fault
+
+
+def kill_worker_at(at_seconds: float, clock, kills: int = 1):
+    """Bench-churn injector (``bench.py --serve --workers W
+    --kill-worker-at T``): once ``clock()`` passes ``at_seconds``, the
+    next ``kills`` dispatching workers die — worker churn at a
+    wall-clock point in an open-loop run, whichever worker happens to
+    hold the dispatch."""
+    state = {"kills": 0}
+
+    def fault(worker_id, requests, attempts):
+        if state["kills"] < kills and clock() >= at_seconds:
+            state["kills"] += 1
+            from poisson_tpu_torch.serve.fleet import WorkerCrashError
+
+            raise WorkerCrashError(
+                f"injected churn: worker {worker_id} killed at "
+                f"t={clock():.3f}s (kill {state['kills']}/{kills})"
+            )
+
+    # Callers (bench.py fleet mode) read this to tell a churned run
+    # from one that finished before the kill was due — the record must
+    # never label clean throughput as a churn experiment.
+    fault.state = state
+    return fault

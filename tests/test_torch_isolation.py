@@ -26,7 +26,10 @@ from poisson_tpu_torch.parallel import (
     mesh,
     pcg_sharded,
 )
+from poisson_tpu_torch.cli import main as cli_main
 from poisson_tpu_torch.krylov import KrylovPolicy, recycle
+from poisson_tpu_torch import serve
+from poisson_tpu_torch.testing import chaos
 from poisson_tpu_torch.solvers import (
     adjoint,
     batched,
@@ -112,7 +115,12 @@ def test_no_module_imports_jax_or_the_reference():
                  "solvers.adjoint", "krylov", "krylov.block",
                  "krylov.recycle", "solvers.session", "obs.costs",
                  "obs.roofline", "obs.profile", "obs.export",
-                 "obs.forecast", "native", "bench"):
+                 "obs.forecast", "native", "bench", "serve",
+                 "serve.breaker", "serve.deadline", "serve.fleet",
+                 "serve.journal", "serve.placement", "serve.refill",
+                 "serve.router", "serve.service", "serve.session",
+                 "serve.tenancy", "serve.types", "obs.flight",
+                 "testing.chaos", "cli_serve"):
         assert f"poisson_tpu_torch.{name}" in modules
 
 
@@ -188,6 +196,15 @@ def test_no_module_imports_jax_or_the_reference():
         torch.zeros(11, 11), 0.1),
     lambda: checkpoint.pcg_solve_chunked(Problem(M=10, N=10), rhs_gate=0.5),
     lambda: pcg.pcg_solve(Problem(M=10, N=10), dtype="bfloat16"),
+    lambda: serve.SolveService(),
+    lambda: serve.SolveService.recover(serve.SolveJournal(os.devnull)),
+    lambda: serve.DeviceRegistry(),
+    lambda: serve.WorkerPool(serve.FleetPolicy(workers=2)),
+    lambda: serve.SessionHost(serve.SolveService()),
+    lambda: chaos.run_scenario("overload-shed"),
+    lambda: cli_main(["serve", "10", "10", "--requests", "1"]),
+    lambda: cli_main(["session", "10", "10", "--steps", "1"]),
+    lambda: cli_main(["chaos", "overload-shed"]),
 ], ids=["fused_cg_solve", "pcg_solve", "build_canvases", "resident_cg_solve",
         "ca_cg_solve", "refined_solve", "make_solver_mesh",
         "fused_cg_solve_sharded", "ca_cg_solve_sharded",
@@ -206,7 +223,10 @@ def test_no_module_imports_jax_or_the_reference():
         "shape_gradient", "solve_batched_block", "solve_recycled",
         "has_basis", "manufactured_error_krylov", "session_step_solve",
         "session_step_solve_heat", "shifted_setup", "design_step",
-        "pcg_solve_chunked_rhs_gate", "pcg_solve_bfloat16"])
+        "pcg_solve_chunked_rhs_gate", "pcg_solve_bfloat16", "SolveService",
+        "SolveService_recover", "DeviceRegistry", "WorkerPool",
+        "SessionHost", "chaos_run_scenario", "cli_serve", "cli_session",
+        "cli_chaos"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
