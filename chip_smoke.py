@@ -198,6 +198,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      counts; and the chaos campaign, all 35 scenarios on the card
      (subprocess drills included), green, each closing its ledger, with
      its seconds;
+   - the tooling phase (``poisson_tpu_torch.bench``'s serve, Krylov-block
+     and session modes, ``contracts``, ``obs.selfcheck``, the solve
+     command's ``--save-solution`` and ``--categories``): ``--serve 32
+     --arrival-rate 4`` at 800×1200 under both engines, every request
+     converged with the same count in both and three of them at their own
+     ``pcg_solve``'s count; ``--serve 16`` under fault load at 400×600,
+     every clean request a result (converged, or capped by the
+     degradation ladder the burst engages) and the poisoned one a typed
+     error, its p99; ``--workers 2 --devices 2 --kill-device-at 1`` losing no request
+     on a ``2xcuda`` topology; ``--repeat-fingerprint 3`` with a cache hit
+     rate above 0; ``--geometry-mix 3`` and ``--tenants a:1,b:4``
+     records and an 8-request ``--router`` one with its decisions; ``--krylov-block 16`` with a positive
+     ``iteration_cut`` at the same L2 floor; ``--session 20`` at 300×450
+     and its steps/s; every record loaded by ``regress.py`` into a cohort
+     of its own; ``python -m poisson_tpu_torch.contracts --json`` with
+     lint, drift and ``kernels.*`` clean and the traces matched or every
+     mismatch named as the environment's; ``python -m
+     poisson_tpu_torch.obs.selfcheck --device cuda`` exiting 0; ``solve
+     --backend fused --save-solution`` at 800×1200 writing the solve's
+     iterate bit for bit (kernels A and B launched exactly once per driven
+     step of its three solves); ``--backend torch --categories`` printing
+     the table;
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events, and for kernel S ``torch.sum`` over the same partials
@@ -577,6 +599,17 @@ SERVE_DEADLINE = (0.1, 25)       # deadline as a share of one measured
                                  # solve, and the chunk
 SERVE_FLEET = (2, 16, 8)         # workers (on two slots of the card),
                                  # requests, max_batch
+# The tooling phase (the bench's serve, Krylov-block and session modes,
+# the contract gate, the selfcheck, the solve command's last flags).
+TOOL_OPENLOOP = (32, 4.0)        # --serve 32 --arrival-rate 4 at 800x1200
+TOOL_CHECKED = (0, 15, 31)       # open-loop requests held to pcg_solve
+TOOL_SERVE = 16                  # requests of the 400x600 serve modes
+TOOL_ROUTER = 8                  # ... and of the --router run
+TOOL_KILL_DEVICE_AT = 1.0        # --workers 2 --devices 2 --kill-device-at
+TOOL_FAMILIES = 3                # --repeat-fingerprint and --geometry-mix
+TOOL_TENANTS = (("a", 1.0), ("b", 4.0))
+TOOL_BLOCK = 16                  # --krylov-block at 400x600
+TOOL_SESSION = 20                # --session steps at 300x450
 
 
 def ptxas_report(log: str, symbol: str) -> dict | None:
@@ -2851,6 +2884,221 @@ def check_serve(pcg_solve, metrics, card: str) -> None:
           f"serve chaos: scenarios not green: {bad}")
 
 
+def _child_env(root: str) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def check_tooling(pcg_solve, metrics, card: str, root: str) -> int:
+    """The tooling phase: the bench's serve, Krylov-block and session
+    records on the card, each loaded into a ``regress.py`` cohort of its
+    own; the contract gate and the telemetry selfcheck as their commands
+    run them; and the solve command's ``--save-solution`` (fused, kernels A
+    and B) and ``--categories``. Returns the launches of A and B it
+    drove."""
+    from benchmarks import regress
+    from poisson_tpu_torch import bench, cli
+    from poisson_tpu_torch.config import FLAGSHIP, Problem
+    from poisson_tpu_torch.ops.fused_cg import fused_cg_solve
+    from poisson_tpu_torch.solvers.pcg import CHECK_EVERY
+
+    dev = torch.device("cuda")
+    mid = Problem(*bench.MODE_GRID)
+    t_phase = time.perf_counter()
+    records = {}
+
+    def record(name: str, run):
+        metrics.reset()
+        t0 = time.perf_counter()
+        rec, ok = run()
+        torch.cuda.synchronize()
+        records[name] = rec
+        print(f"bench record {name} [{card}]: {json.dumps(rec)}", flush=True)
+        print(f"elapsed in {name}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        check(ok, f"bench {name}: the run failed its own check")
+        check(rec["detail"]["platform"] == "gpu"
+              and rec["detail"]["platform_fallback"] is False,
+              f"bench {name}: platform {rec['detail']['platform']}")
+        return rec
+
+    # --serve 32 --arrival-rate 4 at 800x1200: both engines, every request
+    # accounted, the same counts in both, each a solo solve's.
+    requests, rate = TOOL_OPENLOOP
+    keep = {}
+    rec = record(f"--serve {requests} --arrival-rate {rate:g}",
+                 lambda: bench.serve_openloop_record(FLAGSHIP, requests,
+                                                     rate, dev, keep=keep))
+    outs = {mode: {o.request_id: o for o in keep[mode].outcomes()}
+            for mode in ("drain", "continuous")}
+    for mode, got in outs.items():
+        check(sorted(got) == list(range(requests))
+              and all(o.converged for o in got.values()),
+              f"--serve open loop {mode}: {len(got)} outcomes, not all "
+              "converged")
+    check(all((outs["drain"][i].iterations, outs["drain"][i].flag)
+              == (outs["continuous"][i].iterations,
+                  outs["continuous"][i].flag) for i in range(requests)),
+          "--serve open loop: the engines' counts differ")
+    gates = {rid: gate for _, rid, gate in
+             bench._poisson_schedule(requests, rate)}
+    for i in TOOL_CHECKED:
+        ref = pcg_solve(FLAGSHIP, rhs_gate=gates[i], dtype="float32",
+                        device="cuda")
+        check(outs["drain"][i].iterations == int(ref.iterations),
+              f"--serve open loop request {i}: {outs['drain'][i].iterations}"
+              f" iterations, its pcg_solve {int(ref.iterations)}")
+
+    # --serve 16 (fault load): the poisoned request isolated.
+    keep = {}
+    rec = record(f"--serve {TOOL_SERVE}",
+                 lambda: bench.serve_record(mid, TOOL_SERVE, dev, keep=keep))
+    # The burst fills the queue (capacity = requests), so the degradation
+    # ladder may cap a clean request's iterations: a partial result is
+    # still a result.
+    outs = {o.request_id: o for o in keep["service"].outcomes()}
+    poisoned = set(range(max(1, TOOL_SERVE // 16)))
+    check(len(outs) == TOOL_SERVE
+          and all(o.kind == "result" for i, o in outs.items()
+                  if i not in poisoned)
+          and all(outs[i].kind == "error" for i in poisoned),
+          f"--serve {TOOL_SERVE}: outcomes {[o.kind for o in outs.values()]}")
+    print(f"serve fault load 400x600 [{card}]: " + json.dumps({
+        "p99_s": rec["value"], "poisoned": {
+            i: outs[i].kind for i in sorted(poisoned)},
+        "clean_converged": sum(o.converged for i, o in outs.items()
+                               if i not in poisoned),
+        "clean_partial": sum(o.partial for i, o in outs.items()
+                             if i not in poisoned)}), flush=True)
+
+    # --serve 16 --workers 2 --devices 2 --kill-device-at 1.
+    rec = record(f"--serve {TOOL_SERVE} --workers 2 --devices 2 "
+                 f"--kill-device-at {TOOL_KILL_DEVICE_AT:g}",
+                 lambda: bench.serve_fleet_record(
+                     mid, TOOL_SERVE, 2, dev, fleet_devices=2,
+                     kill_device_at=TOOL_KILL_DEVICE_AT))
+    check(rec["detail"]["lost"] == 0
+          and rec["detail"]["device_topology"] == "2xcuda",
+          f"--serve fleet: {rec['detail']['lost']} lost, topology "
+          f"{rec['detail']['device_topology']}")
+
+    # --serve 16 --repeat-fingerprint 3: repeats served off the cache.
+    rec = record(f"--serve {TOOL_SERVE} --repeat-fingerprint "
+                 f"{TOOL_FAMILIES}",
+                 lambda: bench.serve_repeat_fp_record(
+                     mid, TOOL_SERVE, TOOL_FAMILIES, dev))
+    check(rec["detail"]["krylov_hit_rate"] > 0,
+          f"--repeat-fingerprint: hit rate {rec['detail']['krylov_hit_rate']}")
+
+    # --geometry-mix 3, --tenants a:1,b:4, --router: records build and load.
+    record(f"--serve {TOOL_SERVE} --geometry-mix {TOOL_FAMILIES}",
+           lambda: bench.serve_geometry_mix_record(mid, TOOL_SERVE,
+                                                   TOOL_FAMILIES, dev))
+    record(f"--serve {TOOL_SERVE} --tenants "
+           f"{bench._tenant_mix_string(TOOL_TENANTS)}",
+           lambda: bench.serve_tenants_record(mid, TOOL_SERVE, TOOL_TENANTS,
+                                              dev))
+    rec = record(f"--serve {TOOL_ROUTER} --router",
+                 lambda: bench.serve_record(mid, TOOL_ROUTER, dev,
+                                            router=True))
+    check(rec["detail"]["routed_backend"] == "auto"
+          and rec["detail"]["router"]["decisions"] > 0,
+          f"--router: {rec['detail']['router']}")
+
+    # --krylov-block 16 at 400x600: fewer member iterations, same floor.
+    rec = record(f"--krylov-block {TOOL_BLOCK}",
+                 lambda: bench.krylov_block_record(mid, TOOL_BLOCK, dev))
+    ab = rec["detail"]["krylov_block_ab"]
+    check(ab["iteration_cut"] > 0 and ab["same_l2_floor"],
+          f"--krylov-block: cut {ab['iteration_cut']}, same floor "
+          f"{ab['same_l2_floor']}")
+
+    # --session 20 at 300x450.
+    rec = record(f"--session {TOOL_SESSION}",
+                 lambda: bench.session_record(Problem(*bench.SESSION_GRID),
+                                              TOOL_SESSION, dev))
+    print(f"session steps/s 300x450 [{card}]: {rec['value']}", flush=True)
+
+    # Every record in a cohort of its own.
+    keys = {}
+    for name, rec in records.items():
+        loaded = regress.records_from_result(rec, name)
+        check(loaded and loaded[0]["value"] == rec["value"],
+              f"{name}: the record does not load in regress.py")
+        keys[name] = regress.cohort_key(regress.record_from_result(rec,
+                                                                   name))
+    check(len(set(keys.values())) == len(keys),
+          f"bench records share a cohort: {keys}")
+    print(f"bench records cohorts: {len(keys)} records, "
+          f"{len(set(keys.values()))} cohorts", flush=True)
+
+    # The contract gate as its command runs it.
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "poisson_tpu_torch.contracts",
+                          "--json"], cwd=root, env=_child_env(root),
+                         capture_output=True, text=True, timeout=600)
+    gate_s = time.perf_counter() - t0
+    check(out.stdout.strip().startswith("{"),
+          f"contracts: no report (rc {out.returncode}): "
+          f"{out.stderr[-2000:]}")
+    report = json.loads(out.stdout)
+    problems = report["ledger"]["problems"]
+    kinds = sorted({p["kind"] for p in problems})
+    print(f"contracts [{card}]: " + json.dumps({
+        "rc": out.returncode, "seconds": gate_s, "counts": report["counts"],
+        "environment": report["ledger"]["environment"],
+        "problem_kinds": kinds,
+        "kernel_problems": [p for p in problems
+                            if p["program"].startswith("kernels.")]}),
+        flush=True)
+    check(report["counts"]["findings"] == 0,
+          f"contracts: lint/drift findings {report['findings']}")
+    check(all(p["kind"] == "ledger-environment" for p in problems),
+          f"contracts: ledger problems {problems}")
+    check(out.returncode == (0 if not problems else 1),
+          f"contracts: exit {out.returncode} with problems {kinds}")
+
+    # The telemetry selfcheck on the card.
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "poisson_tpu_torch.obs.selfcheck", "--device",
+                          "cuda"], cwd=root, env=_child_env(root),
+                         capture_output=True, text=True, timeout=600)
+    lines = [line for line in out.stdout.splitlines()
+             if line.startswith("obs selfcheck")]
+    print(f"selfcheck [{card}]: rc {out.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{lines[-1] if lines else out.stderr[-2000:]}", flush=True)
+    check(out.returncode == 0, "obs.selfcheck --device cuda failed")
+
+    # solve --backend fused --save-solution: the file is the iterate.
+    ckdir = tempfile.mkdtemp(prefix="smoke-tooling-")
+    try:
+        path = os.path.join(ckdir, "w.npy")
+        check(cli.main([str(FLAGSHIP.M), str(FLAGSHIP.N), "--backend",
+                        "fused", "--json", "--save-solution", path]) == 0,
+              "solve --save-solution failed")
+        saved = np.load(path)
+        ref = fused_cg_solve(FLAGSHIP, device="cuda")
+        want = ref.w.double().cpu().numpy()
+        check(saved.dtype == np.float64 and np.array_equal(saved, want),
+              "--save-solution: the file is not the solve's iterate")
+        print(f"save-solution fused 800x1200 [{card}]: " + json.dumps({
+            "shape": list(saved.shape), "bit_for_bit": True,
+            "iterations": int(ref.iterations)}), flush=True)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    # --categories (on the torch backend: the table times the plain ops
+    # with CUDA events, and no kernel of the port runs).
+    check(cli.main([str(FLAGSHIP.M), str(FLAGSHIP.N), "--backend", "torch",
+                    "--categories"]) == 0, "solve --categories failed")
+    print(f"tooling phase seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    # The CLI ran one first and one timed solve, the check one more.
+    return 3 * driven_steps(989, FLAGSHIP.iteration_cap, CHECK_EVERY)
+
+
 def main() -> None:
     started = time.perf_counter()
 
@@ -3634,6 +3882,15 @@ def main() -> None:
     expect_counts("the service phase", {})
 
     elapsed("service")
+    # --- the tooling phase: the bench's remaining modes, the contract gate,
+    # the selfcheck, and the solve command's last flags; kernels A and B on
+    # the --save-solution solves only.
+    reset_counts()
+    ab = check_tooling(pcg_solve, metrics, card, root)
+    expect_counts("the tooling phase",
+                  {"direction_and_stencil": ab, "fused_update": ab})
+
+    elapsed("tooling")
     for time_it in timers:
         time_it()
 

@@ -288,6 +288,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="capture a torch.profiler trace of one extra, "
                         "untimed solve into DIR")
+    p.add_argument("--save-solution", metavar="PATH", default=None,
+                   help="write the solution grid to PATH (.npy, fp64)")
+    p.add_argument("--categories", action="store_true",
+                   help="per-op timing decomposition of one iteration "
+                        "(stage 4's table), each op timed alone")
     p.add_argument("--json", action="store_true",
                    help="one JSON line instead of a table")
     return p
@@ -608,6 +613,9 @@ def check_native(args) -> None:
     if args.profile:
         raise SystemExit("--profile captures a torch.profiler device trace; "
                          "not available with --backend native")
+    if args.categories:
+        raise SystemExit("--categories times the torch ops; not available "
+                         "with --backend native")
     if (args.bm is not None or args.bn is not None
             or args.serial_reduce is not None):
         raise SystemExit("--bm/--bn/--serial-reduce shape the CUDA kernels; "
@@ -645,6 +653,8 @@ def main(argv=None) -> int:
     # Env-driven capture directory; an explicit --profile DIR wins for the
     # CLI's own capture.
     obs_profile.configure_from_env()
+    if args.categories and args.json:
+        raise SystemExit("--categories produces a table; drop --json")
     problem = Problem(M=args.M, N=args.N, delta=args.delta,
                       max_iter=args.max_iter,
                       weighted_norm=not args.unweighted_norm)
@@ -688,8 +698,85 @@ def main(argv=None) -> int:
         raise
 
 
-def _emit(args, report, profiled: bool = False) -> int:
-    """The report as an event, the artifacts flushed, the line printed."""
+def save_solution(path: str, w) -> None:
+    """``--save-solution``: the iterate as a (M+1, N+1) fp64 ``.npy``."""
+    import numpy as np
+    import torch
+
+    if isinstance(w, torch.Tensor):
+        w = w.detach().to("cpu", torch.float64).numpy()
+    np.save(path, np.asarray(w, np.float64))
+
+
+def _time_op(fn, device, reps: int) -> float:
+    """Seconds per call of ``fn`` after one untimed call: CUDA events
+    around ``reps`` calls on a card, the host clock on the CPU."""
+    import torch
+
+    fn()
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps
+
+
+def categories_table(problem: Problem, dtype: str, iters: int,
+                     device) -> list[str]:
+    """``--categories``: stage 4's per-iteration timer table
+    (``…cu:969-980``) rebuilt by timing each op family of
+    ``ops.stencil`` alone on the unscaled fields: ``apply_A``,
+    ``apply_Dinv``, three ``dot_weighted`` and the three axpy sweeps, as
+    the JAX CLI's ``_categories_table``. The production solve fuses them;
+    the table shows where the work of one iteration would go if it were
+    staged like the reference."""
+    from poisson_tpu_torch.ops.stencil import (
+        apply_A,
+        apply_Dinv,
+        dot_weighted,
+    )
+    from poisson_tpu_torch.solvers.pcg import solve_fields
+
+    a, b, rhs, aux = solve_fields(problem, dtype, False, device)
+    d = aux[1:-1, 1:-1]
+    h1, h2 = problem.h1, problem.h2
+    p = rhs
+    ops = {
+        "stencil (mat_A)": lambda: apply_A(p, a, b, h1, h2),
+        "preconditioner (mat_D)": lambda: apply_Dinv(p, d),
+        "dot products x3": lambda: (dot_weighted(p, p, h1, h2),
+                                    dot_weighted(p, rhs, h1, h2),
+                                    dot_weighted(rhs, rhs, h1, h2)),
+        "axpy sweeps (w,r,p)": lambda: (p + 0.5 * rhs, p - 0.5 * rhs,
+                                        rhs + 0.5 * p),
+    }
+    reps = 20
+    rows, total = [], 0.0
+    for name, fn in ops.items():
+        per_iter = _time_op(fn, device, reps)
+        total += per_iter
+        rows.append((name, per_iter))
+    head = "est. total (x{} iters)".format(iters)
+    lines = [f"  {'op':<24} {'s/iter':>12} {head:>24}"]
+    for name, per_iter in rows:
+        lines.append(f"  {name:<24} {per_iter:>12.3e} "
+                     f"{per_iter * iters:>24.3f}")
+    lines.append(f"  {'sum (unfused estimate)':<24} {total:>12.3e} "
+                 f"{total * iters:>24.3f}")
+    return lines
+
+
+def _emit(args, report, profiled: bool = False, tail=()) -> int:
+    """The report as an event, the artifacts flushed, the line printed,
+    then ``tail`` (``--categories``' table)."""
     from poisson_tpu_torch import obs
 
     # The report is itself an event, so a trace directory alone holds the
@@ -697,6 +784,8 @@ def _emit(args, report, profiled: bool = False) -> int:
     obs.event("solve.report", **dataclasses.asdict(report))
     obs.finalize()
     print(report.json_line() if args.json else report.table())
+    for line in tail:
+        print(line)
     if profiled and args.profile and not args.json:
         print(f"profiler trace written to {args.profile}")
     return 0
@@ -733,6 +822,8 @@ def _solve_native(args, problem: Problem) -> int:
         devices=0)
     # The oracle tracks no verdict: counted "untracked", as in JAX.
     count_solve(result, compile_seconds=0.0, solve_seconds=best)
+    if args.save_solution:
+        save_solution(args.save_solution, result.w)
     return _emit(args, report)
 
 
@@ -956,7 +1047,15 @@ def _solve(args, problem: Problem, backend: str, visible: int, watchdog,
                   else None),
     )
     count_solve(result, compile_seconds=first - best, solve_seconds=best)
-    return _emit(args, report, profiled)
+    if args.save_solution:
+        save_solution(args.save_solution, result.w)
+    tail = ()
+    if args.categories:
+        tail = ["reconstructed per-op decomposition (production solve is "
+                "fused):", *categories_table(
+                    problem, "float64" if args.dtype == "float64"
+                    else "float32", iters, device)]
+    return _emit(args, report, profiled, tail)
 
 
 def build_batched_parser() -> argparse.ArgumentParser:

@@ -123,6 +123,38 @@ package's ``serve.*`` families, by the same names:
   <tenant>`` / ``serve.tenant.{quota_sheds,retry_exhausted,promotions,
   lane_deferred,degraded_offender,degraded_spared}`` and the gauges
   ``serve.tenant.{share,quota_tokens,retry_tokens,slo_burn}.<tenant>``.
+
+Beyond the service (named here so the contract gate's ``counter-doc``
+rule finds every name the port writes):
+
+- ``geom.cache.{hits,misses}`` — the canvas cache (``geometry.canvas``);
+- ``mg.solves`` (MG solves started, lane splices included),
+  ``mg.hierarchy_cache.{hits,misses}`` and the gauges
+  ``mg.{levels,coarse_dense}`` — multigrid (``mg``);
+- ``krylov.block.rank_deficient`` — block solves that truncated a
+  rank-deficient direction (the service's count);
+- the cost-model gauges ``cost.<name>`` (``obs.costs``: the counted
+  iteration beside the model), ``cost.mg.{bytes_per_cycle,
+  flops_per_cycle,passes}``, ``cost.krylov.{block_bytes_per_iter,
+  block_flops_per_iter,block_passes_per_member,deflated_bytes_per_iter,
+  deflated_flops_per_iter,deflated_passes}`` and ``roofline.<name>``
+  (the roofline of a measured run);
+- ``obs.forecast.{predictions,cold_cohorts,snapshot.loads}`` and the
+  gauges ``obs.forecast.{abs_err_pct,calibration_pct,
+  calibration_err_pct}`` — the forecaster (``obs.forecast``);
+- ``obs.roofline.{observations,skipped,cold_cohorts,snapshot.loads,
+  snapshot.torn}`` and the gauges ``obs.roofline.{fraction,abs_err_pct,
+  calibration_pct,calibration_err_pct}`` / ``obs.roofline.fraction.<arm>``
+  — the measured roofline model (``obs.roofline``);
+- ``profile.{captures,errors}`` — profiler captures (``obs.profile``);
+  the gauge ``export.http_port`` — the live ``/metrics`` endpoint
+  (``obs.export``);
+- the bench's gauges ``bench.{mlups,vs_baseline,batched_solves_per_sec,
+  batched_speedup,verify_overhead_fraction,session_steps_per_sec,
+  session_speedup}``;
+- the contract gate's gauges ``contracts.{findings,suppressed,rules}``
+  (``python -m poisson_tpu_torch.contracts``) and ``selfcheck.runs``
+  (``python -m poisson_tpu_torch.obs.selfcheck``).
 """
 
 from __future__ import annotations

@@ -27,6 +27,8 @@ from poisson_tpu_torch.parallel import (
     pcg_sharded,
 )
 from poisson_tpu_torch.cli import main as cli_main
+from poisson_tpu_torch import bench as bench_main
+from poisson_tpu_torch.obs import selfcheck as obs_selfcheck
 from poisson_tpu_torch.krylov import KrylovPolicy, recycle
 from poisson_tpu_torch import serve
 from poisson_tpu_torch.testing import chaos
@@ -120,7 +122,11 @@ def test_no_module_imports_jax_or_the_reference():
                  "serve.journal", "serve.placement", "serve.refill",
                  "serve.router", "serve.service", "serve.session",
                  "serve.tenancy", "serve.types", "obs.flight",
-                 "testing.chaos", "cli_serve"):
+                 "testing.chaos", "cli_serve", "contracts",
+                 "contracts.lint", "contracts.drift", "contracts.trace",
+                 "contracts.manifest", "obs.selfcheck", "examples",
+                 "examples.basic_solve", "examples.distributed_solve",
+                 "examples.shape_opt", "examples.source_identification"):
         assert f"poisson_tpu_torch.{name}" in modules
 
 
@@ -205,6 +211,11 @@ def test_no_module_imports_jax_or_the_reference():
     lambda: cli_main(["serve", "10", "10", "--requests", "1"]),
     lambda: cli_main(["session", "10", "10", "--steps", "1"]),
     lambda: cli_main(["chaos", "overload-shed"]),
+    lambda: obs_selfcheck.run_selfcheck("unused"),
+    lambda: cli_main(["10", "10", "--categories", "--save-solution",
+                      "unused.npy"]),
+    lambda: bench_main.run_mode(bench_main.parse_args(["--serve", "1"]),
+                                Problem(M=10, N=10), None),
 ], ids=["fused_cg_solve", "pcg_solve", "build_canvases", "resident_cg_solve",
         "ca_cg_solve", "refined_solve", "make_solver_mesh",
         "fused_cg_solve_sharded", "ca_cg_solve_sharded",
@@ -226,7 +237,8 @@ def test_no_module_imports_jax_or_the_reference():
         "pcg_solve_chunked_rhs_gate", "pcg_solve_bfloat16", "SolveService",
         "SolveService_recover", "DeviceRegistry", "WorkerPool",
         "SessionHost", "chaos_run_scenario", "cli_serve", "cli_session",
-        "cli_chaos"])
+        "cli_chaos", "obs_selfcheck", "cli_categories_save_solution",
+        "bench_serve_mode"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
