@@ -220,6 +220,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      iterate bit for bit (kernels A and B launched exactly once per driven
      step of its three solves); ``--backend torch --categories`` printing
      the table;
+   - the multi-process phase (``parallel.multihost``, after the tooling
+     phase): two ranks of this script (``--rank``), a gloo process group
+     on a free localhost port, each rank declaring two shards on
+     ``cuda:0`` so that the 2×2 mesh spans the process boundary; each
+     rank solves fp64 ``pcg_solve_sharded(setup="device")`` at 400×600
+     and 800×1200 (546 and 989) and runs ``fused_cg_solve_sharded_
+     checkpointed`` (A, B sharded) and ``ca_cg_solve_sharded_
+     checkpointed`` (C, D sharded) at 800×1200 capped at 400 (the file
+     kept), resumed to 989 (the primary removes it) and once more in one
+     chunk, timed; each rank's sharded kernels launched exactly its 2
+     shards × driven steps; every iterate, on both ranks, bit for bit with
+     the same solves on the 2×2 mesh driven by this process (timed too);
+     seconds and µs per iteration of both, kernel launches, staged
+     host copies and bytes sent per iteration and rank, and the transport
+     alone (one all-gather, one staged copy); under NCCL with one card per
+     rank where two cards are visible, else a line saying it did not run;
    each path's counts must show each of its kernels launched;
 5. the kernels' times (profiler device time per launch; the plain versions
    by CUDA events, and for kernel S ``torch.sum`` over the same partials
@@ -256,6 +272,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -610,6 +627,12 @@ TOOL_FAMILIES = 3                # --repeat-fingerprint and --geometry-mix
 TOOL_TENANTS = (("a", 1.0), ("b", 4.0))
 TOOL_BLOCK = 16                  # --krylov-block at 400x600
 TOOL_SESSION = 20                # --session steps at 300x450
+MP_GRIDS = ((400, 600, 546), (800, 1200, 989))   # fp64 device setup
+MP_CAP = 400                     # the capped run the two ranks resume
+MP_RANKS = 2                     # processes, each with two shards of the
+MP_SHARDS = 2                    # 2x2 mesh on cuda:0 (gloo)
+MP_TIMEOUT = 300                 # seconds each rank may take, then killed
+MP_PROBES = 200                  # transport probes timed in each rank
 
 
 def ptxas_report(log: str, symbol: str) -> dict | None:
@@ -3099,6 +3122,290 @@ def check_tooling(pcg_solve, metrics, card: str, root: str) -> int:
     return 3 * driven_steps(989, FLAGSHIP.iteration_cap, CHECK_EVERY)
 
 
+def multiprocess_worker(rank: int, coordinator: str, out: str,
+                        nccl: bool) -> None:
+    """One rank of the multi-process phase (``python3 chip_smoke.py --rank
+    R HOST:PORT DIR [--nccl]``): joins the process group, declares its two
+    shards (on ``cuda:0`` under gloo; with ``--nccl`` on its own card),
+    and runs the phase's solves, writing their iterates and a report to
+    DIR. Every failure raises (a non-zero exit)."""
+    import torch.distributed as dist
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from poisson_tpu_torch.config import FLAGSHIP, Problem
+    from poisson_tpu_torch.obs import metrics
+    from poisson_tpu_torch.ops import _build, ca_cg as ca
+    from poisson_tpu_torch.ops import fused_cg as fc
+    from poisson_tpu_torch.parallel import (
+        ca_cg_solve_sharded_checkpointed,
+        fused_cg_solve_sharded_checkpointed,
+        make_solver_mesh,
+        pcg_solve_sharded,
+    )
+    from poisson_tpu_torch.parallel.multihost import initialize_multihost
+    from poisson_tpu_torch.solvers.pcg import CHECK_EVERY
+
+    _build.load_all()        # built by the parent: this loads them
+    assert initialize_multihost(coordinator=coordinator,
+                                num_processes=MP_RANKS,
+                                process_id=rank) == rank
+    dev = f"cuda:{rank}" if nccl else "cuda:0"
+    mesh = make_solver_mesh([dev] * MP_SHARDS)
+    report = {"backend": dist.get_backend(), "owners": list(mesh.owners),
+              "local": list(mesh.local), "grid": [mesh.px, mesh.py],
+              "device": dev}
+    arrays = {}
+
+    def timed_rank(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        before = {k: metrics.get(k) for k in ("multihost.sent_bytes",
+                                              "multihost.staged_copies")}
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        return result, sec, {k: metrics.get(k) - v
+                             for k, v in before.items()}
+
+    if not nccl:
+        for M, N, _ in MP_GRIDS:
+            r, sec, moved = timed_rank(lambda: pcg_solve_sharded(
+                Problem(M=M, N=N), mesh, dtype=torch.float64,
+                setup="device"))
+            arrays[f"pcg_{M}x{N}"] = r.w.cpu().numpy()
+            report[f"pcg_{M}x{N}"] = {"iterations": int(r.iterations),
+                                      "flag": int(r.flag), "seconds": sec,
+                                      **moved}
+    capped = FLAGSHIP.with_(max_iter=MP_CAP)
+    cap = FLAGSHIP.iteration_cap
+    paths = [("fused-sharded", fc, fused_cg_solve_sharded_checkpointed, 1)]
+    if not nccl:
+        paths.append(("ca-sharded", ca, ca_cg_solve_sharded_checkpointed, 2))
+    for path, module, solve, per_step in paths:
+        tag = path.replace("-", "_")
+        file = os.path.join(out, f"{tag}.npz")
+        module.reset_launch_counts()
+        part = solve(capped, mesh, file, CKPT_CHUNK)
+        kept = os.path.exists(file)
+        resumed = solve(FLAGSHIP, mesh, file, CKPT_CHUNK)
+        dist.barrier()
+        left = os.path.exists(file)
+        # One chunk of the whole budget: no file is written on the way.
+        timed_r, sec, moved = timed_rank(lambda: solve(
+            FLAGSHIP, mesh, os.path.join(out, f"{tag}_timed.npz"), cap))
+        k = int(resumed.iterations)
+        steps = (chunk_steps(0, MP_CAP, MP_CAP, CKPT_CHUNK, CHECK_EVERY,
+                             per_step)
+                 + chunk_steps(MP_CAP, k, cap, CKPT_CHUNK, CHECK_EVERY,
+                               per_step)
+                 + chunk_steps(0, int(timed_r.iterations), cap, cap,
+                               CHECK_EVERY, per_step))
+        launched = sharded_counts(module.launch_counts())
+        arrays[tag] = resumed.w.cpu().numpy()
+        arrays[f"{tag}_timed"] = timed_r.w.cpu().numpy()
+        report[path] = {
+            "capped": int(part.iterations), "kept": kept, "iterations": k,
+            "diff": float(resumed.diff), "file_left": left,
+            "timed_iterations": int(timed_r.iterations), "seconds": sec,
+            "steps": steps, "launches": launched, **moved}
+    # The transport alone: one all-gather of two fp32 values between the
+    # ranks, and one staged copy of two values from the card to the host
+    # (what each mesh-wide sum costs under gloo besides its launches).
+    probe = torch.zeros(MP_SHARDS, device=dev)
+    staged = probe if nccl else probe.to("cpu")
+    every = [torch.empty_like(staged) for _ in range(MP_RANKS)]
+    for name, op in (("all_gather_us",
+                      lambda: dist.all_gather(every, staged)),
+                     ("staged_copy_us", lambda: probe.to("cpu"))):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MP_PROBES):
+            op()
+        torch.cuda.synchronize()
+        report[name] = (time.perf_counter() - t0) / MP_PROBES * 1e6
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def launch_ranks(root: str, out: str, nccl: bool) -> list:
+    """Start the phase's ranks, wait for each (``MP_TIMEOUT``), kill any
+    left; fails unless every rank exits 0. Returns each rank's report."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = [sys.executable, os.path.join(root, "chip_smoke.py"), "--rank"]
+    procs = [subprocess.Popen(
+        argv + [str(r), f"127.0.0.1:{port}", out]
+        + (["--nccl"] if nccl else []), cwd=root, env=_child_env(root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MP_RANKS)]
+    done = []
+    try:
+        for proc in procs:
+            try:
+                done.append(proc.communicate(timeout=MP_TIMEOUT))
+            except subprocess.TimeoutExpired:
+                done.append(("", "timed out"))
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    for r, (proc, (_, err)) in enumerate(zip(procs, done)):
+        check(proc.returncode == 0, f"multi-process rank {r} exited "
+                                    f"{proc.returncode}: {err[-3000:]}")
+    return [json.load(open(os.path.join(out, f"rank{r}.json")))
+            for r in range(MP_RANKS)]
+
+
+def check_multiprocess(mesh, fs, cs_, ps, card: str, root: str) -> dict:
+    """The multi-process phase: two ranks of this script under gloo, each
+    with two shards of the 2x2 mesh on the one card, solve fp64 (device
+    setup) and run the fused (A, B sharded) and CA (C, D sharded)
+    checkpointed drivers capped at ``MP_CAP`` and resumed; every iterate
+    bit for bit with ``mesh`` (the same 2x2 on the card) driven by this
+    process, every rank's sharded kernels launched exactly its shards x
+    driven steps. NCCL, one card per rank, where two cards are visible.
+    Returns this process's sharded launches (its own references)."""
+    from poisson_tpu_torch.config import FLAGSHIP, Problem
+    from poisson_tpu_torch.solvers.pcg import CHECK_EVERY
+
+    t_phase = time.perf_counter()
+    cap = FLAGSHIP.iteration_cap
+    capped = FLAGSHIP.with_(max_iter=MP_CAP)
+    ref, single = {}, {}
+    launched = {}
+    out = tempfile.mkdtemp(prefix="mp_smoke_")
+    try:
+        for M, N, expected in MP_GRIDS:
+            r, sec = timed(lambda: ps.pcg_solve_sharded(
+                Problem(M=M, N=N), mesh, dtype=torch.float64,
+                setup="device"))
+            check(int(r.iterations) == expected,
+                  f"one-process pcg {M}x{N}: {int(r.iterations)}")
+            ref[f"pcg_{M}x{N}"] = r.w.cpu().numpy()
+            single[f"pcg_{M}x{N}"] = sec
+        for path, solve, per_step in (
+                ("fused-sharded", fs.fused_cg_solve_sharded_checkpointed, 1),
+                ("ca-sharded", cs_.ca_cg_solve_sharded_checkpointed, 2)):
+            tag = path.replace("-", "_")
+            file = os.path.join(out, f"one_{tag}.npz")
+            solve(capped, mesh, file, CKPT_CHUNK)
+            r = solve(FLAGSHIP, mesh, file, CKPT_CHUNK)
+            ref[tag] = r.w.cpu().numpy()
+            t, sec = timed(lambda: solve(FLAGSHIP, mesh,
+                                         os.path.join(out, "one.npz"), cap))
+            ref[f"{tag}_timed"] = t.w.cpu().numpy()
+            single[path] = (sec, int(t.iterations))
+            launched[path] = mesh.size * (
+                chunk_steps(0, MP_CAP, MP_CAP, CKPT_CHUNK, CHECK_EVERY,
+                            per_step)
+                + chunk_steps(MP_CAP, int(r.iterations), cap, CKPT_CHUNK,
+                              CHECK_EVERY, per_step)
+                + chunk_steps(0, int(t.iterations), cap, cap, CHECK_EVERY,
+                              per_step))
+        runs = [("gloo", False)]
+        if torch.cuda.device_count() >= MP_RANKS:
+            runs.append(("nccl", True))
+        else:
+            print(f"multiprocess nccl [{card}]: not run "
+                  f"({torch.cuda.device_count()} card visible; NCCL needs "
+                  "a card per rank)", flush=True)
+        for backend, nccl in runs:
+            sub = os.path.join(out, backend)
+            os.makedirs(sub)
+            t0 = time.perf_counter()
+            reports = launch_ranks(root, sub, nccl)
+            wall = time.perf_counter() - t0
+            arrays = [np.load(os.path.join(sub, f"rank{r}.npz"))
+                      for r in range(MP_RANKS)]
+            for r, rep in enumerate(reports):
+                check(rep["backend"] == backend and rep["grid"] == [2, 2]
+                      and rep["owners"] == [0, 0, 1, 1]
+                      and rep["local"] == [2 * r, 2 * r + 1],
+                      f"multi-process rank {r}: mesh {rep}")
+            for key in arrays[0].files:
+                for r in range(MP_RANKS):
+                    check(np.array_equal(arrays[r][key], ref[key]),
+                          f"multi-process {backend} rank {r} {key}: not bit "
+                          "for bit with the one-process 2x2 mesh")
+            lead = reports[0]
+            for M, N, expected in MP_GRIDS if not nccl else ():
+                rec = lead[f"pcg_{M}x{N}"]
+                check(rec["iterations"] == expected and rec["flag"] == 1,
+                      f"multi-process pcg {M}x{N}: {rec}")
+                print(f"multiprocess {backend} pcg fp64 device {M}x{N} "
+                      f"[{card}]: " + json.dumps({
+                          "iterations": rec["iterations"],
+                          "seconds": rec["seconds"],
+                          "us_per_iter": rec["seconds"] / expected * 1e6,
+                          "one_process_seconds": single[f"pcg_{M}x{N}"],
+                          "bytes_sent_per_iter_per_rank":
+                              rec["multihost.sent_bytes"] / expected,
+                          "staged_copies_per_iter_per_rank":
+                              rec["multihost.staged_copies"] / expected,
+                          "bit_for_bit": True}), flush=True)
+            for path, names in (("fused-sharded", ("direction_and_stencil",
+                                                   "fused_update")),
+                                ("ca-sharded", ("basis_sweep",
+                                                "pair_update"))):
+                if path not in lead:
+                    continue
+                for r, rep in enumerate(reports):
+                    rec = rep[path]
+                    check(rec["capped"] == MP_CAP and rec["kept"]
+                          and not rec["file_left"]
+                          and rec["iterations"] == 989
+                          and rec["timed_iterations"] == 989
+                          and rec["diff"] < 1e-6,
+                          f"multi-process {backend} {path} rank {r}: {rec}")
+                    want = MP_SHARDS * rec["steps"]
+                    for name in names:
+                        got = rec["launches"].get(f"{name}_sharded")
+                        check(got == want, f"multi-process {backend} {path} "
+                              f"rank {r}: {name}_sharded launched {got} "
+                              f"times, expected {MP_SHARDS} shards x "
+                              f"{rec['steps']} steps")
+                rec = lead[path]
+                k = rec["timed_iterations"]
+                one_s, one_k = single[path]
+                steps = chunk_steps(0, k, cap, cap, CHECK_EVERY,
+                                    1 if path == "fused-sharded" else 2)
+                print(f"multiprocess {backend} {path} "
+                      f"{FLAGSHIP.M}x{FLAGSHIP.N} [{card}]: " + json.dumps({
+                          "iterations": k, "capped": rec["capped"],
+                          "resumed": rec["iterations"],
+                          "bit_for_bit": True,
+                          "seconds": rec["seconds"],
+                          "us_per_iter": rec["seconds"] / k * 1e6,
+                          "one_process_seconds": one_s,
+                          "one_process_us_per_iter": one_s / one_k * 1e6,
+                          "launches_per_rank": rec["launches"],
+                          "kernel_launches_per_iter_per_rank":
+                              2 * MP_SHARDS * steps / k,
+                          "staged_copies_per_iter_per_rank":
+                              rec["multihost.staged_copies"] / k,
+                          "done_reads_per_iter": steps / CHECK_EVERY / k,
+                          "bytes_sent_per_iter_per_rank":
+                              rec["multihost.sent_bytes"] / k}), flush=True)
+            print(f"multiprocess {backend} transport [{card}]: "
+                  + json.dumps({f"rank{r}": {
+                      k: rep[k] for k in ("all_gather_us", "staged_copy_us")}
+                      for r, rep in enumerate(reports)}), flush=True)
+            print(f"multiprocess {backend} ranks wall [{card}]: "
+                  f"{wall:.1f} s for {MP_RANKS} processes", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"multiprocess phase seconds [{card}]: "
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    return launched
+
+
 def main() -> None:
     started = time.perf_counter()
 
@@ -3891,6 +4198,18 @@ def main() -> None:
                   {"direction_and_stencil": ab, "fused_update": ab})
 
     elapsed("tooling")
+    # --- the multi-process phase: two ranks of this script, each driving
+    # two shards of the 2x2 mesh across a process boundary (kernels A-D
+    # sharded), against the same mesh driven by this process.
+    reset_counts()
+    mp = check_multiprocess(mesh, fs, cs_, ps, card, root)
+    expect_counts("the multi-process phase (this process's references)", {
+        "direction_and_stencil_sharded": mp["fused-sharded"],
+        "fused_update_sharded": mp["fused-sharded"],
+        "basis_sweep_sharded": mp["ca-sharded"],
+        "pair_update_sharded": mp["ca-sharded"]})
+
+    elapsed("multiprocess")
     for time_it in timers:
         time_it()
 
@@ -4093,4 +4412,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        multiprocess_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                            "--nccl" in sys.argv[5:])
+    else:
+        main()

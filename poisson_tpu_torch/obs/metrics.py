@@ -29,6 +29,13 @@ The names the port emits:
   (``solvers.resilient``) and its integrity probe;
 - ``watchdog.beats`` / ``watchdog.stalls`` — the chunk-boundary watchdog
   (``parallel.watchdog``);
+- ``multihost.init_retries`` / ``multihost.degraded`` — the process-group
+  launch (``parallel.multihost``): transient rendezvous failures retried,
+  and env-driven launches that fell back to one process;
+  ``multihost.sent_bytes`` / ``multihost.staged_copies`` — the transport
+  of a mesh over processes (``parallel.halo``): bytes this process sent to
+  other ranks (halo slices, its share of each all-gather), and copies
+  staged from a card to host memory for gloo (each a host sync);
 - ``batched.solves`` / ``batched.padding_members`` /
   ``batched.bucket_cache.hits`` / ``batched.bucket_cache.misses`` and the
   gauges ``batched.last_bucket`` / ``batched.solves_per_sec`` — the

@@ -3,9 +3,14 @@
 sums (``halo``), the plain sharded solve (``pcg_sharded``) and its
 checkpointed form (``checkpoint_sharded``), the sharded fused solve with
 kernels A and B (``fused_sharded``) and the sharded CA solve with kernels C
-and D (``ca_sharded``), each of the last two also checkpointed, and the
-chunk-boundary heartbeat watchdog of the chunked drivers (``watchdog``).
-One host thread drives every shard; a device may hold several shards."""
+and D (``ca_sharded``), each of the last two also checkpointed, the
+chunk-boundary heartbeat watchdog of the chunked drivers (``watchdog``)
+and the process-group launch (``multihost``). In one process one host
+thread drives every shard; after ``multihost.initialize_multihost`` the
+mesh spans the process group and each process drives its own shards, the
+halos and sums crossing between them (the checkpointed drivers and the
+plain solve; the one-shot kernel drivers stay single-process, as in the
+JAX package). A device may hold several shards."""
 
 from poisson_tpu_torch.parallel.ca_sharded import (
     ca_cg_solve_sharded,

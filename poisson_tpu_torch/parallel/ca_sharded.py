@@ -31,7 +31,10 @@ Checkpointed (:func:`ca_cg_solve_sharded_checkpointed`, the counterpart of
 (p_prev, β) is saved as the direction d = r + β·p_prev in the portable
 format and resumed as p_prev := d − r, β := 1, with r's and p_prev's
 width-2 rings refreshed once, as the single-device CA driver and the JAX
-package resume it.
+package resume it. Over processes the checkpointed driver is the entry
+point (the ring-2 exchange and the 12-entry Gram sum cross between ranks,
+``parallel.halo``); the one-shot :func:`ca_cg_solve_sharded` refuses such
+a mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -59,15 +62,17 @@ from poisson_tpu_torch.parallel.fused_sharded import (
     shard_run,
     shard_spec,
     sharded_portable,
+    single_process,
 )
 from poisson_tpu_torch.parallel.halo import (
     mesh_sum,
     replicate,
-    shift_down,
-    shift_up,
+    shift_both,
 )
 from poisson_tpu_torch.parallel.mesh import X_AXIS, Y_AXIS, Mesh
+from poisson_tpu_torch.parallel.checkpoint_sharded import _sync
 from poisson_tpu_torch.parallel.mesh import make_solver_mesh
+from poisson_tpu_torch.parallel.multihost import is_primary
 from poisson_tpu_torch.solvers.checkpoint import (
     _fingerprint,
     load_state,
@@ -90,14 +95,14 @@ def exchange_ring2(u, spec: ShardSpec, mesh: Mesh) -> None:
     lo, hi = HALO, HALO + spec.m_blk
     c0, c1 = RING, RING + spec.n_blk
     every = slice(None)
-    shift_down(u, mesh, X_AXIS, (slice(hi - RING, hi), every),
-               (slice(lo - RING, lo), every))
-    shift_up(u, mesh, X_AXIS, (slice(lo, lo + RING), every),
-             (slice(hi, hi + RING), every))
-    shift_down(u, mesh, Y_AXIS, (every, slice(c1 - RING, c1)),
-               (every, slice(c0 - RING, c0)))
-    shift_up(u, mesh, Y_AXIS, (every, slice(c0, c0 + RING)),
-             (every, slice(c1, c1 + RING)))
+    shift_both(u, mesh, X_AXIS, ((slice(hi - RING, hi), every),
+                                 (slice(lo - RING, lo), every)),
+               ((slice(lo, lo + RING), every),
+                (slice(hi, hi + RING), every)))
+    shift_both(u, mesh, Y_AXIS, ((every, slice(c1 - RING, c1)),
+                                 (every, slice(c0 - RING, c0))),
+               ((every, slice(c0, c0 + RING)),
+                (every, slice(c1, c1 + RING))))
 
 
 def _ca_sharded_init(problem: Problem, spec: ShardSpec, mesh: Mesh,
@@ -131,7 +136,7 @@ def _make_ca_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
     h1h2 = torch.tensor(problem.h1 * problem.h2, dtype=torch.float32,
                         device=mesh.lead)
     band = (HALO - RING, HALO + spec.m_blk + RING)
-    shards = range(mesh.size)
+    shards = range(len(mesh.local))
     # Kernel outputs, allocated zeroed once: rows past the ring stay zero.
     scratch = [tuple(torch.zeros_like(c) for _ in range(4)) for c in f.cs]
     p1_bufs = tuple(torch.zeros_like(c) for c in f.cs)
@@ -180,8 +185,12 @@ def ca_cg_solve_sharded(problem: Problem, mesh: Mesh | None = None,
     .ca_cg_solve_sharded``, with the same counts as every other path.
     ``mesh`` defaults to every visible card; a mesh of CPU devices runs the
     kernels' plain versions. ``rhs_gate`` and ``serial`` as in
-    :func:`~poisson_tpu_torch.parallel.fused_sharded.fused_cg_solve_sharded`."""
+    :func:`~poisson_tpu_torch.parallel.fused_sharded.fused_cg_solve_sharded`.
+    One process drives the mesh, as the JAX one-shot solve does: a mesh
+    over processes runs on :func:`ca_cg_solve_sharded_checkpointed`."""
     mesh = make_solver_mesh() if mesh is None else mesh
+    single_process(mesh, "ca_cg_solve_sharded",
+                   "ca_cg_solve_sharded_checkpointed")
     spec, canvases = shard_canvases(problem, mesh, RING)
     s = _ca_sharded_solve(problem, spec, mesh, canvases,
                           gated_rhs(canvases, rhs_gate), check_every,
@@ -235,6 +244,7 @@ def ca_cg_solve_sharded_checkpointed(problem: Problem, mesh: Mesh | None,
             problem, spec, mesh, k=st.k, done=st.done, sol=st.x, r=st.r,
             pend=st.pprev, beta=st.beta, zr=st.rr, diff=st.diff),
         path=checkpoint_path, fingerprint=fp, cap=cap,
-        keep_checkpoint=keep_checkpoint, keep_last=keep_last)
+        keep_checkpoint=keep_checkpoint, primary=is_primary, sync=_sync,
+        keep_last=keep_last)
     x = gather_owned(problem, spec, mesh, s.x, canvases.sc_int)
     return PCGResult(w=x, iterations=s.k, diff=s.diff, residual_dot=s.rr)

@@ -18,20 +18,27 @@ Blocks rebuilt with zero rings on resume therefore continue the solve
 exactly, and a chunked solve equals its one-shot solve bit for bit (its
 chunks carry the in-memory state on).
 
-Left out: the JAX module's multi-process arm (``_multiprocess``, ``_sync``,
-``_global_array``: the all-gather before a save, the primary-only write and
-the barrier after it) waits for the port's multi-process mesh (ROADMAP
-Queue 1 item 10); one process drives every shard here. ``watchdog`` and
-``on_chunk`` take any object with the methods ``run_chunked`` calls.
+Over processes (the JAX module's multi-process arm): on a mesh whose
+shards several processes hold (``parallel.multihost``), the state is
+gathered to every process at a chunk boundary (``gather_interior``), only
+the primary writes, and a barrier (:func:`_sync`) orders the write before
+any process's later read and the converged run's cleanup before any later
+solve. A resume reads the file on every process and scatters each its own
+shards. The file is the same, so a file written by several processes
+resumes in one, on another mesh or in the JAX package, and theirs here.
+``watchdog`` and ``on_chunk`` take any object with the methods
+``run_chunked`` calls.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from poisson_tpu_torch import obs
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.parallel.mesh import Mesh
+from poisson_tpu_torch.parallel.multihost import is_primary, world_size
 from poisson_tpu_torch.parallel.pcg_sharded import (
     ShardGeometry,
     gather_interior,
@@ -58,6 +65,18 @@ from poisson_tpu_torch.solvers.pcg import (
 )
 
 _FIELDS = ("w", "r", "z", "p")
+
+
+def _multiprocess() -> bool:
+    return world_size() > 1
+
+
+def _sync(name: str) -> None:
+    """Cross-process barrier: orders the primary's file write (or removal)
+    before any other process's later read. A no-op in one process; ``name``
+    labels the point, as the JAX module's barrier does."""
+    if _multiprocess():
+        dist.barrier()
 
 
 def portable_state(problem: Problem, mesh: Mesh, geo: ShardGeometry,
@@ -126,8 +145,9 @@ def pcg_solve_sharded_checkpointed(problem: Problem, mesh: Mesh | None,
                                 check_every),
         to_portable=to_portable,
         path=checkpoint_path, fingerprint=fp,
-        cap=cap, keep_checkpoint=keep_checkpoint, keep_last=keep_last,
-        watchdog=watchdog, on_chunk=on_chunk)
+        cap=cap, keep_checkpoint=keep_checkpoint, primary=is_primary,
+        sync=_sync, keep_last=keep_last, watchdog=watchdog,
+        on_chunk=on_chunk)
     w = state.w * fields.aux if use_scaled else state.w
     return PCGResult(w=gather_interior(problem, mesh, geo, w),
                      iterations=state.k, diff=state.diff,

@@ -41,6 +41,14 @@ form. A resumed solve scatters w, r and d back with zero rings, refreshes
 the rings of r and d once, and forms its first direction from d itself
 (z := d, p := 0, β := 0), so it continues the solve that wrote the file
 bit for bit; the JAX package resumes as p := d − r, β := 1, one ulp off.
+
+Over processes (``parallel.multihost``) the checkpointed driver is the
+entry point, as in the JAX package: each rank launches A and B on its own
+shards with the same (spec, colmask), r's halo slices bound for another
+rank travel by point-to-point transfer, the three sums all-gather the
+per-shard sums (``parallel.halo``), the state is gathered to every rank
+and the primary writes it. The one-shot :func:`fused_cg_solve_sharded`
+refuses such a mesh.
 """
 
 from __future__ import annotations
@@ -65,14 +73,17 @@ from poisson_tpu_torch.ops.fused_cg import (
     scaled_stencil_fields,
     serial_run,
 )
+from poisson_tpu_torch.parallel.checkpoint_sharded import _sync
 from poisson_tpu_torch.parallel.halo import (
+    gather_shards,
     mesh_sum,
+    mesh_sums,
     replicate,
-    shift_down,
-    shift_up,
+    shift_both,
 )
 from poisson_tpu_torch.parallel.mesh import X_AXIS, Y_AXIS, Mesh, block_size
-from poisson_tpu_torch.parallel.mesh import make_solver_mesh
+from poisson_tpu_torch.parallel.mesh import check_mesh, make_solver_mesh
+from poisson_tpu_torch.parallel.multihost import is_primary
 from poisson_tpu_torch.solvers.checkpoint import (
     _fingerprint,
     load_state,
@@ -187,12 +198,15 @@ def host_shard_canvases(problem: Problem, spec: ShardSpec, px: int, py: int):
     return out
 
 
-def to_shards(arrays: dict, devices) -> ShardCanvases:
-    """Stacked numpy canvases → per-shard fp32 tensors, shard s on
-    ``devices[s]``; the column mask goes to every shard's device."""
+def to_shards(arrays: dict, devices, shards=None) -> ShardCanvases:
+    """Stacked numpy canvases → per-shard fp32 tensors: shard
+    ``shards[i]`` (default: shard i) on ``devices[i]``; the column mask
+    goes to every listed shard's device."""
+    shards = range(len(devices)) if shards is None else shards
+
     def split(x):
         return tuple(torch.tensor(np.asarray(x[s]), dtype=torch.float32,
-                                  device=d) for s, d in enumerate(devices))
+                                  device=d) for s, d in zip(shards, devices))
 
     mask = np.asarray(arrays["colmask"])
     return ShardCanvases(
@@ -202,13 +216,27 @@ def to_shards(arrays: dict, devices) -> ShardCanvases:
                       for d in devices))
 
 
-@functools.lru_cache(maxsize=8)
 def shard_canvases(problem: Problem, mesh: Mesh, ring: int = 1):
-    """(spec, canvases) of ``problem`` on ``mesh``, cached per (problem,
+    """(spec, canvases) of ``problem`` on ``mesh``, one canvas per shard
+    this process drives (every shard in one process), cached per (problem,
     mesh, ring) and shared: callers must not write to them."""
+    return _shard_canvases(problem, check_mesh(mesh), ring)
+
+
+@functools.lru_cache(maxsize=8)
+def _shard_canvases(problem: Problem, mesh: Mesh, ring: int):
     spec = shard_spec(problem, mesh.px, mesh.py, ring)
     host = host_shard_canvases(problem, spec, mesh.px, mesh.py)
-    return spec, to_shards(host, mesh.devices)
+    return spec, to_shards(host, [mesh.devices[s] for s in mesh.local],
+                           mesh.local)
+
+
+def single_process(mesh: Mesh, name: str, instead: str) -> None:
+    """Refuse a mesh over processes on a one-shot driver (``name``), as
+    the JAX package's one-shot sharded solves are single-process."""
+    if mesh.multiprocess:
+        raise ValueError(f"{name} drives its mesh from one process; a mesh "
+                         f"over processes runs on {instead}")
 
 
 def gated_rhs(canvases: ShardCanvases, rhs_gate) -> tuple:
@@ -233,11 +261,14 @@ def owned_sum_of_squares(problem: Problem, spec: ShardSpec, mesh: Mesh,
 def gather_owned(problem: Problem, spec: ShardSpec, mesh: Mesh, canvases,
                  sc_int) -> torch.Tensor:
     """Each shard's owned points times its scaling → the full (M+1, N+1)
-    solution grid on the lead device (zero ring)."""
+    solution grid on the lead device (zero ring); on a mesh over
+    processes, gathered to every rank."""
     lo, hi = HALO, HALO + spec.m_blk
     c0 = spec.ring
     owned = [u[lo:hi, c0 : c0 + spec.n_blk] * s
              for u, s in zip(canvases, sc_int)]
+    if mesh.multiprocess:
+        owned = list(gather_shards(owned, mesh))
     rows = [torch.cat([owned[ix * mesh.py + iy].to(mesh.lead)
                        for iy in range(mesh.py)], dim=1)
             for ix in range(mesh.px)]
@@ -251,10 +282,10 @@ def exchange_r_halo(r, spec: ShardSpec, mesh: Mesh) -> None:
     module doc). Mesh-edge shards get zeros, the Dirichlet value."""
     lo, hi = HALO, HALO + spec.m_blk
     every = slice(None)
-    shift_down(r, mesh, X_AXIS, (hi - 1, every), (lo - 1, every))
-    shift_up(r, mesh, X_AXIS, (lo, every), (hi, every))
-    shift_down(r, mesh, Y_AXIS, (every, spec.n_blk), (every, 0))
-    shift_up(r, mesh, Y_AXIS, (every, 1), (every, spec.n_blk + 1))
+    shift_both(r, mesh, X_AXIS, ((hi - 1, every), (lo - 1, every)),
+               ((lo, every), (hi, every)))
+    shift_both(r, mesh, Y_AXIS, ((every, spec.n_blk), (every, 0)),
+               ((every, 1), (every, spec.n_blk + 1)))
 
 
 class _ShardedState(NamedTuple):
@@ -316,7 +347,7 @@ def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
     norm_w = h1h2 if problem.weighted_norm else torch.tensor(1.0, **f32)
     delta = torch.tensor(problem.delta, **f32)
     band = (HALO - 1, HALO + spec.m_blk + 1)   # owned rows + halo rows
-    shards = range(mesh.size)
+    shards = range(len(mesh.local))
 
     def body(s: _ShardedState) -> _ShardedState:
         betas = replicate(s.beta, mesh)
@@ -335,8 +366,8 @@ def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
                                 colmask=f.colmask[i])
                    for i in shards]
         if run is None:
-            diff_sum = mesh_sum([u[2] for u in updated], mesh)
-            zr_sum = mesh_sum([u[3] for u in updated], mesh)
+            diff_sum, zr_sum = mesh_sums([[u[2] for u in updated],
+                                          [u[3] for u in updated]], mesh)
         else:
             diff_sum, zr_sum = mesh_sum([u[2:] for u in updated], mesh,
                                         run).unbind()
@@ -379,8 +410,12 @@ def fused_cg_solve_sharded(problem: Problem, mesh: Mesh | None = None,
     (:func:`~poisson_tpu_torch.parallel.mesh.make_solver_mesh`); a mesh of
     CPU devices runs the kernels' plain versions. ``rhs_gate``, if given,
     multiplies the right-hand side (1.0 leaves the solve bit-identical);
-    ``serial`` sums each shard's partials with kernel S (off by default)."""
+    ``serial`` sums each shard's partials with kernel S (off by default).
+    One process drives the mesh, as the JAX one-shot solve does: a mesh
+    over processes runs on :func:`fused_cg_solve_sharded_checkpointed`."""
     mesh = make_solver_mesh() if mesh is None else mesh
+    single_process(mesh, "fused_cg_solve_sharded",
+                   "fused_cg_solve_sharded_checkpointed")
     spec, canvases = shard_canvases(problem, mesh, 1)
     s = _sharded_solve(problem, spec, mesh, canvases,
                        gated_rhs(canvases, rhs_gate), check_every,
@@ -396,28 +431,35 @@ def gather_full(problem: Problem, spec: ShardSpec, mesh: Mesh,
                 canvases) -> np.ndarray:
     """Every shard's owned points of ``canvases`` → the full (M+1, N+1)
     grid, numpy (``pallas_sharded._gather_full``; owned column lj at canvas
-    column ring + lj)."""
+    column ring + lj); on a mesh over processes, gathered to every rank."""
     M, N = problem.M, problem.N
     full = np.zeros((M + 1, N + 1), np.float32)
+    r0, c0 = HALO, spec.ring
+    if mesh.multiprocess:
+        canvases = gather_shards([c[r0 : r0 + spec.m_blk,
+                                    c0 : c0 + spec.n_blk]
+                                  for c in canvases], mesh).cpu()
+        r0 = c0 = 0
     for s, c in enumerate(canvases):
         ix, iy = divmod(s, mesh.py)
         gi0, gj0 = 1 + ix * spec.m_blk, 1 + iy * spec.n_blk
         nr, nc = min(spec.m_blk, M - gi0), min(spec.n_blk, N - gj0)
         if nr > 0 and nc > 0:
             full[gi0 : gi0 + nr, gj0 : gj0 + nc] = c[
-                HALO : HALO + nr, spec.ring : spec.ring + nc].cpu().numpy()
+                r0 : r0 + nr, c0 : c0 + nc].cpu().numpy()
     return full
 
 
 def scatter_canvases(problem: Problem, spec: ShardSpec, mesh: Mesh,
                      full) -> tuple:
-    """A full (M+1, N+1) grid → per-shard fp32 canvases on the shards'
-    devices, owned points only: rings and padding zero
+    """A full (M+1, N+1) grid → fp32 canvases of the shards this process
+    drives, on their devices, owned points only: rings and padding zero
     (``pallas_sharded._scatter_canvases``)."""
     M, N = problem.M, problem.N
     full = np.asarray(full, np.float32)
     out = []
-    for s, dev in enumerate(mesh.devices):
+    for s in mesh.local:
+        dev = mesh.devices[s]
         ix, iy = divmod(s, mesh.py)
         gi0, gj0 = 1 + ix * spec.m_blk, 1 + iy * spec.n_blk
         nr, nc = min(spec.m_blk, M - gi0), min(spec.n_blk, N - gj0)
@@ -505,6 +547,7 @@ def fused_cg_solve_sharded_checkpointed(problem: Problem, mesh: Mesh | None,
             problem, spec, mesh, k=st.k, done=st.done, sol=st.w, r=st.r,
             pend=st.p, beta=st.beta, zr=st.zr, diff=st.diff, z=st.z),
         path=checkpoint_path, fingerprint=fp, cap=cap,
-        keep_checkpoint=keep_checkpoint, keep_last=keep_last)
+        keep_checkpoint=keep_checkpoint, primary=is_primary, sync=_sync,
+        keep_last=keep_last)
     w = gather_owned(problem, spec, mesh, s.w, canvases.sc_int)
     return PCGResult(w=w, iterations=s.k, diff=s.diff, residual_dot=s.zr)

@@ -31,6 +31,12 @@ ring cells are masked out of every operator and every sum.
 - **Jacobi system** (fp64): D⁻¹ is masked, and the loop's exchange
   refreshes p's halo at the top of every iteration.
 
+**Over processes** (``parallel.multihost``): a rank's DeviceStacks hold
+its own shards only (``Mesh.local``), the exchange and the sums cross
+between processes (``parallel.halo``), and :func:`gather_interior`
+gathers the iterate to every rank, as the JAX module replicates it before
+a fetch; the result is the one-process mesh's bit for bit.
+
 Setup: ``setup="host"`` cuts the host fp64 fields
 (``solvers.pcg.host_fields64``) into the blocks and casts them once;
 ``setup="device"`` has every shard build its own coefficient block and
@@ -68,10 +74,15 @@ from poisson_tpu_torch.ops.stencil import (
     diag_D,
     pad_interior,
 )
-from poisson_tpu_torch.parallel.halo import exchange_halos, mesh_sum
+from poisson_tpu_torch.parallel.halo import (
+    exchange_halos,
+    gather_shards,
+    mesh_sum,
+)
 from poisson_tpu_torch.parallel.mesh import (
     Mesh,
     block_size,
+    check_mesh,
     make_solver_mesh,
 )
 from poisson_tpu_torch.solvers.pcg import (
@@ -140,7 +151,7 @@ class DeviceStacks:
 
 
 class ShardGeometry(NamedTuple):
-    """The blocks of a px × py mesh and where the mesh's shards sit."""
+    """The blocks of a px × py mesh and where this process's shards sit."""
 
     px: int
     py: int
@@ -148,12 +159,17 @@ class ShardGeometry(NamedTuple):
     n_blk: int
     devices: tuple                  # distinct devices, by first shard
     shards: tuple                   # the shard numbers on each device
-    slot: tuple                     # shard s → (device part, index)
+    slot: tuple                     # local shard → (device part, index)
+    local: tuple                    # this process's shards, mesh order
 
 
 def geometry(problem: Problem, mesh: Mesh) -> ShardGeometry:
+    """The blocks of ``problem`` on ``mesh`` and the shards this process
+    drives (every shard in one process)."""
+    local = check_mesh(mesh).local
     devices, shards = [], []
-    for s, dev in enumerate(mesh.devices):
+    for s in local:
+        dev = mesh.devices[s]
         if dev not in devices:
             devices.append(dev)
             shards.append([])
@@ -165,17 +181,20 @@ def geometry(problem: Problem, mesh: Mesh) -> ShardGeometry:
         m_blk=block_size(problem.M - 1, mesh.px),
         n_blk=block_size(problem.N - 1, mesh.py),
         devices=tuple(devices), shards=tuple(tuple(g) for g in shards),
-        slot=tuple(slot[s] for s in range(mesh.size)))
+        slot=tuple(slot[s] for s in local), local=local)
 
 
 def shard_blocks(geo: ShardGeometry, field: DeviceStacks) -> list:
-    """Every shard's (m̂+2, n̂+2) block of ``field``, in mesh order (views)."""
+    """Every local shard's (m̂+2, n̂+2) block of ``field``, in mesh order
+    (views)."""
     return [field.parts[j][i] for j, i in geo.slot]
 
 
 def from_blocks(geo: ShardGeometry, blocks) -> DeviceStacks:
-    """Per-shard blocks in mesh order → a field (one stack per device)."""
-    return DeviceStacks(torch.stack([blocks[s] for s in group])
+    """Per-shard blocks (one per local shard, mesh order) → a field (one
+    stack per device)."""
+    at = {s: i for i, s in enumerate(geo.local)}
+    return DeviceStacks(torch.stack([blocks[at[s]] for s in group])
                         for group in geo.shards)
 
 
@@ -247,8 +266,8 @@ def sharded_fields(problem: Problem, mesh: Mesh, geo: ShardGeometry,
                    setup: str = "host") -> ShardedFields:
     tdtype = getattr(torch, dtype_name)
     if setup == "device":
-        built = [_device_local_fields(problem, geo, s, tdtype, scaled, d)
-                 for s, d in enumerate(mesh.devices)]
+        built = [_device_local_fields(problem, geo, s, tdtype, scaled,
+                                      mesh.devices[s]) for s in geo.local]
         return ShardedFields(*(from_blocks(geo, [f[k] for f in built])
                                for k in range(5)))
     if setup != "host":
@@ -258,8 +277,9 @@ def sharded_fields(problem: Problem, mesh: Mesh, geo: ShardGeometry,
     a, b, rhs, aux = (DeviceStacks(
         torch.tensor(arr[list(group)], dtype=tdtype, device=dev)
         for group, dev in zip(geo.shards, geo.devices)) for arr in host)
-    mask = from_blocks(geo, [_owned_mask(problem, geo, s, tdtype, d)[0]
-                             for s, d in enumerate(mesh.devices)])
+    mask = from_blocks(geo, [_owned_mask(problem, geo, s, tdtype,
+                                         mesh.devices[s])[0]
+                             for s in geo.local])
     return ShardedFields(a, b, rhs * mask, aux, mask)
 
 
@@ -281,6 +301,9 @@ def sharded_ops(problem: Problem, mesh: Mesh, geo: ShardGeometry,
             # shards in mesh order on the lead device.
             sums = DeviceStacks(part.sum(dim=(-2, -1), keepdim=True)
                                 for part in x.parts)
+            if mesh.multiprocess:
+                return torch.sum(gather_shards(shard_blocks(geo, sums),
+                                               mesh), dim=0)
             return torch.sum(torch.stack(
                 [s.to(mesh.lead) for s in shard_blocks(geo, sums)]), dim=0)
         return mesh_sum([blk.reshape(-1) for blk in shard_blocks(geo, x)],
@@ -316,9 +339,14 @@ def sharded_ops(problem: Problem, mesh: Mesh, geo: ShardGeometry,
 def gather_interior(problem: Problem, mesh: Mesh, geo: ShardGeometry,
                     field: DeviceStacks) -> torch.Tensor:
     """Every shard's owned interior → the full (…, M+1, N+1) grid on the
-    lead device (zero ring and padding cut; a member axis is kept)."""
-    blocks = [blk[..., 1:-1, 1:-1].to(mesh.lead)
-              for blk in shard_blocks(geo, field)]
+    lead device (zero ring and padding cut; a member axis is kept); on a
+    mesh over processes, gathered to every rank."""
+    if mesh.multiprocess:
+        blocks = list(gather_shards([blk[..., 1:-1, 1:-1] for blk in
+                                     shard_blocks(geo, field)], mesh))
+    else:
+        blocks = [blk[..., 1:-1, 1:-1].to(mesh.lead)
+                  for blk in shard_blocks(geo, field)]
     rows = [torch.cat(blocks[ix * geo.py : (ix + 1) * geo.py], dim=-1)
             for ix in range(geo.px)]
     w_int = torch.cat(rows, dim=-2)
@@ -327,14 +355,15 @@ def gather_interior(problem: Problem, mesh: Mesh, geo: ShardGeometry,
 
 def scatter_interior(problem: Problem, mesh: Mesh, geo: ShardGeometry,
                      full, dtype) -> DeviceStacks:
-    """A full (M+1, N+1) grid (numpy) → every shard's block, owned interior
-    filled and ring zero (the halo-ring invariant of the checkpoint
-    format, ``parallel.checkpoint_sharded``)."""
+    """A full (M+1, N+1) grid (numpy) → every local shard's block, owned
+    interior filled and ring zero (the halo-ring invariant of the
+    checkpoint format, ``parallel.checkpoint_sharded``)."""
     M, N = problem.M, problem.N
     padded = np.zeros((geo.px * geo.m_blk, geo.py * geo.n_blk))
     padded[: M - 1, : N - 1] = np.asarray(full)[1:M, 1:N]
     blocks = []
-    for s, dev in enumerate(mesh.devices):
+    for s in geo.local:
+        dev = mesh.devices[s]
         ix, iy = divmod(s, geo.py)
         blk = np.zeros((geo.m_blk + 2, geo.n_blk + 2))
         blk[1:-1, 1:-1] = padded[ix * geo.m_blk : (ix + 1) * geo.m_blk,

@@ -138,12 +138,20 @@ def _converged(state) -> bool:
 
 def run_chunked(state, *, advance, to_portable, path: Optional[str],
                 fingerprint: str, cap: int, keep_checkpoint: bool,
+                primary=None, sync=None,
                 keep_last: int = 2, watchdog=None, on_chunk=None,
                 deadline=None, history: bool = False):
     """The chunked driver loop shared by the checkpointed solvers: advance
     until done or ``cap``, persist ``to_portable(state)`` after every chunk,
     and remove a converged run's files (a cap-hit keeps them).
     ``path=None`` runs the same loop without persistence.
+
+    ``primary`` (``() -> bool``) and ``sync`` (``(name) -> None``) gate the
+    write and the removal to one process and order them against the other
+    processes' later reads, on a mesh over processes
+    (``parallel.checkpoint_sharded``): ``to_portable`` runs on every
+    process (it gathers), the primary writes, and ``sync`` is called after
+    each write and after the cleanup. They default to one process.
 
     ``state`` exposes ``.done`` and ``.k``; ``advance(state)`` runs one
     chunk. Hooks: ``deadline`` (``expired() -> bool``) stops the loop
@@ -152,6 +160,8 @@ def run_chunked(state, *, advance, to_portable, path: Optional[str],
     every chunk boundary; ``on_chunk(state, chunks_done)`` runs after each
     chunk is persisted and may return a replacement state; ``history``
     taps each boundary's (k, ‖Δw‖) into ``obs.forecast.history_tap``."""
+    primary = primary if primary is not None else (lambda: True)
+    sync = sync if sync is not None else (lambda name: None)
     if watchdog is not None:
         watchdog.start()
     chunks_done = 0
@@ -178,8 +188,11 @@ def run_chunked(state, *, advance, to_portable, path: Optional[str],
             if _converged(state) and not keep_checkpoint:
                 break   # the file would be removed below: skip the write
             if path:
-                save_state(path, to_portable(state), fingerprint,
-                           keep_last=keep_last)
+                portable = to_portable(state)   # a collective over processes
+                if primary():
+                    save_state(path, portable, fingerprint,
+                               keep_last=keep_last)
+                sync("poisson_ckpt_save")       # the write before any read
             if on_chunk is not None:
                 replacement = on_chunk(state, chunks_done)
                 state = state if replacement is None else replacement
@@ -190,8 +203,9 @@ def run_chunked(state, *, advance, to_portable, path: Optional[str],
     finally:
         if watchdog is not None:
             watchdog.stop()
-    if path and _converged(state) and not keep_checkpoint:
+    if path and _converged(state) and not keep_checkpoint and primary():
         remove_generations(path, keep_last)
+    sync("poisson_ckpt_done")   # the removal before any later solve
     return state
 
 

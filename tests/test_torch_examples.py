@@ -48,9 +48,11 @@ def test_distributed_solve_is_jax_s(capsys):
     assert "mesh: 2x4" in capsys.readouterr().out
 
 
-def test_distributed_solve_says_it_is_single_process():
-    assert "single-process" in distributed_solve.__doc__
-    assert "item\n10" in distributed_solve.__doc__
+def test_distributed_solve_says_how_to_run_one_copy_per_process():
+    doc = distributed_solve.__doc__
+    assert "one copy per process" in doc
+    assert "initialize_multihost()" in doc
+    assert "not ported yet" not in doc
 
 
 def test_source_identification_is_jax_s():

@@ -87,6 +87,36 @@ def test_imports_with_jax_and_reference_unimportable():
     assert out.stdout.strip() == "ok"
 
 
+_BLOCKED_MULTIHOST = """
+import os, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in {forbidden!r}:
+            raise ImportError('blocked: ' + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+for name in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT'):
+    os.environ.pop(name, None)
+from poisson_tpu_torch.parallel.multihost import initialize_multihost
+from poisson_tpu_torch.parallel.multihost import is_primary
+assert initialize_multihost() == 0 and is_primary()
+assert not any(n.split('.')[0] in {forbidden!r} for n in sys.modules)
+print('ok')
+"""
+
+
+def test_multihost_imports_and_runs_with_jax_unimportable():
+    """``parallel/multihost.py`` (the process-group launch) imports and
+    runs its no-cluster path with ``jax`` and ``poisson_tpu`` blocked."""
+    code = _BLOCKED_MULTIHOST.format(forbidden=FORBIDDEN)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_no_module_imports_jax_or_the_reference():
     offenders = []
     for path in sorted(PACKAGE.rglob("*.py")):
@@ -106,7 +136,8 @@ def test_no_module_imports_jax_or_the_reference():
                  "solvers.refine", "solvers.checkpoint", "parallel.mesh",
                  "parallel.halo", "parallel.fused_sharded",
                  "parallel.ca_sharded", "parallel.pcg_sharded",
-                 "parallel.checkpoint_sharded", "obs", "obs.metrics",
+                 "parallel.checkpoint_sharded", "parallel.multihost",
+                 "obs", "obs.metrics",
                  "obs.trace", "solvers.batched", "solvers.lanes",
                  "solvers.batched_selfcheck", "mg", "mg.hierarchy",
                  "mg.cycle", "mg.preconditioner", "mg.selfcheck",
