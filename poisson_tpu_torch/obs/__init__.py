@@ -13,7 +13,10 @@
   bytes each backend's kernels move, the counted plain iteration, and
   achieved-vs-roofline fractions on bench records and solve reports;
 - **profiler capture** (:mod:`poisson_tpu_torch.obs.profile`) — fenced
-  ``torch.profiler`` regions (``profile_dir``, ``POISSON_TPU_PROFILE_DIR``);
+  ``torch.profiler`` regions (``profile_dir``, ``POISSON_TPU_PROFILE_DIR``),
+  and the port's own unfenced hot-path ranges (``profile.region``: each
+  ``drive`` block's enqueue and check, the RHS staging in and out), which
+  exist only while a profiler runs and are never recorder events;
 - **Prometheus exposition** (:mod:`poisson_tpu_torch.obs.export`) — a
   textfile at finalize (``prom_path``, ``POISSON_TPU_PROM_OUT``) and a live
   ``/metrics`` endpoint (``metrics_port``, ``POISSON_TPU_METRICS_PORT``);
@@ -34,7 +37,11 @@ Usage (the CLI wires this from ``--trace-dir``/``--metrics-out``/
     obs.finalize()
 
 Unconfigured, ``obs.span`` is a null context (no fence), ``obs.event``
-drops the record, and counters still count.
+drops the record, and counters still count. A plain solve leaves the
+recorder unconfigured: its spans are request-level (``serve.dispatch``,
+``checkpoint.write``, ``bench.*``), and while a profiler runs each also
+enters a profiler range of its own name, so it sits in the device trace
+beside the kernels and the hot path's ranges.
 
 The solve service's per-request flight recorder and SLO tracker
 (:mod:`poisson_tpu_torch.obs.flight`) ride the same JSONL rails.

@@ -21,6 +21,17 @@ still runs.
 
 Captures are of extra runs, never of timed ones: profiling makes launches
 dearer.
+
+The hot path carries unfenced ranges of its own (:func:`region`, the
+port's own; the JAX package has no counterpart): ``pcg.drive.enqueue`` and
+``pcg.drive.check`` around each block of ``solvers.pcg.drive``,
+``stage.rhs_in`` and ``stage.w_out`` around the host staging of
+``ops.fused_cg``. A range exists only while a profiler runs, whichever
+started it (:func:`capture`, or a caller's own ``torch.profiler``), and is
+then a host operator on the profiler's clock beside the card's
+activities; it is never an event on the card, and never a recorder event,
+so a plain solve leaves the recorder unconfigured and its logs as the JAX
+package writes them.
 """
 
 from __future__ import annotations
@@ -29,9 +40,26 @@ import contextlib
 import os
 from typing import Optional
 
+import torch
+
 _PROFILE_DIR: Optional[str] = None
 
 TRACE_FILE = "trace.json"
+
+# A host operator, not a user annotation: ``record_function`` is mirrored
+# onto the card as an annotation event and costs ≈ 10 µs a call even with
+# no profiler running.
+_RANGE = torch._C._profiler._RecordFunctionFast
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+def region(name: str):
+    """An unfenced host range ``name`` while a profiler runs; otherwise one
+    shared null context (a check of the profiler's flag, nothing more)."""
+    if _profiling():
+        return _RANGE(name)
+    return _OFF
 
 
 def configure(profile_dir: Optional[str]) -> None:

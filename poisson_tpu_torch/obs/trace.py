@@ -15,11 +15,20 @@ trace directory:
   flat, the caller's fields under ``attrs``), appended and flushed as
   events happen, so a killed run leaves its evidence on disk.
 
-A span's exit fences the device work queued inside it: PyTorch returns
-before the card has finished, so the fence is ``torch.cuda.synchronize``
-on the span's device (the current card when none is named and CUDA is in
-use), and nothing on the CPU. Without the fence a span would time the
-enqueue, not the work.
+A span's exit fences the device work queued inside it (unless it is
+made with ``fence=False``): PyTorch returns before the card has finished,
+so the fence is ``torch.cuda.synchronize`` on the span's device (the
+current card when none is named and CUDA is in use), and nothing on the
+CPU. Without the fence a span would time the enqueue, not the work. The
+solve loop and the host staging are not spans: they carry unfenced
+profiler ranges (:func:`poisson_tpu_torch.obs.profile.region`), which
+record nothing here, so a plain solve leaves the recorder unconfigured.
+
+While a profiler runs, a span also enters a profiler range of its own
+name, left after the fence, so request-level spans (``serve.dispatch``,
+``checkpoint.write``, ``bench.*``, ``profile.<name>``) sit in the device
+trace beside the kernels; ``ts`` is on the profiler's epoch clock too.
+With no profiler running nothing changes.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ import time
 from typing import Optional
 
 import torch
+
+from poisson_tpu_torch.obs.profile import region
 
 # JSONL event-log schema version, the JAX package's (v1 lines, caller
 # fields flat beside the envelope, still load through normalize_event).
@@ -72,8 +83,8 @@ def default_rank() -> int:
 class _Span:
     """Context manager for one span; created via :meth:`TraceRecorder.span`."""
 
-    __slots__ = ("_rec", "name", "args", "fence", "device", "_t0", "_wall0",
-                 "seconds")
+    __slots__ = ("_rec", "name", "args", "fence", "device", "_range", "_t0",
+                 "_wall0", "seconds")
 
     def __init__(self, rec: "TraceRecorder", name: str, fence: bool, device,
                  args):
@@ -86,6 +97,8 @@ class _Span:
 
     def __enter__(self) -> "_Span":
         self._rec._push(self.name)
+        self._range = region(self.name)
+        self._range.__enter__()
         self._t0 = time.perf_counter()
         self._wall0 = time.time()
         self._rec._emit_jsonl("span_begin", self.name, self.args)
@@ -94,6 +107,7 @@ class _Span:
     def __exit__(self, *exc) -> None:
         if self.fence:
             device_fence(self.device)
+        self._range.__exit__(None, None, None)
         self.seconds = time.perf_counter() - self._t0
         path = self._rec._pop()
         self._rec._add_trace_event({

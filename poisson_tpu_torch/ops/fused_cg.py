@@ -65,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from poisson_tpu_torch.config import Problem
+from poisson_tpu_torch.obs.profile import region
 from poisson_tpu_torch.ops._build import check
 from poisson_tpu_torch.ops.serial import serial_sum
 from poisson_tpu_torch.solvers.checkpoint import (
@@ -805,20 +806,25 @@ def fused_cg_solve(problem: Problem, device=None,
 
 def scaled_rhs_canvas(problem: Problem, cv: Canvas, rhs_grid64, device):
     """The scaled right-hand side b̃ = sc·rhs of a caller-supplied fp64 grid
-    (full (M+1, N+1) shape), as an fp32 canvas on ``device``."""
-    sc64 = host_fields64(problem, True)[3]
-    scaled = np.asarray(rhs_grid64, np.float64) * sc64
-    return _full_to_canvas(problem, cv, scaled.astype(np.float32), device)
+    (full (M+1, N+1) shape), as an fp32 canvas on ``device``; the host
+    range ``stage.rhs_in`` while a profiler runs."""
+    with region("stage.rhs_in"):
+        sc64 = host_fields64(problem, True)[3]
+        scaled = np.asarray(rhs_grid64, np.float64) * sc64
+        return _full_to_canvas(problem, cv, scaled.astype(np.float32), device)
 
 
 def canvas_to_w64(problem: Problem, cv: Canvas, w, sc_int) -> np.ndarray:
     """Solution canvas of the scaled system → the fp64 host grid
-    w = sc·y (zero ring), the product taken in fp64."""
+    w = sc·y (zero ring), the product taken in fp64; the host range
+    ``stage.w_out`` while a profiler runs."""
     M, N = problem.M, problem.N
-    y = w[HALO : HALO + M - 1, cv.cg + 1 : cv.cg + N].detach().cpu().numpy()
-    w64 = np.zeros(problem.grid_shape, np.float64)
-    w64[1:M, 1:N] = y.astype(np.float64) * sc_int.detach().cpu().numpy(
-        ).astype(np.float64)
+    rows, cols = slice(HALO, HALO + M - 1), slice(cv.cg + 1, cv.cg + N)
+    with region("stage.w_out"):
+        y = w[rows, cols].detach().cpu().numpy()
+        w64 = np.zeros(problem.grid_shape, np.float64)
+        w64[1:M, 1:N] = y.astype(np.float64) * sc_int.detach().cpu().numpy(
+            ).astype(np.float64)
     return w64
 
 

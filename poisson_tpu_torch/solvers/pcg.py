@@ -45,6 +45,7 @@ import torch
 
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.models.fictitious_domain import build_fields
+from poisson_tpu_torch.obs.profile import region
 from poisson_tpu_torch.ops.stencil import (
     apply_A,
     apply_Dinv,
@@ -164,19 +165,26 @@ def drive(step, s, cap: int, check_every: int = CHECK_EVERY):
     ``step`` must freeze a done state (count included). The host reads
     ``s.done`` once per ``check_every`` steps — the loop's only device sync —
     and never runs more than ``cap`` steps in all. A batched state is done
-    when every member is."""
+    when every member is.
+
+    While a profiler runs, each block is two host ranges
+    (``obs.profile.region``): ``pcg.drive.enqueue`` around its steps and
+    ``pcg.drive.check`` around the flush and the read of ``done``."""
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     flush = getattr(step, "flush", None)   # a streaming body's tap
     ran = 0
     while ran < cap:
         n = min(check_every, cap - ran)
-        for _ in range(n):
-            s = step(s)
+        with region("pcg.drive.enqueue"):
+            for _ in range(n):
+                s = step(s)
         ran += n
-        if flush is not None:
-            flush()
-        if bool(torch.all(s.done)):
+        with region("pcg.drive.check"):
+            if flush is not None:
+                flush()
+            done = bool(torch.all(s.done))
+        if done:
             break
     return s
 
