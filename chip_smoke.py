@@ -3574,6 +3574,19 @@ def main() -> None:
               f"than the {total_iters} iterations")
     print(f"launches on the fused path: {json.dumps(fc.launch_counts())} "
           f"for {total_iters} iterations", flush=True)
+    # A replayed block adds to the counters the launches measured while it
+    # was captured: hold them against the kernels the profiler saw.
+    fc.reset_launch_counts()
+    seen, _ = profile_kernels(lambda: fc.fused_cg_solve(FLAGSHIP))
+    steps = driven_steps(iters, FLAGSHIP.iteration_cap, CHECK_EVERY)
+    wrapper = single_counts(fc.launch_counts())
+    for name, symbol in (("direction_and_stencil", "direction_stencil_kernel"),
+                         ("fused_update", "fused_update_kernel")):
+        on_card = sum(n for k, (n, _) in (seen or {}).items()
+                      if named(k, symbol))
+        check(wrapper[name] == on_card == steps,
+              f"{name}: {wrapper[name]} launches counted, {on_card} "
+              f"{symbol} seen by the profiler, for {steps} driven steps")
 
     elapsed("fused")
     # --- the resident path (kernel R): one launch per solve.

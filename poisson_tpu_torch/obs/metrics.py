@@ -15,6 +15,13 @@ The names the port emits:
 - ``pcg.solves.<verdict>`` / ``pcg.iterations.<verdict>`` — solves and
   iterations by stop-flag name (``solvers.pcg.FLAG_NAMES``), counted by
   the CLI's report (``utils.timing.count_solve``);
+- ``pcg.drive.{graph_captures,graph_replays,eager_steps}`` — the loop's
+  captured blocks (``solvers.graphs``): blocks of a capturable step (the
+  fused body on a card) captured as CUDA graphs, blocks replayed, and
+  steps of a capturable step run eagerly (a first block, a tail shorter
+  than ``check_every``, a state not yet in the block's shape, a block held
+  by another thread); the share of steps replayed is replays ×
+  ``check_every`` ÷ (that + ``eager_steps``);
 - ``time.compile_seconds`` / ``time.execute_seconds`` — accumulating float
   counters: the first call's extra time (kernel build and load, canvas
   setup) and the timed solves;

@@ -73,6 +73,11 @@ from poisson_tpu_torch.solvers.checkpoint import (
     load_state,
     run_chunked,
 )
+from poisson_tpu_torch.solvers.graphs import (
+    Capturable,
+    can_capture,
+    launch_stream,
+)
 from poisson_tpu_torch.solvers.pcg import (
     CHECK_EVERY,
     FLAG_NONE,
@@ -276,9 +281,11 @@ def _host_canvases(problem: Problem, cv: Canvas):
 
 @functools.lru_cache(maxsize=4)
 def _device_canvases(problem: Problem, cv: Canvas, device: torch.device):
+    """The canvases on ``device``, and the marked fused bodies made on them
+    (:func:`_make_fused_body`), which are cached with them."""
     cv, *host = _host_canvases(problem, cv)
     return (cv, *(torch.tensor(x, dtype=torch.float32, device=device)
-                  for x in host))
+                  for x in host)), {}
 
 
 def build_canvases(problem: Problem, device=None, bm: int | None = None,
@@ -289,9 +296,12 @@ def build_canvases(problem: Problem, device=None, bm: int | None = None,
     Returns (cv, cS, cW, g, rhs, sc2, sc_int): (rows, cols) canvases plus
     the interior scaling block for solution extraction. The tensors are
     cached per (problem, canvas, device) and shared: callers must not
-    write to them (the solver copies ``rhs`` before updating r in place)."""
-    return _device_canvases(problem, canvas_spec(problem, bm, bn),
-                            resolve_device(device))
+    write to them (the solver copies ``rhs`` before updating r in place);
+    ``cuda`` without an index is the current card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _device_canvases(problem, canvas_spec(problem, bm, bn), dev)[0]
 
 
 def _canvas_to_full(problem: Problem, cv: Canvas, c) -> np.ndarray:
@@ -488,7 +498,9 @@ def count_launch(wrapper, colmask) -> None:
 
 
 def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The stream a kernel launch on ``dev`` goes to
+    (``solvers.graphs.launch_stream``)."""
+    return launch_stream(dev)
 
 
 @functools.lru_cache(maxsize=None)
@@ -729,7 +741,30 @@ def _make_fused_body(problem: Problem, cv: Canvas, cs, cw, g, sc2,
     the count exact however many iterations run between two reads of
     ``done``. ``kernels`` are the two sweeps, called as
     :func:`direction_and_stencil` and :func:`fused_update` are; ``run``
-    selects the serial-reduce mode (:func:`partial_sums`)."""
+    selects the serial-reduce mode (:func:`partial_sums`).
+
+    On a card (``solvers.graphs.can_capture``), a body on the canvases
+    :func:`build_canvases` caches is marked ``capturable``: ``drive``
+    replays each whole block of it as a captured graph. The marked body is
+    cached with the canvases, per ``kernels`` and ``run``, so that its
+    captured blocks serve every solve on them."""
+    if not can_capture(cs.device):
+        return _fused_body(problem, cv, cs, cw, g, sc2, kernels, run)
+    (_, *cached), bodies = _device_canvases(problem, cv, cs.device)
+    if not all(a is b for a, b in zip((cs, cw, g, sc2),
+                                      (*cached[:3], cached[4]))):
+        return _fused_body(problem, cv, cs, cw, g, sc2, kernels, run)
+    body = bodies.get((kernels, run))
+    if body is None:
+        body = _fused_body(problem, cv, cs, cw, g, sc2, kernels, run)
+        body.capturable = Capturable((*kernels, serial_sum))
+        body = bodies.setdefault((kernels, run), body)
+    return body
+
+
+def _fused_body(problem: Problem, cv: Canvas, cs, cw, g, sc2, kernels,
+                run: int | None):
+    """The body :func:`_make_fused_body` describes, unmarked."""
     direction_and_stencil_fn, fused_update_fn = kernels
     f32 = dict(dtype=torch.float32, device=cs.device)
     h1h2 = torch.tensor(problem.h1 * problem.h2, **f32)

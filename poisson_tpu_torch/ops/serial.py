@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from poisson_tpu_torch.ops._build import check, load_kernels, source
+from poisson_tpu_torch.solvers.graphs import launch_stream
 
 
 def _kernel_constants() -> dict:
@@ -255,7 +256,7 @@ def serial_sum(parts, run: int) -> torch.Tensor:
     strides = (nvec, 1) if interleaved else (1, x.stride(0))
     args = (x.data_ptr(), out.data_ptr(), ll(n), ll(strides[0]),
             ll(strides[1]), ll(run), nvec, x.device.index or 0,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            launch_stream(x.device))
     code = kernels.lib.serial_sum_launch(*args)
     check(kernels, code, "serial_sum launch")
     serial_sum.launches += 1

@@ -54,6 +54,7 @@ from poisson_tpu_torch.ops.stencil import (
     sum_products,
     weak,
 )
+from poisson_tpu_torch.solvers import graphs
 from poisson_tpu_torch.utils.platform import resolve_device
 
 _DENOM_TOL = 1e-15  # degenerate-direction guard (stage2:…cpp:414)
@@ -167,26 +168,38 @@ def drive(step, s, cap: int, check_every: int = CHECK_EVERY):
     and never runs more than ``cap`` steps in all. A batched state is done
     when every member is.
 
+    For a step marked ``capturable`` (``solvers.graphs``; the fused body on
+    a card) each whole block is replayed as a captured CUDA graph, and the
+    state returned owns its tensors; every other step runs eagerly.
+
     While a profiler runs, each block is two host ranges
     (``obs.profile.region``): ``pcg.drive.enqueue`` around its steps and
     ``pcg.drive.check`` around the flush and the read of ``done``."""
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     flush = getattr(step, "flush", None)   # a streaming body's tap
+    run = graphs.claim(step, check_every)  # None for an unmarked step
     ran = 0
-    while ran < cap:
-        n = min(check_every, cap - ran)
-        with region("pcg.drive.enqueue"):
-            for _ in range(n):
-                s = step(s)
-        ran += n
-        with region("pcg.drive.check"):
-            if flush is not None:
-                flush()
-            done = bool(torch.all(s.done))
-        if done:
-            break
-    return s
+    try:
+        while ran < cap:
+            n = min(check_every, cap - ran)
+            with region("pcg.drive.enqueue"):
+                if run is None:
+                    for _ in range(n):
+                        s = step(s)
+                else:
+                    s = run.advance(step, s, n)
+            ran += n
+            with region("pcg.drive.check"):
+                if flush is not None:
+                    flush()
+                done = bool(torch.all(s.done))
+            if done:
+                break
+        return s if run is None else run.finish(s)
+    finally:
+        if run is not None:
+            run.release()
 
 
 def init_state(ops: PCGOps, rhs) -> PCGState:

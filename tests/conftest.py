@@ -37,6 +37,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running solve (large grids)")
     config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one")
+    config.addinivalue_line(
         "markers",
         "xslow: minutes-long solve (largest grids); skipped unless "
         "RUN_XSLOW=1 or selected with -m xslow",
