@@ -13,6 +13,7 @@ later cell is new files plus new entries and no edit:
   limits/<workload>.json   each compared number's limit (:mod:`cellbench.judge`)
   end_to_end/<metric>.py   an end-to-end metric's reader, ``read(window)``
   metrics/<metric>.py      a per-layer metric's reader, ``read(capture)``
+  faults/<function>.py     the fault drills of the entry a mix calls (tests)
 """
 
 from __future__ import annotations

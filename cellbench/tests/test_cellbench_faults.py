@@ -4,21 +4,31 @@ place) and each fault a cell can have, planted in the program's timed path
 underneath a whole run. The runs skip the look for a card and run on the
 CPU at 40×60; the limits are the cells' own. A sound run passes.
 
-A cell's faults: a step that returns its state unchanged; an answer
-altered where it is produced. No cell batches and none spans cards, so
-"half of the batch left out" and "the exchange between chips left out"
-have no place here.
+A cell's faults are the plants of its entry (``faults/<function>.py``,
+:mod:`cellbench.faults`): a step that returns its state unchanged and an
+answer altered where it is produced, for every cell; a cell that spans
+cards brings the exchange drill, the exchange between chips left out. No
+cell batches, so "half of the batch left out" has no place here.
 """
 
 import copy
 
-import numpy as np
 import pytest
 
-from cellbench import calibrate, run, spec
+from cellbench import calibrate, faults, run, spec
 
 SEED = 2 ** 31 + 29
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
+
+
+def entry_plants(workload) -> dict:
+    try:
+        return faults.plants(spec.load_cell(workload))
+    except FileNotFoundError:       # the rule tests below name the file
+        return {}
+
+
+PLANTED = [(w, plant) for w in CELLS for plant in entry_plants(w)]
 
 
 def small(workload):
@@ -35,42 +45,6 @@ def correct(cell, send=None) -> bool:
     return result["correct"]
 
 
-def frozen_body(*args, **kwargs):
-    return lambda s: s
-
-
-def altered(w):
-    w = w.clone() if hasattr(w, "clone") else np.array(w)
-    w[20, 30] *= 1.05
-    return w
-
-
-@pytest.fixture
-def produced_altered(monkeypatch):
-    """Every entry's answer altered where the program produces it."""
-    from poisson_tpu_torch.ops import fused_cg, resident
-
-    to_host, solve = fused_cg.canvas_to_w64, resident.resident_solve
-    monkeypatch.setattr(fused_cg, "canvas_to_w64",
-                        lambda *a, **k: altered(to_host(*a, **k)))
-
-    def resident_altered(*args, **kwargs):
-        w, *rest = solve(*args, **kwargs)
-        w = w.clone()
-        w[resident.HALO + 20, 30] *= 1.05
-        return (w, *rest)
-
-    monkeypatch.setattr(resident, "resident_solve", resident_altered)
-
-
-@pytest.fixture
-def steps_frozen(monkeypatch):
-    """Every iteration body returns its state unchanged."""
-    from poisson_tpu_torch.ops import fused_cg
-
-    monkeypatch.setattr(fused_cg, "_make_fused_body", frozen_body)
-
-
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_sound_run_is_correct(workload):
     assert correct(small(workload))
@@ -82,13 +56,30 @@ def test_the_control_is_not_correct(workload):
                                                            "cpu"))
 
 
-@pytest.mark.parametrize("workload", CELLS)
-def test_a_step_returning_its_state_unchanged_is_caught(workload,
-                                                        steps_frozen):
-    assert not correct(small(workload))
+@pytest.mark.parametrize("workload,plant", PLANTED)
+def test_each_planted_fault_is_caught(workload, plant, monkeypatch):
+    cell = small(workload)
+    faults.plants(cell)[plant](monkeypatch)
+    assert not correct(cell)
+
+
+def lacking(cell, wanted) -> str:
+    """What the cell's entry lacks of the plants ``wanted``, naming the
+    file to add or to complete; empty where it has them all."""
+    where = f"{spec.HERE.name}/faults/{faults.entry(cell)}.py"
+    if not (cell.root / where).is_file():
+        return f"{cell.name}: add {where} with PLANTS holding {wanted}"
+    missing = [p for p in wanted if p not in faults.plants(cell)]
+    return f"{cell.name}: {where} lacks {missing} in PLANTS" if missing \
+        else ""
 
 
 @pytest.mark.parametrize("workload", CELLS)
-def test_an_answer_altered_where_produced_is_caught(workload,
-                                                    produced_altered):
-    assert not correct(small(workload))
+def test_every_entry_has_the_faults_its_cell_needs(workload):
+    """Both plants for every cell, and the exchange drill for a cell over
+    more than one card; the message names the file to add or complete."""
+    cell = spec.load_cell(workload)
+    wanted = faults.REQUIRED + ((faults.ACROSS_CARDS,) if cell.chips > 1
+                                else ())
+    problem = lacking(cell, wanted)
+    assert not problem, problem

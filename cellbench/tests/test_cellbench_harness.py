@@ -14,7 +14,8 @@ from pathlib import Path
 
 import pytest
 
-from cellbench import capture, costs, run, spec, traffic
+from cellbench import (calibrate, capture, costs, faults, run, spec,
+                       traffic)
 from cellbench.capture import Capture, Event
 from cellbench.traffic import Sample
 from cellbench.reference.fields import Grid
@@ -131,6 +132,172 @@ def test_an_added_loop_and_input_kind_are_picked_up_without_an_edit(
     result, _, win = run.run_cell(cell, 5, 0.1, False, kind="cpu")
     assert result["correct"] is True and result["attempted"] == 2
     assert win.kept[0][0].gate * 2 > 1.7
+
+# The four-card mesh cell as a later change would add it: new files and new
+# entries only. Kernels A and B sharded over the 2×2 mesh that
+# ``choose_process_grid(4)`` gives, r's halos copied between cards.
+MESH = "ellipse-2400x3200-mesh2x2.fused"
+MESH_FILES = {
+    "traffic/mesh-gate.json": json.dumps({
+        "loop": "closed", "input": "mesh_gate",
+        "call": "poisson_tpu_torch.parallel.fused_sharded"
+                ":fused_cg_solve_sharded",
+        "gates": [0.9, 1.1], "judged": 3}, indent=1),
+    f"limits/{MESH}.json": json.dumps({"w_err": 3e-3, "k_gap": 5}),
+    "inputs/mesh_gate.py": '''"""mesh_gate: the gates of ``inputs/gate.py``
+(one scalar gate a solve, uniform in ``gates``, from the seed), sent to a
+sharded entry over a mesh of the run's devices shaped by the port's own
+rule (``make_solver_mesh``: 2x2 over four),
+``fn(problem, mesh, rhs_gate=g)``."""
+
+from cellbench import program, spec
+
+
+class Inputs(spec.module("inputs", "gate").Inputs):
+    def bind(self, fn, problem, devices):
+        from poisson_tpu_torch.parallel.mesh import make_solver_mesh
+
+        mesh = make_solver_mesh(devices)
+
+        def send(inp):
+            return program.answer(fn(problem, mesh, rhs_gate=inp.gate))
+
+        return send
+''',
+    "faults/fused_cg_solve_sharded.py": '''"""Faults of
+``poisson_tpu_torch.parallel.fused_sharded:fused_cg_solve_sharded``: the
+sharded body (kernels A and B on every shard) driven by
+``solvers.pcg.drive``, r's halo ring copied between shards each
+iteration, the answer gathered from the shards' owned points."""
+
+
+def frozen_step(monkeypatch):
+    """Every iteration body returns its state unchanged."""
+    from poisson_tpu_torch.parallel import fused_sharded
+
+    monkeypatch.setattr(fused_sharded, "_make_sharded_body",
+                        lambda *args, **kwargs: lambda s: s)
+
+
+def altered_answer(monkeypatch):
+    """The gathered answer scaled by 1.05 at one point."""
+    from poisson_tpu_torch.parallel import fused_sharded
+
+    gather = fused_sharded.gather_owned
+
+    def altered(*args, **kwargs):
+        w = gather(*args, **kwargs).clone()
+        w[20, 30] *= 1.05
+        return w
+
+    monkeypatch.setattr(fused_sharded, "gather_owned", altered)
+
+
+def exchange_skipped(monkeypatch):
+    """The exchange between chips left out: r's halo ring never copied."""
+    from poisson_tpu_torch.parallel import fused_sharded
+
+    monkeypatch.setattr(fused_sharded, "exchange_r_halo",
+                        lambda *args, **kwargs: None)
+
+
+PLANTS = {"frozen_step": frozen_step, "altered_answer": altered_answer,
+          "exchange_skipped": exchange_skipped}
+''',
+}
+MESH_METRICS = ("solves_per_s", "iters_per_solve", "launches_per_iter",
+                "device_us_per_iter", "device_idle", "enqueue_us_per_iter",
+                "check_us_per_iter")
+
+
+def add_mesh_cell(root: Path) -> None:
+    """Add the mesh cell to the checkout at ``root``: the files it lacks,
+    and the entries its ``BENCHMARK.json`` lacks. Once the cell is
+    committed there is nothing to add, and what the checkout holds runs."""
+    here = root / "cellbench"
+    for name, text in MESH_FILES.items():
+        if not (here / name).exists():
+            (here / name).write_text(text)
+    path = here / "configs/ellipse-2400x3200-mesh2x2.json"
+    if not path.exists():
+        cfg = json.loads(
+            (here / "configs/ellipse-2400x3200.json").read_text())
+        cfg.update(name="ellipse-2400x3200-mesh2x2", source=cfg[
+            "source"].replace("1 GPU 2400x3200 (2449 iterations, 13.24 s)",
+                              "2 GPU 2400x3200 (2449 iterations, 7.67 s)"),
+                   deployment="the largest published grid on a 2x2 mesh "
+                              "of four cards",
+                   chips=4, mesh={"px": 2, "py": 2},
+                   published=dict(cfg["published"], seconds=7.67,
+                                  hardware="MPI+CUDA, 2 GPU"))
+        cfg["assumed"] = cfg["assumed"] + [
+            "the 2x2 process grid of choose_process_grid(4), the "
+            "reference's own rule (stage2-mpi/poisson_mpi_decomp.cpp:60-64),"
+            " on four cards"]
+        path.write_text(json.dumps(cfg, indent=1))
+    bench = spec.benchmark(root)
+    if all(w["name"] != MESH for w in bench["workloads"]):
+        cfg = json.loads(path.read_text())
+        if all(c["name"] != cfg["name"] for c in bench["configs"]):
+            bench["configs"].append(dict(
+                name=cfg["name"], source=cfg["source"],
+                file="cellbench/configs/ellipse-2400x3200-mesh2x2.json",
+                reduced=[],
+                why="the largest published grid sharded 2x2 over four "
+                    "cards: the same ellipse, delta and precision, halos "
+                    "copied between cards"))
+        bench["workloads"].append(dict(
+            name=MESH, config=cfg["name"], traffic="mesh-gate", chips=4,
+            why="2400x3200 on a 2x2 mesh of four cards, closed loop of one "
+                "caller, gates on the card: sharded A and B, halo copies "
+                "between cards, mesh sums"))
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if m["name"] in MESH_METRICS:
+                m["workloads"].append(MESH)
+        (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
+
+
+def test_a_cell_over_four_cards_is_new_files_only(tmp_path):
+    """A cell on a new entry over four cards is new files: its
+    configuration, mix, inputs, limits and faults. At 40×60 on four CPU
+    shards its sound run is correct, and its control and each of its
+    plants are not, each with a compared number above its limit. Once the
+    cell is committed nothing is added, and the committed cell is run."""
+    from poisson_tpu_torch.parallel.mesh import make_solver_mesh
+
+    shutil.copytree(ROOT / "cellbench", tmp_path / "cellbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    files = {p: p.read_bytes() for p in tmp_path.rglob("*") if p.is_file()}
+    add_mesh_cell(tmp_path)
+    changed = [p for p, data in files.items() if p.read_bytes() != data]
+    assert set(changed) <= {tmp_path / "BENCHMARK.json"}
+
+    cell = small(spec.load_cell(MESH, root=tmp_path))
+    mesh = make_solver_mesh(run.devices(cell, "cpu"))
+    assert cell.chips == 4 and (mesh.px, mesh.py) == (2, 2)
+    plants = faults.plants(cell)
+    assert {"frozen_step", "altered_answer", "exchange_skipped"} <= set(
+        plants)
+
+    def result(send=None):
+        out, _, win = run.run_cell(cell, 2 ** 31 + 41, 0.3, False,
+                                   kind="cpu", send=send)
+        assert win.kept and out["device"]["count"] == 4
+        return out
+
+    def over(out):
+        return [n for n, c in out["checks"].items()
+                if c["value"] is not None and c["value"] > c["limit"]]
+
+    assert result()["correct"] is True
+    control = result(calibrate.control(cell, "cpu"))
+    assert control["correct"] is False and over(control)
+    for name, plant in plants.items():
+        with pytest.MonkeyPatch.context() as monkeypatch:
+            plant(monkeypatch)
+            out = result()
+        assert out["correct"] is False and over(out), (name, out["checks"])
 
 
 def test_unknown_names_raise():

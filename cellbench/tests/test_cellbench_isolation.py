@@ -1,9 +1,10 @@
 """Nothing the benchmark runs imports JAX or the JAX package: the harness,
-every metric reader, every loop, input and traffic file and the
-program's entries are
-loaded in a fresh interpreter that refuses those imports, and no loaded
-module's top-level name is one of them (names compared whole:
-``poisson_tpu_torch`` is the program, ``poisson_tpu`` is not)."""
+every metric reader, every loop, input and traffic file, the program's
+entries and every fault drill (each ``faults/*.py``, each plant planted
+and taken out again) are loaded in a fresh interpreter that refuses those
+imports, and no loaded module's top-level name is one of them (names
+compared whole: ``poisson_tpu_torch`` is the program, ``poisson_tpu`` is
+not)."""
 
 import subprocess
 import sys
@@ -32,6 +33,12 @@ for m in bench["end_to_end"]:
 for folder in ("loops", "inputs"):
     for path in (spec.HERE / folder).glob("*.py"):
         spec.module(folder, path.stem)
+import pytest
+for path in (spec.HERE / "faults").glob("*.py"):
+    for plant in getattr(spec.module("faults", path.stem), "PLANTS",
+                         {}).values():
+        with pytest.MonkeyPatch.context() as monkeypatch:
+            plant(monkeypatch)
 for w in bench["workloads"]:
     cell = spec.load_cell(w["name"])
     cfg = dict(cell.config, grid={"M": 16, "N": 16})
