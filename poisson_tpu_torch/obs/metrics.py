@@ -43,6 +43,13 @@ The names the port emits:
   of a mesh over processes (``parallel.halo``): bytes this process sent to
   other ranks (halo slices, its share of each all-gather), and copies
   staged from a card to host memory for gloo (each a host sync);
+- ``mesh.halo_copies`` / ``mesh.halo_bytes`` / ``mesh.sums`` /
+  ``mesh.replicas`` — the mesh's traffic between shards
+  (``parallel.halo``, one add a call): halo slices this process copied
+  into its shards from another shard (zero fills at the mesh edge are not
+  copies) and their bytes, mesh-order sums taken (a ``mesh_sum`` call or
+  a group of ``mesh_sums``), and the copies ``replicate`` makes of a
+  scalar to a device other than its own;
 - ``batched.solves`` / ``batched.padding_members`` /
   ``batched.bucket_cache.hits`` / ``batched.bucket_cache.misses`` and the
   gauges ``batched.last_bucket`` / ``batched.solves_per_sec`` — the

@@ -36,6 +36,17 @@ through host memory, explicitly; under NCCL it moves device to device.
 As in the reference, corners are not exchanged diagonally: rows go first
 and the columns then span the full height, so the corner values ride along
 in two hops (``stage2-mpi/poisson_mpi_decomp.cpp:241-347``).
+
+While a profiler runs, each call is one host range (``obs.profile.region``;
+none nested in another of its name): ``mesh.halo`` around a shift (or both
+shifts of :func:`shift_both`), ``mesh.sum`` around :func:`mesh_sum` and
+:func:`mesh_sums`, ``mesh.replicate`` around :func:`replicate`. Always on,
+once a call: ``mesh.halo_copies`` / ``mesh.halo_bytes`` count the slices
+this process wrote into its shards' halos from another shard, and their
+bytes (zero fills at the mesh edge are not copies); ``mesh.sums`` the sums
+taken (a call of :func:`mesh_sum`, or a group of :func:`mesh_sums`);
+``mesh.replicas`` the copies :func:`replicate` makes to a device other
+than the value's.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from poisson_tpu_torch import obs
+from poisson_tpu_torch.obs.profile import region
 from poisson_tpu_torch.ops.serial import serial_sum
 from poisson_tpu_torch.parallel.mesh import X_AXIS, Y_AXIS, Mesh
 from poisson_tpu_torch.parallel.multihost import process_rank
@@ -80,27 +92,36 @@ def _staged(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
 
 
-def _shift(canvases, mesh: Mesh, axis: str, step: int, src, dst) -> None:
-    if mesh.multiprocess:
-        _shift_across(canvases, mesh, axis, ((step, src, dst),))
-        return
+def _count_halo(copied) -> None:
+    """Count the halo slices ``copied`` (the written views) at once."""
+    if copied:
+        obs.inc("mesh.halo_copies", len(copied))
+        obs.inc("mesh.halo_bytes",
+                sum(v.numel() * v.element_size() for v in copied))
+
+
+def _shift(canvases, mesh: Mesh, axis: str, step: int, src, dst) -> list:
+    """One shift on a one-process mesh; the halo slices it copied into."""
+    copied = []
     for shard, u in enumerate(canvases):
         n = _neighbour(mesh, shard, axis, step)
         if n is None:
             u[dst].zero_()
         else:
-            u[dst].copy_(canvases[n][src])
+            copied.append(u[dst].copy_(canvases[n][src]))
+    return copied
 
 
-def _shift_across(canvases, mesh: Mesh, axis: str, moves) -> None:
+def _shift_across(canvases, mesh: Mesh, axis: str, moves) -> list:
     """Shifts ``moves`` ((step, src, dst) each) along ``axis`` on a mesh
     over processes, in one round of transfers: this rank's ``canvases``
     (one per local shard); a neighbour on another rank sends its slice,
-    tagged by the move and the receiving shard."""
+    tagged by the move and the receiving shard. The halo slices written
+    from another shard, this rank's or not."""
     local = mesh.local
     rank = process_rank()
     at = {shard: i for i, shard in enumerate(local)}
-    sends, recvs, inbound = [], [], []
+    sends, recvs, inbound, copied = [], [], [], []
     for m, (step, src, dst) in enumerate(moves):
         for i, shard in enumerate(local):
             u = canvases[i]
@@ -116,7 +137,7 @@ def _shift_across(canvases, mesh: Mesh, axis: str, moves) -> None:
             if n is None:
                 u[dst].zero_()
             elif n in at:
-                u[dst].copy_(canvases[at[n]][src])
+                copied.append(u[dst].copy_(canvases[at[n]][src]))
             else:
                 buf = torch.empty(u[dst].shape, dtype=u.dtype,
                                   device=_staging(u.device))
@@ -127,31 +148,41 @@ def _shift_across(canvases, mesh: Mesh, axis: str, moves) -> None:
         for work in dist.batch_isend_irecv(sends + recvs):
             work.wait()
     for u, dst, buf in inbound:
-        u[dst].copy_(buf)
+        copied.append(u[dst].copy_(buf))
+    return copied
+
+
+def _shifts(canvases, mesh: Mesh, axis: str, moves) -> None:
+    """``moves`` ((step, src, dst) each) along ``axis`` in turn, over
+    processes in one round of transfers: one ``mesh.halo`` range, counted
+    once."""
+    with region("mesh.halo"):
+        if mesh.multiprocess:
+            copied = _shift_across(canvases, mesh, axis, moves)
+        else:
+            copied = [v for step, src, dst in moves
+                      for v in _shift(canvases, mesh, axis, step, src, dst)]
+        _count_halo(copied)
 
 
 def shift_down(canvases, mesh: Mesh, axis: str, src, dst) -> None:
     """Every shard's ``dst`` slice ← the ``src`` slice of the shard at
     coordinate c−1 along ``axis``; zeros at c = 0. In place; ``src`` and
     ``dst`` must not overlap within a canvas."""
-    _shift(canvases, mesh, axis, -1, src, dst)
+    _shifts(canvases, mesh, axis, ((-1, src, dst),))
 
 
 def shift_up(canvases, mesh: Mesh, axis: str, src, dst) -> None:
     """Every shard's ``dst`` slice ← the ``src`` slice of the shard at
     coordinate c+1 along ``axis``; zeros at c = size−1."""
-    _shift(canvases, mesh, axis, +1, src, dst)
+    _shifts(canvases, mesh, axis, ((+1, src, dst),))
 
 
 def shift_both(canvases, mesh: Mesh, axis: str, down, up) -> None:
     """:func:`shift_down` with ``down`` = (src, dst), then :func:`shift_up`
     with ``up``; over processes both in one round of transfers (the two
     read the interior and write disjoint halo slices)."""
-    if mesh.multiprocess:
-        _shift_across(canvases, mesh, axis, ((-1, *down), (+1, *up)))
-        return
-    shift_down(canvases, mesh, axis, *down)
-    shift_up(canvases, mesh, axis, *up)
+    _shifts(canvases, mesh, axis, ((-1, *down), (+1, *up)))
 
 
 def exchange_halos(blocks, mesh: Mesh) -> None:
@@ -199,6 +230,15 @@ def gather_shards(values, mesh: Mesh) -> torch.Tensor:
     return torch.stack(order).to(lead)
 
 
+def _sum_shards(partials, mesh: Mesh, run: int | None) -> torch.Tensor:
+    if mesh.multiprocess:
+        return torch.sum(gather_shards([_shard_sum(p, run) for p in partials],
+                                       mesh), dim=0)
+    lead = mesh.lead
+    per_shard = [_shard_sum(p, run).to(lead) for p in partials]
+    return torch.sum(torch.stack(per_shard), dim=0)
+
+
 def mesh_sum(partials, mesh: Mesh, run: int | None = None) -> torch.Tensor:
     """Σ over shards of Σ over each shard's partials (along dim 0), on the
     lead device, summed in mesh order.
@@ -209,32 +249,36 @@ def mesh_sum(partials, mesh: Mesh, run: int | None = None) -> torch.Tensor:
     of partials vectors, summed by one launch into a vector of sums. On a
     mesh over processes every rank sums the same stack, so every rank gets
     the same bits, those of one process."""
-    if mesh.multiprocess:
-        return torch.sum(gather_shards([_shard_sum(p, run) for p in partials],
-                                       mesh), dim=0)
-    lead = mesh.lead
-    per_shard = [_shard_sum(p, run).to(lead) for p in partials]
-    return torch.sum(torch.stack(per_shard), dim=0)
+    with region("mesh.sum"):
+        obs.inc("mesh.sums")
+        return _sum_shards(partials, mesh, run)
 
 
 def mesh_sums(groups, mesh: Mesh) -> list:
     """:func:`mesh_sum` of each group of partials; over processes the
     groups' per-shard sums travel in one all-gather, and each is summed
     as :func:`mesh_sum` sums it (a contiguous stack in mesh order)."""
-    if not mesh.multiprocess:
-        return [mesh_sum(parts, mesh) for parts in groups]
-    every = gather_shards([torch.stack([torch.sum(p, dim=0) for p in shard])
-                           for shard in zip(*groups)], mesh)
-    return [torch.sum(every[:, q].contiguous(), dim=0)
-            for q in range(len(groups))]
+    with region("mesh.sum"):
+        obs.inc("mesh.sums", len(groups))
+        if not mesh.multiprocess:
+            return [_sum_shards(parts, mesh, None) for parts in groups]
+        every = gather_shards([torch.stack([torch.sum(p, dim=0)
+                                            for p in shard])
+                               for shard in zip(*groups)], mesh)
+        return [torch.sum(every[:, q].contiguous(), dim=0)
+                for q in range(len(groups))]
 
 
 def replicate(x: torch.Tensor, mesh: Mesh) -> tuple:
     """``x`` on every local shard's device (one copy per distinct
     device)."""
-    copies: dict = {}
-    devices = [mesh.devices[s] for s in mesh.local]
-    for d in devices:
-        if d not in copies:
-            copies[d] = x.to(d)
-    return tuple(copies[d] for d in devices)
+    with region("mesh.replicate"):
+        copies: dict = {}
+        devices = [mesh.devices[s] for s in mesh.local]
+        for d in devices:
+            if d not in copies:
+                copies[d] = x.to(d)
+        moved = sum(d != x.device for d in copies)
+        if moved:
+            obs.inc("mesh.replicas", moved)
+        return tuple(copies[d] for d in devices)
