@@ -1250,6 +1250,61 @@ def sharded_counts(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if k.endswith("_sharded")}
 
 
+def check_sharded_replays(mesh, label: str) -> None:
+    """The sharded kernels' launch counters held against the card, in one
+    profiled 800x1200 fused-sharded solve on ``mesh`` after a warm solve
+    that captures its blocks. A replayed block adds to the wrappers'
+    counters the launches counted at its capture, so each count must equal
+    the profiler's count of its kernel and shards x the steps ``drive``
+    ran, every block replayed; across cards every replay spans them
+    (``pcg.drive.multi_card_replays``)."""
+    from poisson_tpu_torch.config import FLAGSHIP
+    from poisson_tpu_torch.obs import metrics
+    from poisson_tpu_torch.ops import fused_cg as fc
+    from poisson_tpu_torch.parallel import fused_sharded as fs
+    from poisson_tpu_torch.solvers.pcg import CHECK_EVERY
+
+    cards = list(dict.fromkeys(mesh.devices))
+    fs.fused_cg_solve_sharded(FLAGSHIP, mesh)          # captures
+    fc.reset_launch_counts()
+    before = {name: metrics.get(f"pcg.drive.{name}")
+              for name in ("graph_replays", "multi_card_replays",
+                           "eager_steps")}
+    out = []
+
+    def solve():
+        out.append(fs.fused_cg_solve_sharded(FLAGSHIP, mesh))
+        for card in cards:
+            torch.cuda.synchronize(card)
+
+    seen, _ = profile_kernels(solve)
+    moved = {name: metrics.get(f"pcg.drive.{name}") - value
+             for name, value in before.items()}
+    k = int(out[0].iterations)
+    check(k == 989, f"fused-sharded {label}: {k} iterations")
+    steps = driven_steps(k, FLAGSHIP.iteration_cap, CHECK_EVERY)
+    check(moved == {"graph_replays": steps // CHECK_EVERY,
+                    "multi_card_replays": (steps // CHECK_EVERY
+                                           if len(cards) > 1 else 0),
+                    "eager_steps": 0},
+          f"fused-sharded {label}: drive counted {moved} for {steps} steps "
+          f"on {len(cards)} card(s)")
+    wrapper = sharded_counts(fc.launch_counts())
+    for name, symbol in (("direction_and_stencil_sharded",
+                          "direction_stencil_sharded"),
+                         ("fused_update_sharded", "fused_update_sharded")):
+        on_card = sum(n for key, (n, _) in (seen or {}).items()
+                      if named(key, symbol))
+        check(wrapper[name] == on_card == mesh.size * steps,
+              f"fused-sharded {label}: {wrapper[name]} {name} launches "
+              f"counted, {on_card} {symbol} seen by the profiler, for "
+              f"{mesh.size} shards x {steps} driven steps")
+    print(f"replayed launches on the fused-sharded path, {label}: "
+          f"{json.dumps(wrapper)} (the profiler: "
+          f"{mesh.size} shards x {steps} steps), drive: {json.dumps(moved)}",
+          flush=True)
+
+
 def timed(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3761,6 +3816,7 @@ def main() -> None:
                   f"{path}: {name} launched {n} times, expected "
                   f"{shards} shards x {steps} steps")
         counts.update(sharded_counts(launched))
+    check_sharded_replays(mesh, "2x2 on one card")
 
     # A mesh across two cards, where the machine has them.
     if torch.cuda.device_count() > 1:
@@ -3775,6 +3831,7 @@ def main() -> None:
             solve_line(path, FLAGSHIP, r, sec, l2_error_host(FLAGSHIP, r.w),
                        {"mesh": "2x1", "devices": ["cuda:0", "cuda:1"],
                         "max_diff_vs_fp64": gap})
+        check_sharded_replays(pair_mesh, "2x1 on two cards")
     else:
         print("sharded 2x1 across two cards: not run "
               f"({torch.cuda.device_count()} card visible)", flush=True)

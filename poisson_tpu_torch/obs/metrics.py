@@ -17,11 +17,14 @@ The names the port emits:
   the CLI's report (``utils.timing.count_solve``);
 - ``pcg.drive.{graph_captures,graph_replays,eager_steps}`` — the loop's
   captured blocks (``solvers.graphs``): blocks of a capturable step (the
-  fused body on a card) captured as CUDA graphs, blocks replayed, and
-  steps of a capturable step run eagerly (a first block, a tail shorter
-  than ``check_every``, a state not yet in the block's shape, a block held
-  by another thread); the share of steps replayed is replays ×
-  ``check_every`` ÷ (that + ``eager_steps``);
+  fused body on a card, the sharded body on a mesh's cards) captured as
+  CUDA graphs, blocks replayed, and steps of a capturable step run eagerly
+  (a first block, a tail shorter than ``check_every``, a state not yet in
+  the block's shape, a block held by another thread, a block whose capture
+  failed); the share of steps replayed is replays × ``check_every`` ÷
+  (that + ``eager_steps``); ``pcg.drive.multi_card_replays`` — the
+  replays of a block whose state spans more than one card (0 on one
+  card);
 - ``time.compile_seconds`` / ``time.execute_seconds`` — accumulating float
   counters: the first call's extra time (kernel build and load, canvas
   setup) and the timed solves;
@@ -180,6 +183,7 @@ rule finds every name the port writes):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -192,12 +196,34 @@ MERGED_SCHEMA = "poisson_tpu.obs.metrics/merged-1"
 _LOCK = threading.Lock()
 _COUNTERS: dict[str, float] = {}
 _GAUGES: dict[str, object] = {}
+_TALLY = threading.local()    # ``counts``: the open :func:`tally`, if any
 
 
 def inc(name: str, value: float = 1) -> None:
     """Add ``value`` to counter ``name`` (creating it at 0)."""
     with _LOCK:
         _COUNTERS[name] = _COUNTERS.get(name, 0) + value
+    counts = getattr(_TALLY, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + value
+
+
+@contextlib.contextmanager
+def tally():
+    """Yields a dict that gathers what this thread adds to each counter
+    inside the block (the registry is added to as ever); another thread's
+    adds are not in it. A tally opened inside another adds its counts to
+    the outer one at its end."""
+    outer = getattr(_TALLY, "counts", None)
+    counts: dict[str, float] = {}
+    _TALLY.counts = counts
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = outer
+        if outer is not None:
+            for name, value in counts.items():
+                outer[name] = outer.get(name, 0) + value
 
 
 def gauge(name: str, value) -> None:

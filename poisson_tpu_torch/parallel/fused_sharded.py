@@ -73,6 +73,7 @@ from poisson_tpu_torch.ops.fused_cg import (
     scaled_stencil_fields,
     serial_run,
 )
+from poisson_tpu_torch.ops.serial import serial_sum
 from poisson_tpu_torch.parallel.checkpoint_sharded import _sync
 from poisson_tpu_torch.parallel.halo import (
     gather_shards,
@@ -89,6 +90,7 @@ from poisson_tpu_torch.solvers.checkpoint import (
     load_state,
     run_chunked,
 )
+from poisson_tpu_torch.solvers.graphs import Capturable, can_capture
 from poisson_tpu_torch.solvers.pcg import (
     CHECK_EVERY,
     PCGResult,
@@ -220,15 +222,17 @@ def shard_canvases(problem: Problem, mesh: Mesh, ring: int = 1):
     """(spec, canvases) of ``problem`` on ``mesh``, one canvas per shard
     this process drives (every shard in one process), cached per (problem,
     mesh, ring) and shared: callers must not write to them."""
-    return _shard_canvases(problem, check_mesh(mesh), ring)
+    return _shard_canvases(problem, check_mesh(mesh), ring)[:2]
 
 
 @functools.lru_cache(maxsize=8)
 def _shard_canvases(problem: Problem, mesh: Mesh, ring: int):
+    """(spec, canvases, the marked sharded bodies made on them), the
+    bodies cached with the canvases (:func:`_make_sharded_body`)."""
     spec = shard_spec(problem, mesh.px, mesh.py, ring)
     host = host_shard_canvases(problem, spec, mesh.px, mesh.py)
     return spec, to_shards(host, [mesh.devices[s] for s in mesh.local],
-                           mesh.local)
+                           mesh.local), {}
 
 
 def single_process(mesh: Mesh, name: str, instead: str) -> None:
@@ -339,7 +343,36 @@ def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
     ``ops.fused_cg._make_fused_body``: α is forced to 0, so w and r keep
     their values (the halo exchange of an unchanged r changes nothing), and
     k, ζ, β and diff keep theirs. ``run`` selects the serial-reduce mode
-    (:func:`~poisson_tpu_torch.parallel.halo.mesh_sum`)."""
+    (:func:`~poisson_tpu_torch.parallel.halo.mesh_sum`).
+
+    On a mesh of one process whose every shard's device
+    ``solvers.graphs.can_capture``, a body on the canvases
+    :func:`shard_canvases` caches is marked ``capturable``: ``drive``
+    replays each whole block of it as one captured graph, across every
+    card of the mesh, and a replay adds the mesh's traffic counters
+    (``parallel.halo``) as the eager block would. The marked body is
+    cached with the canvases, per ``run``, so that its captured blocks
+    serve every solve on them. A mesh over processes (gloo moves host
+    tensors, which no graph can capture) and a mesh of CPU devices run the
+    unmarked body."""
+    devices = [mesh.devices[i] for i in mesh.local]
+    if mesh.multiprocess or not all(can_capture(d) for d in devices):
+        return _sharded_body(problem, spec, mesh, canvases, run)
+    _, cached, bodies = _shard_canvases(problem, mesh, spec.ring)
+    if canvases is not cached:
+        return _sharded_body(problem, spec, mesh, canvases, run)
+    body = bodies.get(run)
+    if body is None:
+        body = _sharded_body(problem, spec, mesh, canvases, run)
+        body.capturable = Capturable(
+            (direction_and_stencil, fused_update, serial_sum))
+        body = bodies.setdefault(run, body)
+    return body
+
+
+def _sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
+                  canvases: ShardCanvases, run: int | None):
+    """The body :func:`_make_sharded_body` describes, unmarked."""
     cv = spec.cv
     f = canvases
     f32 = dict(dtype=torch.float32, device=mesh.lead)

@@ -46,7 +46,10 @@ this process wrote into its shards' halos from another shard, and their
 bytes (zero fills at the mesh edge are not copies); ``mesh.sums`` the sums
 taken (a call of :func:`mesh_sum`, or a group of :func:`mesh_sums`);
 ``mesh.replicas`` the copies :func:`replicate` makes to a device other
-than the value's.
+than the value's. A block of the sharded body replayed as a captured graph
+(``solvers.graphs``) calls none of these functions: it enters no range
+(they ran once, inside the capture), and adds to the counters what its
+capture counted, so they read what the eager loop would.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ so the host, not the card, sets the pace of the loop. A step that carries a
 :class:`Capturable` mark has each block of ``check_every`` steps captured
 once as a ``torch.cuda.CUDAGraph`` and replayed, one launch a block; the
 host still reads ``done`` between two replays, as the plain loop does.
-``ops.fused_cg`` marks its body on a device that :func:`can_capture` only,
-so on the CPU, and for every unmarked step, ``drive`` runs its plain loop.
+``ops.fused_cg`` and ``parallel.fused_sharded`` mark their bodies on
+devices that :func:`can_capture` only, so on the CPU, and for every
+unmarked step, ``drive`` runs its plain loop.
 
 The graph reads and writes one static state (:class:`Block`). The steps
 inside it are the eager steps: the same kernels, arguments and order, so
@@ -18,37 +19,61 @@ replay follows another with nothing on the host between them. A state
 enters the static tensors by device copies, and only where its fields
 alias each other as the static ones do (a fused state's ``z`` is ``r``);
 any other state runs eagerly until it does. ``drive`` hands back a state
-that owns its tensors, copied out of the static ones.
+that owns its tensors, copied out of the static ones. A field may be a
+tuple of tensors (a sharded state's canvases, one a shard): the state's
+tensors are its fields' in turn.
+
+A state whose tensors all live on one device is captured on a stream of
+that device. One whose tensors span several cards (a mesh's shards) is
+captured as one graph across them: on a stream of the card that holds
+``done``, with each other card's current stream a side stream forked from
+it and joined back at the end, and each other card's allocations routed to
+a pool of its own, kept with the block, so that no memory the graph uses
+goes back to that card's general cache while the graph lives. A replay of
+such a block waits for each card's current stream and makes each wait for
+it, as the eager steps on those streams would.
 
 The mark holds its step's blocks, one per ``check_every``; the step's
 constant tensors, which the graph reads, live as long as the mark does.
-A block is captured on its state's device, and only once an eager block
-of its step has run, so lazy set-up (a library's load, a kernel's
-attributes) never happens inside a capture. One thread at a time replays
-a block: another that finds it held runs the eager loop.
+A block is captured only once an eager block of its step has run, so lazy
+set-up (a library's load, a kernel's attributes, peer access between
+cards) never happens inside a capture. A capture on several cards that
+fails as a capture (:func:`_capture_failed`: refused, or an error CUDA
+or PyTorch raises for work a stream capture cannot hold) leaves its
+block broken: the step runs eagerly from then on. Any other error, and
+any failure of a capture on one device, propagates out of ``drive``. One
+thread at a time replays a block: another that finds it held runs the
+eager loop.
 
 Counters (``obs.metrics``): ``pcg.drive.graph_captures``,
-``pcg.drive.graph_replays`` and ``pcg.drive.eager_steps`` (steps of a
-marked step run eagerly). A replay calls no kernel wrapper, so it adds to
-the wrappers' launch counters the launches counted while its block was
-captured. Those are measured: each counted launch asks for its stream
-through :func:`launch_stream`, and a capture in which one went to another
-stream than the capture's is refused.
+``pcg.drive.graph_replays``, ``pcg.drive.multi_card_replays`` (replays of
+a block across several cards) and ``pcg.drive.eager_steps`` (steps of a
+marked step run eagerly). A replay calls no kernel wrapper and no Python
+of the step, so it adds to the wrappers' launch counters the launches
+counted while its block was captured, and to every ``obs.metrics``
+counter what the capturing thread added to it while capturing (a mesh's
+traffic, ``parallel.halo``; ``obs.metrics.tally``). The launches are
+measured: each counted launch asks for its stream through
+:func:`launch_stream`, and a capture in which one went to a stream
+outside the capture is refused (:class:`CaptureRefused`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import warnings
 
 import torch
 
-from poisson_tpu_torch.obs.metrics import inc
+from poisson_tpu_torch.obs.metrics import inc, tally
 
 # The launch counters a kernel wrapper may carry (``ops.fused_cg``).
 LAUNCH_COUNTERS = ("launches", "sharded_launches", "blocked_launches")
 
-# The capture in progress on this thread: its stream, and the counted
-# launches that went to it (``captured``) and to another (``strays``).
+# The capture in progress on this thread: its streams, and the counted
+# launches that went to one of them (``captured``) and to another
+# (``strays``).
 _audit = threading.local()
 
 
@@ -60,15 +85,27 @@ def can_capture(device: torch.device) -> bool:
 def launch_stream(device: torch.device) -> int:
     """The stream a counted kernel launch on ``device`` goes to: its
     current stream. While this thread captures a block, the launch is
-    noted as going to the capture's stream or to another."""
+    noted as going to one of the capture's streams or to another."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    capture = getattr(_audit, "stream", None)
-    if capture is not None:
-        if stream == capture:
+    streams = getattr(_audit, "streams", None)
+    if streams is not None:
+        if stream in streams:
             _audit.captured += 1
         else:
             _audit.strays += 1
     return stream
+
+
+class CaptureRefused(RuntimeError):
+    """A capture in which a counted launch went to a stream outside it."""
+
+
+def _capture_failed(e: BaseException) -> bool:
+    """Whether ``e`` is a capture's own failure: a refused capture, or an
+    error raised for work a stream capture cannot hold (CUDA's and
+    PyTorch's messages for these all name the capture)."""
+    return isinstance(e, CaptureRefused) or (
+        isinstance(e, RuntimeError) and "captur" in str(e).lower())
 
 
 class Capturable:
@@ -87,15 +124,36 @@ class Capturable:
         return block
 
 
+def _tensors(s) -> list:
+    """The tensors of state ``s``, field by field, a tuple field's in
+    turn."""
+    out = []
+    for field in s:
+        if isinstance(field, tuple):
+            out.extend(field)
+        else:
+            out.append(field)
+    return out
+
+
+def _like(s, tensors):
+    """A state of ``s``'s type and shape holding ``tensors``, in the order
+    :func:`_tensors` lists ``s``'s."""
+    it = iter(tensors)
+    return type(s)(*(tuple(next(it) for _ in field)
+                     if isinstance(field, tuple) else next(it)
+                     for field in s))
+
+
 def _aliasing(fields) -> tuple:
-    """For each field, the first field holding the same memory."""
+    """For each tensor, the first one holding the same memory."""
     ptrs = [t.data_ptr() for t in fields]
     return tuple(ptrs.index(p) for p in ptrs)
 
 
 def _copied(fields, ptrs=None) -> list:
     """``fields`` with each tensor (each in ``ptrs``, where given) replaced
-    by a copy, fields that share memory sharing their copy."""
+    by a copy, tensors that share memory sharing their copy."""
     copies: dict = {}
     out = []
     for t in fields:
@@ -114,9 +172,49 @@ def _counts(wrappers) -> dict:
             for name in LAUNCH_COUNTERS if hasattr(fn, name)}
 
 
+@contextlib.contextmanager
+def _across(stream, sides, pools):
+    """Inside a capture on ``stream``: each of ``sides`` (a stream of
+    another card) made its card's current stream, forked from ``stream``,
+    its card's allocations on this thread routed to its pool of ``pools``;
+    at the end the cards' streams are restored, the current card too, and
+    each side joined back to ``stream``. Nothing on one card."""
+    if not sides:
+        yield
+        return
+    device = torch.cuda.current_device()
+    before = [torch.cuda.current_stream(side.device) for side in sides]
+    with contextlib.ExitStack() as routed:
+        for side, pool in zip(sides, pools):
+            side.wait_stream(stream)
+            routed.enter_context(torch.cuda.use_mem_pool(pool, side.device))
+        try:
+            for side in sides:
+                torch.cuda.set_stream(side)
+            torch.cuda.set_device(device)   # a launch may have moved it
+            yield
+        finally:
+            for prev in before:
+                torch.cuda.set_stream(prev)
+            torch.cuda.set_device(device)
+            for side in sides:
+                stream.wait_stream(side)
+
+
+def _other_devices(s, device: torch.device) -> list:
+    """The devices of state ``s``'s tensors other than ``device``."""
+    return list(dict.fromkeys(t.device for t in _tensors(s)
+                              if t.device != device))
+
+
+def _pool(device: torch.device):
+    with torch.cuda.device(device):
+        return torch.cuda.MemPool()
+
+
 class Block:
     """One block of ``n`` steps of a marked step: its static state, its
-    replay and the launches a replay makes."""
+    replay and the launches and counts a replay adds."""
 
     def __init__(self, wrappers, n: int):
         self.wrappers, self.n = wrappers, n
@@ -125,32 +223,55 @@ class Block:
         self.broken = False   # the block cannot be replayed: never again
         self.state = None     # the static state the replay reads and writes
         self.replay = None
+        self.pools = ()       # a pool for each card past the first
         self.launches = ()    # (wrapper, counter, launches a replay makes)
+        self.added = ()       # (counter, what a replay adds to it)
 
-    def _capture(self, fn, device: torch.device):
-        """``fn`` captured on a stream of ``device``; returns its replay.
-        Refused where a counted launch went to another stream than the
-        capture's: the graph would miss work that ``fn`` ran."""
+    def _capture(self, fn, device: torch.device, others=()):
+        """``fn`` captured on a stream of ``device``, and of each card in
+        ``others`` (its allocations routed to a new pool, kept in
+        ``pools``); returns its replay. Refused where a counted launch went
+        to a stream outside the capture: the graph would miss work that
+        ``fn`` ran."""
         graph = torch.cuda.CUDAGraph()
+        self.pools = tuple(_pool(d) for d in others)
         _audit.strays = _audit.captured = 0
         try:
             with torch.cuda.device(device):
                 stream = torch.cuda.Stream(device)
+                sides = [torch.cuda.Stream(d) for d in others]
                 with torch.cuda.graph(graph, stream=stream,
                                       capture_error_mode="thread_local"):
-                    _audit.stream = stream.cuda_stream
-                    fn()
+                    _audit.streams = {s.cuda_stream
+                                      for s in (stream, *sides)}
+                    with _across(stream, sides, self.pools):
+                        fn()
         finally:
-            _audit.stream = None
+            _audit.streams = None
         if _audit.strays:
-            raise RuntimeError(
+            raise CaptureRefused(
                 f"capture of a {self.n}-step block on {device}: "
                 f"{_audit.captured} counted kernel launches went to the "
-                f"capture's stream and {_audit.strays} to another")
+                f"capture's streams and {_audit.strays} to another")
+        if not others:
+            def replay():
+                with torch.cuda.device(device):
+                    graph.replay()
+
+            return replay
+        ready = [torch.cuda.Event() for _ in others]
+        finished = torch.cuda.Event()
 
         def replay():
             with torch.cuda.device(device):
+                lead = torch.cuda.current_stream(device)
+                for d, event in zip(others, ready):
+                    event.record(torch.cuda.current_stream(d))
+                    lead.wait_event(event)
                 graph.replay()
+                finished.record(lead)
+                for d in others:
+                    torch.cuda.current_stream(d).wait_event(finished)
 
         return replay
 
@@ -158,36 +279,57 @@ class Block:
         """Capture the block from a copy of ``s``, which becomes the static
         state. A block that ends on another arrangement of the static
         tensors than it starts from (an odd ``n`` swaps the fused
-        direction's two canvases) cannot be chained: it is marked broken."""
-        self.state = type(s)(*_copied(s))
+        direction's two canvases), or whose capture on several cards fails
+        as a capture, is marked broken."""
+        self.state = _like(s, _copied(_tensors(s)))
+        device = s.done.device
+        others = _other_devices(s, device)
         chained = []
 
         def block():
             out = self.state
             for _ in range(self.n):
                 out = step(out)
-            chained.append(_write_back(out, self.state))
+            chained.append(_write_back(_tensors(out),
+                                       _tensors(self.state)))
 
         before = _counts(self.wrappers)
         try:
-            replay = self._capture(block, s.done.device)
+            with tally() as added:
+                replay = self._capture(block, device, others)
+        except Exception as e:
+            if not others or not _capture_failed(e):
+                raise
+            warnings.warn(f"a {self.n}-step block on {device} runs "
+                          f"eagerly: its capture failed ({e})",
+                          RuntimeWarning, stacklevel=2)
+            chained.append(False)
+            if device.type == "cuda":
+                # A launch that strayed ran outside the graph, on the
+                # static state: let it end before that state is dropped.
+                for d in (device, *others):
+                    torch.cuda.synchronize(d)
         finally:
             after = _counts(self.wrappers)
             for (fn, name), value in before.items():
                 setattr(fn, name, value)
+            for name, value in added.items():
+                if value:
+                    inc(name, -value)
         if not all(chained):
-            self.broken, self.state = True, None
+            self.broken, self.state, self.pools = True, None, ()
             return
         self.launches = tuple((fn, name, after[fn, name] - value)
                               for (fn, name), value in before.items()
                               if after[fn, name] != value)
+        self.added = tuple((name, v) for name, v in added.items() if v)
         self.replay = replay
         inc("pcg.drive.graph_captures")
 
     def _load(self, s) -> bool:
-        """Copy ``s`` into the static state where its fields alias as the
+        """Copy ``s`` into the static state where its tensors alias as the
         static ones do and none of them is a static tensor."""
-        fields, static = list(s), list(self.state)
+        fields, static = _tensors(s), _tensors(self.state)
         if _aliasing(fields) != _aliasing(static):
             return False
         ptrs = {t.data_ptr() for t in static}
@@ -214,19 +356,24 @@ class Block:
         self.replay()
         for fn, name, k in self.launches:
             setattr(fn, name, getattr(fn, name) + k)
+        for name, value in self.added:
+            inc(name, value)
         inc("pcg.drive.graph_replays")
+        if self.pools:
+            inc("pcg.drive.multi_card_replays")
         return self.state
 
     def own(self, s):
         """``s`` with every static tensor in it replaced by a copy."""
         if self.state is None:
             return s
-        return type(s)(*_copied(s, {t.data_ptr() for t in self.state}))
+        static = {t.data_ptr() for t in _tensors(self.state)}
+        return _like(s, _copied(_tensors(s), static))
 
 
 def _write_back(out, static) -> bool:
-    """Copy each field of ``out`` that is a new tensor into its static
-    field; False where a field is another field's static tensor."""
+    """Copy each tensor of ``out`` that is a new one into its static
+    tensor; False where it is another field's static tensor."""
     ptrs = {t.data_ptr() for t in static}
     for t, u in zip(out, static):
         if t.data_ptr() == u.data_ptr():

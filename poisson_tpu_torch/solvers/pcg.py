@@ -169,8 +169,9 @@ def drive(step, s, cap: int, check_every: int = CHECK_EVERY):
     when every member is.
 
     For a step marked ``capturable`` (``solvers.graphs``; the fused body on
-    a card) each whole block is replayed as a captured CUDA graph, and the
-    state returned owns its tensors; every other step runs eagerly.
+    a card, the sharded body on a mesh's cards) each whole block is
+    replayed as a captured CUDA graph, and the state returned owns its
+    tensors; every other step runs eagerly.
 
     While a profiler runs, each block is two host ranges
     (``obs.profile.region``): ``pcg.drive.enqueue`` around its steps and

@@ -43,21 +43,26 @@ def moved(before: dict) -> dict:
     return {k: v - before[k] for k, v in counters().items()}
 
 
-def fake_capture(self, fn, device):
+def fake_capture(self, fn, device, others=()):
     """A capture that runs nothing, as on the card: ``fn`` runs once, so
-    that the block's shape is found and its launches counted, and the
-    static state is put back. The replay runs ``fn`` with the launch
-    counters left as they were, as a graph's replay calls no wrapper."""
-    saved = [t.clone() for t in self.state]
+    that the block's shape is found and its launches and counts taken, and
+    the static state is put back. The replay runs ``fn`` with the launch
+    counters and the ``obs.metrics`` counters left as they were, as a
+    graph's replay calls no wrapper and no Python of the step."""
+    static = graphs._tensors(self.state)
+    saved = [t.clone() for t in static]
     fn()
-    for t, v in zip(self.state, saved):
+    for t, v in zip(static, saved):
         t.copy_(v)
 
     def replay():
         counts = graphs._counts(self.wrappers)
-        fn()
+        with metrics.tally() as counted:
+            fn()
         for (wrapper, name), value in counts.items():
             setattr(wrapper, name, value)
+        for name, value in counted.items():
+            metrics.inc(name, -value)
 
     return replay
 
@@ -218,11 +223,12 @@ def test_a_capture_whose_launches_miss_its_stream_is_refused(monkeypatch):
     current[dev] = 1                    # the capture's stream
     assert callable(block._capture(launch, dev))
     current[dev] = 2                    # the card's own stream
-    with pytest.raises(RuntimeError, match="0 counted .* and 1 to another"):
+    with pytest.raises(graphs.CaptureRefused,
+                       match="0 counted .* and 1 to another"):
         block._capture(launch, dev)
     assert callable(block._capture(lambda: None, dev))
     assert graphs.launch_stream(dev) == 2   # outside a capture: no note
-    assert graphs._audit.stream is None
+    assert graphs._audit.streams is None
 
 
 def test_a_block_that_swaps_its_canvases_is_never_replayed(fake_graphs):
@@ -242,6 +248,109 @@ def test_a_block_that_swaps_its_canvases_is_never_replayed(fake_graphs):
         assert int(s.k) == 9 and torch.equal(s.p, torch.full((3,), 9.0))
     assert moved(before) == {"graph_captures": 0, "graph_replays": 0,
                              "eager_steps": 18}
+
+
+CAPTURE_ERRORS = {
+    "cuda": RuntimeError("CUDA error: operation not permitted when stream "
+                         "is capturing"),
+    "invalidated": RuntimeError("CUDA error: operation failed due to a "
+                                "previous error during capture"),
+    "refused": graphs.CaptureRefused("capture of a 32-step block: 0 counted "
+                                     "kernel launches went to the capture's "
+                                     "streams and 1 to another"),
+}
+
+
+def failing_capture(monkeypatch, error, cards: int):
+    """Captures of a state that spans ``cards`` cards, each raising
+    ``error``; returns the devices each attempt was made on."""
+    attempts = []
+
+    def failing(self, fn, device, others=()):
+        attempts.append((device, *others))
+        raise error
+
+    monkeypatch.setattr(graphs.Block, "_capture", failing)
+    monkeypatch.setattr(graphs, "_other_devices", lambda s, device: [
+        torch.device("cuda", i) for i in range(1, cards)])
+    return attempts
+
+
+def test_a_capture_that_fails_leaves_the_block_to_the_eager_loop(
+        monkeypatch):
+    """A capture across several cards that fails as a capture (each error
+    of ``CAPTURE_ERRORS``) marks its block broken: the solve goes on
+    eagerly, counted as such, and ends right; no later solve tries to
+    capture it again."""
+    for error in CAPTURE_ERRORS.values():
+        attempts = failing_capture(monkeypatch, error, cards=4)
+        step = toy_step(stop=10 ** 6)
+        before = counters()
+        for _ in range(2):
+            with pytest.warns(RuntimeWarning, match="capture failed") \
+                    if not attempts else contextlib.nullcontext():
+                s = drive(step, toy_state(), cap=100, check_every=32)
+            assert int(s.k) == 100
+            assert torch.equal(s.x, torch.full((4,), 100.0))
+        assert moved(before) == {"graph_captures": 0, "graph_replays": 0,
+                                 "eager_steps": 200}
+        assert len(attempts) == 1 and len(attempts[0]) == 4
+        block = step.capturable.blocks[32]
+        assert block.broken and block.state is None
+        assert step.kernel.launches == 200
+
+
+@pytest.mark.parametrize("cards, error", [
+    *((1, e) for e in CAPTURE_ERRORS.values()),
+    (4, RuntimeError("index 7 is out of bounds for dimension 0")),
+    (4, ValueError("a fault in the step's own Python")),
+], ids=[*(f"one-device-{k}" for k in CAPTURE_ERRORS), "cards-runtime",
+        "cards-value"])
+def test_any_other_failed_capture_propagates(monkeypatch, cards, error):
+    """A capture on one device that fails, as before several cards could
+    be captured, and one across cards that fails for another reason than
+    the capture (a fault in the step, which its eager loop would meet
+    too) raise out of ``drive``: the block is not marked broken, and
+    nothing runs eagerly in the fault's place."""
+    attempts = failing_capture(monkeypatch, error, cards)
+    step = toy_step(stop=10 ** 6)
+    before = counters()
+    with pytest.raises(type(error), match=str(error)[:12]):
+        drive(step, toy_state(), cap=100, check_every=32)
+    assert len(attempts) == 1 and len(attempts[0]) == cards
+    assert moved(before) == {"graph_captures": 0, "graph_replays": 0,
+                             "eager_steps": 32}
+    assert not step.capturable.blocks[32].broken
+
+
+def test_a_replay_adds_what_the_capturing_thread_counted(monkeypatch):
+    """A replay adds to each ``obs.metrics`` counter what its capture added
+    on the capturing thread, and nothing that another thread added while
+    the capture ran: the counter reads what the eager loop and the other
+    thread added, once each."""
+    name = "test.toy_steps"
+
+    def beside_another_thread(self, fn, device, others=()):
+        other = threading.Thread(target=metrics.inc, args=(name, 1000))
+        other.start()
+        other.join()
+        return fake_capture(self, fn, device, others)
+
+    monkeypatch.setattr(graphs.Block, "_capture", beside_another_thread)
+    inner = toy_step(stop=10 ** 6)
+
+    def step(s):
+        metrics.inc(name)
+        return inner(s)
+
+    step.capturable = inner.capturable
+    start = metrics.get(name)
+    before = counters()
+    s = drive(step, toy_state(), cap=100, check_every=32)
+    assert int(s.k) == 100
+    assert moved(before) == {"graph_captures": 1, "graph_replays": 2,
+                             "eager_steps": 36}
+    assert metrics.get(name) - start == 100 + 1000
 
 
 def test_an_unmarked_step_runs_the_plain_loop(fake_graphs, done_reads):
