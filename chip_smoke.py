@@ -1250,6 +1250,65 @@ def sharded_counts(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if k.endswith("_sharded")}
 
 
+# The wrappers whose forms each kernel module launches (the keys of
+# ``ops.launch.launch_counts``).
+FUSED = ("direction_and_stencil", "fused_update")
+CA = ("basis_sweep", "pair_update")
+RESIDENT = ("resident_solve",)
+SERIAL = ("serial_sum",)
+
+
+class LaunchGate:
+    """The kernels' launches since :meth:`reset` (the ``ops.launches.*``
+    counters of ``obs.metrics``), held against what a phase may launch.
+    A phase may clear the registry itself (``metrics.reset()``), and with
+    it those counters; while the gate is installed, each clear first
+    carries the launch counts it drops into the gate, so a gate covers its
+    whole phase, not the tail after the phase's last clear."""
+
+    def __init__(self) -> None:
+        from poisson_tpu_torch.obs import metrics
+        from poisson_tpu_torch.ops import launch
+
+        self._metrics, self._launch = metrics, launch
+        self._clear = metrics.reset
+        self.carried: dict = {}
+
+    def _carry_and_clear(self) -> None:
+        for key, n in self._launch.launch_counts().items():
+            self.carried[key] = self.carried.get(key, 0) + n
+        self._clear()
+
+    def install(self) -> "LaunchGate":
+        self._metrics.reset = self._carry_and_clear
+        return self
+
+    __enter__ = install
+
+    def __exit__(self, *exc) -> None:
+        self._metrics.reset = self._clear
+
+    def reset(self) -> None:
+        self.carried.clear()
+        self._launch.reset_launch_counts()
+
+    def counts(self, *wrappers: str) -> dict:
+        """The launches of each form of ``wrappers`` (of all when none is
+        named) since the last :meth:`reset`."""
+        return {key: n + self.carried.get(key, 0) for key, n in
+                self._launch.launch_counts(*wrappers).items()}
+
+    def expect(self, path: str, want: dict) -> None:
+        """Every kernel launched exactly as often as ``want`` says since
+        the last :meth:`reset`, and the kernels it leaves out never."""
+        got = self.counts()
+        print(f"launches on {path}: {json.dumps(got)}", flush=True)
+        for name, n in got.items():
+            check(n == want.get(name, 0), f"{path}: {name} launched {n} "
+                                          f"times, expected "
+                                          f"{want.get(name, 0)}")
+
+
 def check_sharded_replays(mesh, label: str) -> None:
     """The sharded kernels' launch counters held against the card, in one
     profiled 800x1200 fused-sharded solve on ``mesh`` after a warm solve
@@ -1260,13 +1319,13 @@ def check_sharded_replays(mesh, label: str) -> None:
     (``pcg.drive.multi_card_replays``)."""
     from poisson_tpu_torch.config import FLAGSHIP
     from poisson_tpu_torch.obs import metrics
-    from poisson_tpu_torch.ops import fused_cg as fc
+    from poisson_tpu_torch.ops import launch
     from poisson_tpu_torch.parallel import fused_sharded as fs
     from poisson_tpu_torch.solvers.pcg import CHECK_EVERY
 
     cards = list(dict.fromkeys(mesh.devices))
     fs.fused_cg_solve_sharded(FLAGSHIP, mesh)          # captures
-    fc.reset_launch_counts()
+    launch.reset_launch_counts()
     before = {name: metrics.get(f"pcg.drive.{name}")
               for name in ("graph_replays", "multi_card_replays",
                            "eager_steps")}
@@ -1289,7 +1348,7 @@ def check_sharded_replays(mesh, label: str) -> None:
                     "eager_steps": 0},
           f"fused-sharded {label}: drive counted {moved} for {steps} steps "
           f"on {len(cards)} card(s)")
-    wrapper = sharded_counts(fc.launch_counts())
+    wrapper = sharded_counts(launch.launch_counts(*FUSED))
     for name, symbol in (("direction_and_stencil_sharded",
                           "direction_stencil_sharded"),
                          ("fused_update_sharded", "fused_update_sharded")):
@@ -3190,8 +3249,7 @@ def multiprocess_worker(rank: int, coordinator: str, out: str,
     sys.path.insert(0, root)
     from poisson_tpu_torch.config import FLAGSHIP, Problem
     from poisson_tpu_torch.obs import metrics
-    from poisson_tpu_torch.ops import _build, ca_cg as ca
-    from poisson_tpu_torch.ops import fused_cg as fc
+    from poisson_tpu_torch.ops import _build, launch
     from poisson_tpu_torch.parallel import (
         ca_cg_solve_sharded_checkpointed,
         fused_cg_solve_sharded_checkpointed,
@@ -3235,13 +3293,14 @@ def multiprocess_worker(rank: int, coordinator: str, out: str,
                                       **moved}
     capped = FLAGSHIP.with_(max_iter=MP_CAP)
     cap = FLAGSHIP.iteration_cap
-    paths = [("fused-sharded", fc, fused_cg_solve_sharded_checkpointed, 1)]
+    paths = [("fused-sharded", FUSED, fused_cg_solve_sharded_checkpointed,
+              1)]
     if not nccl:
-        paths.append(("ca-sharded", ca, ca_cg_solve_sharded_checkpointed, 2))
-    for path, module, solve, per_step in paths:
+        paths.append(("ca-sharded", CA, ca_cg_solve_sharded_checkpointed, 2))
+    for path, wrappers, solve, per_step in paths:
         tag = path.replace("-", "_")
         file = os.path.join(out, f"{tag}.npz")
-        module.reset_launch_counts()
+        launch.reset_launch_counts()
         part = solve(capped, mesh, file, CKPT_CHUNK)
         kept = os.path.exists(file)
         resumed = solve(FLAGSHIP, mesh, file, CKPT_CHUNK)
@@ -3257,7 +3316,7 @@ def multiprocess_worker(rank: int, coordinator: str, out: str,
                                per_step)
                  + chunk_steps(0, int(timed_r.iterations), cap, cap,
                                CHECK_EVERY, per_step))
-        launched = sharded_counts(module.launch_counts())
+        launched = sharded_counts(launch.launch_counts(*wrappers))
         arrays[tag] = resumed.w.cpu().numpy()
         arrays[f"{tag}_timed"] = timed_r.w.cpu().numpy()
         report[path] = {
@@ -3497,21 +3556,7 @@ def main() -> None:
         from poisson_tpu_torch.solvers.refine import refined_solve
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout): {e}")
-    modules = (fc, ca, rs, sr)
-
-    def reset_counts() -> None:
-        for module in modules:
-            module.reset_launch_counts()
-
-    def expect_counts(path: str, want: dict) -> None:
-        """Every kernel launched exactly as often as ``want`` says since
-        the last ``reset_counts()``, and the kernels it leaves out never."""
-        got = {k: v for m in modules for k, v in m.launch_counts().items()}
-        print(f"launches on {path}: {json.dumps(got)}", flush=True)
-        for name, n in got.items():
-            check(n == want.get(name, 0), f"{path}: {name} launched {n} "
-                                          f"times, expected "
-                                          f"{want.get(name, 0)}")
+    gate = LaunchGate().install()       # for the rest of this process
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3569,7 +3614,7 @@ def main() -> None:
 
     def no_serial(path: str) -> None:
         """A path that is not in the serial-reduce mode launches no S."""
-        n = sr.launch_counts()["serial_sum"]
+        n = gate.counts(*SERIAL)["serial_sum"]
         check(n == 0, f"{path}: kernel S launched {n} times outside the "
                       "serial-reduce mode")
 
@@ -3580,17 +3625,16 @@ def main() -> None:
     # just after.
     big = Problem(M=2400, N=3200)
     fc.build_canvases(big, "cuda")          # set-up, outside the timed solve
-    fc.reset_launch_counts()
-    sr.reset_launch_counts()
+    gate.reset()
     fused = fc.fused_cg_solve(FLAGSHIP)     # warm-up solve
     flag_times = []
     for _ in range(REPEATS):
         fused, s = timed(lambda: fc.fused_cg_solve(FLAGSHIP))
         flag_times.append(s)
     big_r, big_s = timed(lambda: fc.fused_cg_solve(big))
-    counts.update(single_counts(fc.launch_counts()))
+    counts.update(single_counts(gate.counts(*FUSED)))
     no_serial("fused")
-    check(not any(blocked_counts(fc.launch_counts()).values()),
+    check(not any(blocked_counts(gate.counts(*FUSED)).values()),
           "fused: a column-blocked kernel was launched at full width")
 
     iters = int(fused.iterations)
@@ -3627,14 +3671,14 @@ def main() -> None:
         check(counts[name] >= total_iters,
               f"{name}: {counts[name]} launches on the fused path, fewer "
               f"than the {total_iters} iterations")
-    print(f"launches on the fused path: {json.dumps(fc.launch_counts())} "
+    print(f"launches on the fused path: {json.dumps(gate.counts(*FUSED))} "
           f"for {total_iters} iterations", flush=True)
     # A replayed block adds to the counters the launches measured while it
     # was captured: hold them against the kernels the profiler saw.
-    fc.reset_launch_counts()
+    gate.reset()
     seen, _ = profile_kernels(lambda: fc.fused_cg_solve(FLAGSHIP))
     steps = driven_steps(iters, FLAGSHIP.iteration_cap, CHECK_EVERY)
-    wrapper = single_counts(fc.launch_counts())
+    wrapper = single_counts(gate.counts(*FUSED))
     for name, symbol in (("direction_and_stencil", "direction_stencil_kernel"),
                          ("fused_update", "fused_update_kernel")):
         on_card = sum(n for k, (n, _) in (seen or {}).items()
@@ -3651,15 +3695,14 @@ def main() -> None:
         fc.build_canvases(p, "cuda")
         if p not in fp64:
             fp64[p] = pcg_solve(p, dtype=torch.float64, device="cuda")
-    rs.reset_launch_counts()
-    sr.reset_launch_counts()
+    gate.reset()
     res_runs, res_iters = {}, {}
     for M, N, _ in RESIDENT_GRIDS:
         p = Problem(M=M, N=N)
         rs.resident_cg_solve(p)                       # warm-up
         res_runs[p] = [timed(lambda: rs.resident_cg_solve(p))
                        for _ in range(REPEATS)]
-    counts.update(rs.launch_counts())
+    counts.update(gate.counts(*RESIDENT))
     no_serial("resident")
     check(counts["resident_solve"] == (1 + REPEATS) * len(RESIDENT_GRIDS),
           f"resident_solve: {counts['resident_solve']} launches, expected "
@@ -3707,21 +3750,21 @@ def main() -> None:
             lambda p=p, cv=cv, cs=cs, cw=cw, g=g, rhs=rhs, sc2=sc2:
                 rs.resident_solve_plain(p, cv, cs, cw, g, rhs, sc2),
             10, 1, points, k))
-    print(f"launches on the resident path: {json.dumps(rs.launch_counts())} "
+    print("launches on the resident path: "
+          f"{json.dumps(gate.counts(*RESIDENT))} "
           f"for {(1 + REPEATS) * len(RESIDENT_GRIDS)} solves", flush=True)
 
     elapsed("resident")
     # --- the communication-avoiding path (kernels C, D).
     mid = Problem(M=400, N=600)
-    ca.reset_launch_counts()
-    sr.reset_launch_counts()
+    gate.reset()
     ca_runs = {}
     for p in (mid, FLAGSHIP):
         ca.ca_cg_solve(p)                              # warm-up
         ca_runs[p] = [timed(lambda: ca.ca_cg_solve(p))
                       for _ in range(REPEATS)]
     ca_big, ca_big_s = timed(lambda: ca.ca_cg_solve(big))
-    counts.update(single_counts(ca.launch_counts()))
+    counts.update(single_counts(gate.counts(*CA)))
     no_serial("ca")
     pairs = 0
     for p, expected in ((mid, 546), (FLAGSHIP, 989)):
@@ -3754,7 +3797,7 @@ def main() -> None:
         check(counts[name] >= pairs,
               f"{name}: {counts[name]} launches on the CA path, fewer than "
               f"its {pairs} pairs")
-    print(f"launches on the CA path: {json.dumps(ca.launch_counts())} for "
+    print(f"launches on the CA path: {json.dumps(gate.counts(*CA))} for "
           f"{pairs} pairs", flush=True)
 
     elapsed("ca")
@@ -3767,12 +3810,11 @@ def main() -> None:
         fs.shard_canvases(p, mesh, 1)
         fs.shard_canvases(p, mesh, cs_.RING)
     mesh_oneshot = {}    # the flagship iterate of each sharded path
-    # (path, kernels' module, solve, iterations per step)
-    for path, module, solve, per_step in (
-            ("fused-sharded", fc, fs.fused_cg_solve_sharded, 1),
-            ("ca-sharded", ca, cs_.ca_cg_solve_sharded, 2)):
-        module.reset_launch_counts()
-        sr.reset_launch_counts()
+    # (path, its kernels' wrappers, solve, iterations per step)
+    for path, wrappers, solve, per_step in (
+            ("fused-sharded", FUSED, fs.fused_cg_solve_sharded, 1),
+            ("ca-sharded", CA, cs_.ca_cg_solve_sharded, 2)):
+        gate.reset()
         steps = 0
         for M, N, expected, allowance in SHARDED_EXPECTED:
             p = Problem(M=M, N=N)
@@ -3805,7 +3847,7 @@ def main() -> None:
             cap_steps = (p.iteration_cap + per_step - 1) // per_step
             steps += (runs + (p != big)) * driven_steps(
                 -(-k // per_step), cap_steps, CHECK_EVERY)
-        launched = module.launch_counts()
+        launched = gate.counts(*wrappers)
         no_serial(path)
         print(f"launches on the {path} path: {json.dumps(launched)} for "
               f"{steps} steps on {shards} shards", flush=True)
@@ -3843,7 +3885,7 @@ def main() -> None:
     # device setup, whose fields equal the host's bit for bit (fp32 device
     # setup solves a perturbed problem in both packages: ROADMAP Queue 3).
     # Counts zeroed before, every kernel's read after: none may launch.
-    reset_counts()
+    gate.reset()
     for M, N, expected in PLAIN_SHARDED:
         p = Problem(M=M, N=N)
         ps.pcg_solve_sharded(p, mesh)                   # warm-up
@@ -3870,18 +3912,17 @@ def main() -> None:
                         "max_diff_vs_fp64": gap})
             if p == FLAGSHIP and (dtype, fields_on) == ("float64", "host"):
                 mesh_oneshot["sharded"] = r.w
-    expect_counts("the plain sharded path", {})
+    gate.expect("the plain sharded path", {})
 
     elapsed("plain sharded")
     # --- mixed-precision refinement to the fp64 floor at 400×600, over the
     # fused backend (kernels A, B) and the resident one (kernel R, one
     # launch per inner solve). Its own counts, zeroed just before.
-    for backend, module in (("fused", fc), ("resident", rs)):
-        module.reset_launch_counts()
-        sr.reset_launch_counts()
+    for backend, wrappers in (("fused", FUSED), ("resident", RESIDENT)):
+        gate.reset()
         ref, ref_s = timed(lambda: refined_solve(mid, tol=REFINE_TOL,
                                                  backend=backend))
-        launched = single_counts(module.launch_counts())
+        launched = single_counts(gate.counts(*wrappers))
         no_serial(f"refine {backend}")
         inner = list(ref.inner_iterations)
         norms = list(ref.residual_norms)
@@ -3909,7 +3950,7 @@ def main() -> None:
     steps = 0
     for M, N, bn, *_ in BLOCKED_EXPECTED:       # set-up, outside the timing
         fc.build_canvases(Problem(M=M, N=N), "cuda", bn=bn)
-    reset_counts()
+    gate.reset()
     for M, N, bn, expected, allowance, runs in BLOCKED_EXPECTED:
         p = Problem(M=M, N=N)
         if runs > 1:
@@ -3937,7 +3978,7 @@ def main() -> None:
         solve_line("blocked", p, r, sec, l2, extra)
         steps += (runs + (runs > 1)) * driven_steps(k, p.iteration_cap,
                                                     CHECK_EVERY)
-    expect_counts(f"the blocked path ({steps} steps)",
+    gate.expect(f"the blocked path ({steps} steps)",
                   {name: steps for name in blk})
     counts.update({name: steps for name in blk})
 
@@ -3965,14 +4006,14 @@ def main() -> None:
             ("ca-sharded", lambda: cs_.ca_cg_solve_sharded(
                 FLAGSHIP, mesh, serial=True),
              tuple(f"{k}_sharded" for k in cd), shards * pair_steps)):
-        reset_counts()
+        gate.reset()
         r, sec = timed(solve)
         k = int(r.iterations)
         check(k == 989, f"serial {path} 800x1200: {k} iterations")
         check(float(r.diff) < 1e-6, f"serial {path}: diff {float(r.diff)}")
         gap = float((r.w.double() - w64.w).abs().max())
         check(gap <= ITERATE_TOL, f"serial {path}: iterate {gap} from fp64")
-        expect_counts(f"the serial {path} path",
+        gate.expect(f"the serial {path} path",
                       {**{name: n for name in names}, "serial_sum": 2 * n})
         counts["serial_sum"] += 2 * n
         solve_line(f"serial {path}", FLAGSHIP, r, sec,
@@ -3988,12 +4029,12 @@ def main() -> None:
         cv = fc.canvas_spec(wide, bn=bn)
         fc.build_canvases(wide, "cuda", bn=bn)     # set-up, outside the timing
         fc.fused_cg_solve(wide, bn=bn)              # warm-up
-        reset_counts()
+        gate.reset()
         r, sec = timed(lambda: fc.fused_cg_solve(wide, bn=bn))
         k = int(r.iterations)
         check(k == WIDE["max_iter"], f"wide {label}: {k} iterations")
         check(bool(torch.isfinite(r.w).all()), f"wide {label}: non-finite")
-        expect_counts(f"the wide probe {label}",
+        gate.expect(f"the wide probe {label}",
                       {name: k for name in (blk if cv.cg else full)})
         probe[label] = (r, {
             "canvas": [cv.rows, cv.cols], "bn": cv.bn, "ncb": cv.ncb,
@@ -4023,11 +4064,11 @@ def main() -> None:
             before it; each of ``names`` must be launched exactly once per
             step its chunks drive from iteration ``start``, and nothing
             else."""
-            reset_counts()
+            gate.reset()
             r = solve(problem, path_of(label.split()[0]), chunk=CKPT_CHUNK)
             n = chunk_steps(start, int(r.iterations), problem.iteration_cap,
                             CKPT_CHUNK, CHECK_EVERY, per_step)
-            expect_counts(f"drill {label}", {name: n for name in names})
+            gate.expect(f"drill {label}", {name: n for name in names})
             return r
 
         def capped_write(name: str, solve, names, per_step: int = 1) -> None:
@@ -4108,7 +4149,7 @@ def main() -> None:
              tuple(f"{k}_sharded" for k in cd), 2))
         for path, solve_ck, names, per_step in mesh_drills:
             def drill(label, problem, file, start=0, serial=False, **kw):
-                reset_counts()
+                gate.reset()
                 r = solve_ck(problem, path_of(file), CKPT_CHUNK, serial,
                              **kw)
                 n = shards * chunk_steps(start, int(r.iterations),
@@ -4117,7 +4158,7 @@ def main() -> None:
                 want = {name: n for name in names}
                 if serial:
                     want["serial_sum"] = 2 * n
-                expect_counts(f"mesh drill {path} {label} ({n} shard steps)",
+                gate.expect(f"mesh drill {path} {label} ({n} shard steps)",
                               want)
                 return r
 
@@ -4137,7 +4178,7 @@ def main() -> None:
             bitwise["resume"] = (torch.equal(got["resume"].w,
                                              mesh_oneshot[path])
                                  if path == "fused-sharded" else None)
-            reset_counts()
+            gate.reset()
             fc.fused_cg_solve_checkpointed(capped, path_of(f"{tag}_fused"),
                                            CKPT_CHUNK)
             kw = {"dtype": torch.float32} if path == "sharded" else {}
@@ -4208,10 +4249,10 @@ def main() -> None:
     elapsed("checkpoint drills")
     # --- the batched phase: plain PyTorch, no kernel of the port. Counts
     # zeroed before, every kernel's read after: none may launch.
-    reset_counts()
+    gate.reset()
     batch = check_batched(bt, lanes, mesh, FLAGSHIP, mid, fp64, pcg_solve,
                           metrics, card)
-    expect_counts("the batched phase", {})
+    gate.expect("the batched phase", {})
 
     elapsed("batched")
     # --- the MG phase: plain PyTorch, no kernel of the port, beside the
@@ -4221,59 +4262,59 @@ def main() -> None:
                              big_s / big_iters * 1e6}}
     for tag, (_, solve_us) in res_iters.items():
         figures.setdefault(tag, {})["resident_us_per_iter"] = solve_us
-    reset_counts()
+    gate.reset()
     check_mg(mg, bt, lanes, ck, pcg_solve, fp64, figures, card)
-    expect_counts("the MG phase", {})
+    gate.expect("the MG phase", {})
 
     elapsed("mg")
     # --- the resilience phase: plain PyTorch, no kernel of the port.
-    reset_counts()
+    gate.reset()
     check_resilience(pcg_solve, metrics, card)
-    expect_counts("the resilience phase", {})
+    gate.expect("the resilience phase", {})
 
     elapsed("resilience")
     # --- the geometry phase: plain PyTorch, no kernel of the port.
-    reset_counts()
+    gate.reset()
     check_geometry(pcg_solve, metrics, card)
-    expect_counts("the geometry phase", {})
+    gate.expect("the geometry phase", {})
 
     elapsed("geometry")
     # --- the Krylov phase: plain PyTorch, no kernel of the port.
-    reset_counts()
+    gate.reset()
     check_krylov(pcg_solve, metrics, card)
-    expect_counts("the Krylov phase", {})
+    gate.expect("the Krylov phase", {})
 
     elapsed("krylov")
     # --- the measurement phase, timed part: the bench's records (its
     # flagship drives kernels A and B), the native oracle, the history seam.
-    reset_counts()
+    gate.reset()
     ab = check_front_door(fc, pcg_solve, fp64, card)
-    expect_counts("the measurement phase",
+    gate.expect("the measurement phase",
                   {"direction_and_stencil": ab, "fused_update": ab})
 
     elapsed("measurement")
     # --- the service phase: the solve service on the card and the chaos
     # campaign; the plain solves, no kernel of the port.
-    reset_counts()
+    gate.reset()
     check_serve(pcg_solve, metrics, card)
-    expect_counts("the service phase", {})
+    gate.expect("the service phase", {})
 
     elapsed("service")
     # --- the tooling phase: the bench's remaining modes, the contract gate,
     # the selfcheck, and the solve command's last flags; kernels A and B on
     # the --save-solution solves only.
-    reset_counts()
+    gate.reset()
     ab = check_tooling(pcg_solve, metrics, card, root)
-    expect_counts("the tooling phase",
+    gate.expect("the tooling phase",
                   {"direction_and_stencil": ab, "fused_update": ab})
 
     elapsed("tooling")
     # --- the multi-process phase: two ranks of this script, each driving
     # two shards of the 2x2 mesh across a process boundary (kernels A-D
     # sharded), against the same mesh driven by this process.
-    reset_counts()
+    gate.reset()
     mp = check_multiprocess(mesh, fs, cs_, ps, card, root)
-    expect_counts("the multi-process phase (this process's references)", {
+    gate.expect("the multi-process phase (this process's references)", {
         "direction_and_stencil_sharded": mp["fused-sharded"],
         "fused_update_sharded": mp["fused-sharded"],
         "basis_sweep_sharded": mp["ca-sharded"],
@@ -4443,9 +4484,9 @@ def main() -> None:
     # --- the measurement phase, profiled part: obs.profile around one
     # fused solve (kernels A and B), the history seam's launches, and the
     # run's registry through obs.export.
-    reset_counts()
+    gate.reset()
     ab = check_capture(fc, pcg_solve, metrics, card, root)
-    expect_counts("the measurement capture",
+    gate.expect("the measurement capture",
                   {"direction_and_stencil": ab, "fused_update": ab})
 
     elapsed("timers and profiles")

@@ -25,6 +25,12 @@ The names the port emits:
   (that + ``eager_steps``); ``pcg.drive.multi_card_replays`` — the
   replays of a block whose state spans more than one card (0 on one
   card);
+- ``ops.launches.<key>`` — the CUDA kernels' launches (``ops.launch``),
+  one add a launch, by the wrapper's form: ``direction_and_stencil`` and
+  ``fused_update`` (A, B; with ``_sharded`` their masked forms, with
+  ``_blocked`` A′, B′), ``basis_sweep`` and ``pair_update`` (C, D; with
+  ``_sharded``), ``resident_solve`` (R) and ``serial_sum`` (S); a
+  replayed block adds what its capture counted, as to every counter;
 - ``time.compile_seconds`` / ``time.execute_seconds`` — accumulating float
   counters: the first call's extra time (kernel build and load, canvas
   setup) and the timed solves;

@@ -64,19 +64,16 @@ from poisson_tpu_torch.ops.fused_cg import (
     _check_operands,
     _shift_col_plus,
     _solution,
-    _stream,
     build_canvases,
     check_colmask,
-    count_launch,
-    launch_counts as _launch_counts,
     live_band,
     n_partials,
     partial_sums,
     pcg_state_to_pending,
     pending_to_pcg_state,
-    reset_launch_counts as _reset_launch_counts,
     serial_run,
 )
+from poisson_tpu_torch.ops.launch import launch
 from poisson_tpu_torch.ops.serial import serial_sum
 from poisson_tpu_torch.solvers.checkpoint import (
     _fingerprint,
@@ -271,7 +268,7 @@ def basis_sweep(cv: Canvas, beta, pprev, r, cs, cw, g, sc2, out=None,
     which pn is formed by two on each side, onto the shard's width-2 halo
     ring, and ``colmask``, a (1, cols) fp32 tensor, multiplies the six
     unweighted Gram products before they are summed. A column mask
-    launches the kernel's sharded form, counted in ``sharded_launches``."""
+    launches the kernel's sharded form, counted with ``_sharded``."""
     outs = out if out is not None else tuple(torch.zeros_like(r)
                                              for _ in range(4))
     pn, t1, t2, t3 = outs
@@ -294,20 +291,13 @@ def basis_sweep(cv: Canvas, beta, pprev, r, cs, cw, g, sc2, out=None,
                              "(kernel C copies its rows 16 bytes at a time)")
     gram = torch.empty((n_tiles(cv), N_GRAM), dtype=torch.float32,
                        device=dev)
-    code = kernels.lib.ca_cg_basis_sweep(
-        beta.data_ptr(), pprev.data_ptr(), r.data_ptr(), cs.data_ptr(),
-        cw.data_ptr(), g.data_ptr(), sc2.data_ptr(), mask_ptr, pn.data_ptr(),
-        t1.data_ptr(), t2.data_ptr(), t3.data_ptr(), gram.data_ptr(),
-        cv.rows, cv.cols, HALO, lo, hi, geo.seg_h, dev.index or 0,
-        _stream(dev),
-    )
-    check(kernels, code, "basis_sweep launch")
-    count_launch(basis_sweep, colmask)
+    launch(kernels, "ca_cg_basis_sweep",
+           "basis_sweep" if colmask is None else "basis_sweep_sharded", dev,
+           beta.data_ptr(), pprev.data_ptr(), r.data_ptr(), cs.data_ptr(),
+           cw.data_ptr(), g.data_ptr(), sc2.data_ptr(), mask_ptr,
+           pn.data_ptr(), t1.data_ptr(), t2.data_ptr(), t3.data_ptr(),
+           gram.data_ptr(), cv.rows, cv.cols, HALO, lo, hi, geo.seg_h)
     return (*outs, gram)
-
-
-basis_sweep.launches = 0
-basis_sweep.sharded_launches = 0
 
 
 def pair_update(cv: Canvas, coefs, pn, t1, t2, t3, x, r, out=None,
@@ -319,8 +309,8 @@ def pair_update(cv: Canvas, coefs, pn, t1, t2, t3, x, r, out=None,
     kernel's row, with ``only1`` added in its spare slot 5. ``out``
     names the p₁ canvas (guard rows zero); it must not alias any operand,
     and x and r must not alias pn, t1, t2, t3. Without ``out`` it is
-    allocated zeroed. ``colmask`` (the sharded form, counted in
-    ``sharded_launches``) multiplies each r'² before it is summed."""
+    allocated zeroed. ``colmask`` (the sharded form, counted with
+    ``_sharded``) multiplies each r'² before it is summed."""
     p1 = out if out is not None else torch.zeros_like(r)
     dev = _check_operands(cv, dict(pn=pn, t1=t1, t2=t2, t3=t3, x=x, r=r,
                                    p1=p1), coefs, N_COEFS)
@@ -331,31 +321,16 @@ def pair_update(cv: Canvas, coefs, pn, t1, t2, t3, x, r, out=None,
         part = pair_update_plain(cv, coefs, pn, t1, t2, t3, x, r, p1,
                                  colmask)
         return x, r, p1, part
-    kernels = _kernels()
     blocks = n_partials(cv)
     part = torch.empty(blocks, dtype=torch.float32, device=dev)
-    code = kernels.lib.ca_cg_pair_update(
-        coefs.data_ptr(), pn.data_ptr(), t1.data_ptr(), t2.data_ptr(),
-        t3.data_ptr(), mask_ptr, x.data_ptr(), r.data_ptr(), p1.data_ptr(),
-        part.data_ptr(), cv.cols, HALO, blocks, dev.index or 0, _stream(dev),
-    )
-    check(kernels, code, "pair_update launch")
-    count_launch(pair_update, colmask)
+    launch(_kernels(), "ca_cg_pair_update",
+           "pair_update" if colmask is None else "pair_update_sharded", dev,
+           coefs.data_ptr(), pn.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+           t3.data_ptr(), mask_ptr, x.data_ptr(), r.data_ptr(),
+           p1.data_ptr(), part.data_ptr(), cv.cols, HALO, blocks)
     return x, r, p1, part
 
 
-pair_update.launches = 0
-pair_update.sharded_launches = 0
-
-KERNEL_WRAPPERS = (basis_sweep, pair_update)
-
-
-def reset_launch_counts() -> None:
-    _reset_launch_counts(KERNEL_WRAPPERS)
-
-
-def launch_counts() -> dict:
-    return _launch_counts(KERNEL_WRAPPERS)
 
 
 # --- the pair scalars and the solve ------------------------------------------

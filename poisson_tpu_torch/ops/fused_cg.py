@@ -38,11 +38,11 @@ neighbours' values around the points it owns; the sharded solve
 (``parallel.fused_sharded``) calls each kernel's sharded form, with a live
 band widened past the centre rows and a column mask on the sums.
 
-Each kernel wrapper launches its CUDA kernel for CUDA tensors, and counts the
-launch in its ``launches`` attribute; for CPU tensors, and only for them, it
-runs the kernel's plain PyTorch version (``*_plain``), which repeats its
-arithmetic in the same order. The partial sums across blocks, and the scalar
-recurrences (α, diff, ζ, β, the stop test), are plain tensor code on the
+Each kernel wrapper launches its CUDA kernel for CUDA tensors, counted
+(``ops.launch``); for CPU tensors, and only for them, it runs the kernel's
+plain PyTorch version (``*_plain``), which repeats its arithmetic in the same
+order. The partial sums across blocks, and the scalar recurrence (α, diff,
+ζ, β, the stop test; ``ops.recurrence``), are plain tensor code on the
 device: α and β reach the kernels through device pointers, and nothing in
 the loop reads a value back except ``done`` once every ``check_every``
 iterations (``solvers.pcg.drive``). The serial-reduce mode (``serial=True``)
@@ -66,24 +66,21 @@ import torch.nn.functional as F
 
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.obs.profile import region
-from poisson_tpu_torch.ops._build import check
+from poisson_tpu_torch.ops.launch import launch
+from poisson_tpu_torch.ops.recurrence import Recurrence
 from poisson_tpu_torch.ops.serial import serial_sum
 from poisson_tpu_torch.solvers.checkpoint import (
     _fingerprint,
     load_state,
     run_chunked,
 )
-from poisson_tpu_torch.solvers.graphs import (
-    Capturable,
-    can_capture,
-    launch_stream,
-)
+from poisson_tpu_torch.solvers.graphs import can_capture, marked
 from poisson_tpu_torch.solvers.pcg import (
     CHECK_EVERY,
     FLAG_NONE,
     PCGResult,
     PCGState,
-    _DENOM_TOL,
+    chunked_advance,
     drive,
     host_fields64,
 )
@@ -279,22 +276,33 @@ def _host_canvases(problem: Problem, cv: Canvas):
     return cv, cs, cw, g, rhs, sc2, sc64[1:M, 1:N]
 
 
+class Canvases(NamedTuple):
+    """The fp32 canvases of a problem on one device: (rows, cols) canvases
+    of the scaled stencil, the right-hand side and sc², and the interior
+    scaling block for solution extraction."""
+
+    cv: Canvas
+    cs: torch.Tensor
+    cw: torch.Tensor
+    g: torch.Tensor
+    rhs: torch.Tensor
+    sc2: torch.Tensor
+    sc_int: torch.Tensor
+
+
 @functools.lru_cache(maxsize=4)
 def _device_canvases(problem: Problem, cv: Canvas, device: torch.device):
     """The canvases on ``device``, and the marked fused bodies made on them
     (:func:`_make_fused_body`), which are cached with them."""
     cv, *host = _host_canvases(problem, cv)
-    return (cv, *(torch.tensor(x, dtype=torch.float32, device=device)
-                  for x in host)), {}
+    return Canvases(cv, *(torch.tensor(x, dtype=torch.float32, device=device)
+                          for x in host)), {}
 
 
 def build_canvases(problem: Problem, device=None, bm: int | None = None,
-                   bn: int | None = None):
+                   bn: int | None = None) -> Canvases:
     """Host fp64 setup → fp32 canvases on ``device`` (default ``cuda``), on
-    the canvas of ``canvas_spec(problem, bm, bn)``.
-
-    Returns (cv, cS, cW, g, rhs, sc2, sc_int): (rows, cols) canvases plus
-    the interior scaling block for solution extraction. The tensors are
+    the canvas of ``canvas_spec(problem, bm, bn)``. The tensors are
     cached per (problem, canvas, device) and shared: callers must not
     write to them (the solver copies ``rhs`` before updating r in place);
     ``cuda`` without an index is the current card."""
@@ -488,21 +496,6 @@ def check_colmask(cv: Canvas, colmask, dev: torch.device):
     return None if colmask is None else colmask.data_ptr()
 
 
-def count_launch(wrapper, colmask) -> None:
-    """One launch of ``wrapper``'s single-device form, or of its sharded
-    (masked) form when a column mask was given."""
-    if colmask is None:
-        wrapper.launches += 1
-    else:
-        wrapper.sharded_launches += 1
-
-
-def _stream(dev: torch.device) -> int:
-    """The stream a kernel launch on ``dev`` goes to
-    (``solvers.graphs.launch_stream``)."""
-    return launch_stream(dev)
-
-
 @functools.lru_cache(maxsize=None)
 def _kernels():
     """The built library, checked to use this module's partial layout."""
@@ -556,13 +549,13 @@ def direction_and_stencil(cv: Canvas, beta, z, p, cs, cw, g, out=None,
 
     The sharded form (``parallel.fused_sharded``), chosen by ``colmask``, a
     (1, cols) fp32 tensor that multiplies each ⟨Ap, pn⟩ product before it
-    is summed, and counted in ``sharded_launches``: ``band`` may widen the
+    is summed, and counted with ``_sharded``: ``band`` may widen the
     live band by one row on each side, so the direction is formed on the
     shard's halo rows too and stored there. A widened band without a mask
     raises.
 
-    A column-blocked canvas (``cv.cg > 0``) runs kernel A′, counted in
-    ``blocked_launches``, with its per-tile partials (single-device only);
+    A column-blocked canvas (``cv.cg > 0``) runs kernel A′, counted with
+    ``_blocked``, with its per-tile partials (single-device only);
     its guard columns of pn and Ap are never written."""
     pn, ap = out if out is not None else (torch.zeros_like(z),
                                           torch.zeros_like(z))
@@ -576,15 +569,13 @@ def direction_and_stencil(cv: Canvas, beta, z, p, cs, cw, g, out=None,
         if dev.type == "cpu":
             return pn, ap, direction_and_stencil_blocked_plain(
                 cv, beta, z, p, cs, cw, g, pn, ap)
-        kernels = _blocked_kernels()
         part = torch.empty(n_partials(cv), dtype=torch.float32, device=dev)
-        code = kernels.lib.blocked_cg_direction_stencil(
-            beta.data_ptr(), z.data_ptr(), p.data_ptr(), cs.data_ptr(),
-            cw.data_ptr(), g.data_ptr(), pn.data_ptr(), ap.data_ptr(),
-            part.data_ptr(), cv.rows, cv.cols, HALO, cv.cg, cv.bm, cv.bn,
-            cv.nb, cv.ncb, dev.index or 0, _stream(dev))
-        check(kernels, code, "blocked direction_stencil launch")
-        direction_and_stencil.blocked_launches += 1
+        launch(_blocked_kernels(), "blocked_cg_direction_stencil",
+               "direction_and_stencil_blocked", dev,
+               beta.data_ptr(), z.data_ptr(), p.data_ptr(), cs.data_ptr(),
+               cw.data_ptr(), g.data_ptr(), pn.data_ptr(), ap.data_ptr(),
+               part.data_ptr(), cv.rows, cv.cols, HALO, cv.cg, cv.bm, cv.bn,
+               cv.nb, cv.ncb)
         return pn, ap, part
     lo, hi = live_band(cv, band, 1)
     mask_ptr = check_colmask(cv, colmask, dev)
@@ -595,32 +586,25 @@ def direction_and_stencil(cv: Canvas, beta, z, p, cs, cw, g, out=None,
         part = direction_and_stencil_plain(cv, beta, z, p, cs, cw, g, pn, ap,
                                            (lo, hi), colmask)
         return pn, ap, part
-    kernels = _kernels()
     blocks = n_partials(cv)
     part = torch.empty(blocks, dtype=torch.float32, device=dev)
-    code = kernels.lib.fused_cg_direction_stencil(
-        beta.data_ptr(), z.data_ptr(), p.data_ptr(), cs.data_ptr(),
-        cw.data_ptr(), g.data_ptr(), mask_ptr, pn.data_ptr(), ap.data_ptr(),
-        part.data_ptr(), cv.rows, cv.cols, HALO, lo, hi, blocks,
-        dev.index or 0, _stream(dev),
-    )
-    check(kernels, code, "direction_stencil launch")
-    count_launch(direction_and_stencil, colmask)
+    launch(_kernels(), "fused_cg_direction_stencil",
+           "direction_and_stencil" if colmask is None
+           else "direction_and_stencil_sharded", dev,
+           beta.data_ptr(), z.data_ptr(), p.data_ptr(), cs.data_ptr(),
+           cw.data_ptr(), g.data_ptr(), mask_ptr, pn.data_ptr(),
+           ap.data_ptr(), part.data_ptr(), cv.rows, cv.cols, HALO, lo, hi,
+           blocks)
     return pn, ap, part
-
-
-direction_and_stencil.launches = 0
-direction_and_stencil.sharded_launches = 0
-direction_and_stencil.blocked_launches = 0
 
 
 def fused_update(cv: Canvas, alpha, p, ap, sc2, w, r, colmask=None):
     """Kernel B: w ← w + α·p and r ← r − α·Ap in place; returns
     (w, r, partials of Σ p²·sc², partials of Σ r²), one sweep. ``colmask``
-    (the sharded form, counted in ``sharded_launches``) multiplies each r²
+    (the sharded form, counted with ``_sharded``) multiplies each r²
     before it is summed; Σ p²·sc² needs none, since a shard's sc² is zero
     outside the points it owns. A column-blocked canvas runs kernel B′,
-    counted in ``blocked_launches``, on the centre tiles only. On the card
+    counted with ``_blocked``, on the centre tiles only. On the card
     the two partials vectors are the rows of one (2, n) buffer, which
     kernel S sums in one launch."""
     dev = _check_operands(cv, dict(p=p, ap=ap, sc2=sc2, w=w, r=r), alpha)
@@ -629,62 +613,31 @@ def fused_update(cv: Canvas, alpha, p, ap, sc2, w, r, colmask=None):
         if dev.type == "cpu":
             return (w, r, *fused_update_blocked_plain(cv, alpha, p, ap, sc2,
                                                       w, r))
-        kernels = _blocked_kernels()
         diff_part, zr_part = torch.empty((2, n_partials(cv)),
                                          dtype=torch.float32, device=dev)
-        code = kernels.lib.blocked_cg_update(
-            alpha.data_ptr(), p.data_ptr(), ap.data_ptr(), sc2.data_ptr(),
-            w.data_ptr(), r.data_ptr(), diff_part.data_ptr(),
-            zr_part.data_ptr(), cv.cols, HALO, cv.cg, cv.bm, cv.bn, cv.nb,
-            cv.ncb, dev.index or 0, _stream(dev))
-        check(kernels, code, "blocked fused_update launch")
-        fused_update.blocked_launches += 1
+        launch(_blocked_kernels(), "blocked_cg_update", "fused_update_blocked",
+               dev, alpha.data_ptr(), p.data_ptr(), ap.data_ptr(),
+               sc2.data_ptr(), w.data_ptr(), r.data_ptr(),
+               diff_part.data_ptr(), zr_part.data_ptr(), cv.cols, HALO, cv.cg,
+               cv.bm, cv.bn, cv.nb, cv.ncb)
         return w, r, diff_part, zr_part
     mask_ptr = check_colmask(cv, colmask, dev)
     if dev.type == "cpu":
         diff_part, zr_part = fused_update_plain(cv, alpha, p, ap, sc2, w, r,
                                                 colmask)
         return w, r, diff_part, zr_part
-    kernels = _kernels()
     blocks = n_partials(cv)
     diff_part, zr_part = torch.empty((2, blocks), dtype=torch.float32,
                                      device=dev)
-    code = kernels.lib.fused_cg_update(
-        alpha.data_ptr(), p.data_ptr(), ap.data_ptr(), sc2.data_ptr(),
-        mask_ptr, w.data_ptr(), r.data_ptr(), diff_part.data_ptr(),
-        zr_part.data_ptr(), cv.cols, HALO, blocks, dev.index or 0,
-        _stream(dev),
-    )
-    check(kernels, code, "fused_update launch")
-    count_launch(fused_update, colmask)
+    launch(_kernels(), "fused_cg_update",
+           "fused_update" if colmask is None else "fused_update_sharded", dev,
+           alpha.data_ptr(), p.data_ptr(), ap.data_ptr(), sc2.data_ptr(),
+           mask_ptr, w.data_ptr(), r.data_ptr(), diff_part.data_ptr(),
+           zr_part.data_ptr(), cv.cols, HALO, blocks)
     return w, r, diff_part, zr_part
 
 
-fused_update.launches = 0
-fused_update.sharded_launches = 0
-fused_update.blocked_launches = 0
-
 KERNEL_WRAPPERS = (direction_and_stencil, fused_update)
-
-
-def reset_launch_counts(wrappers=KERNEL_WRAPPERS) -> None:
-    for fn in wrappers:
-        fn.launches = fn.sharded_launches = 0
-        if hasattr(fn, "blocked_launches"):
-            fn.blocked_launches = 0
-
-
-def launch_counts(wrappers=KERNEL_WRAPPERS) -> dict:
-    """Launches of each wrapper's single-device form, by its name, of its
-    sharded form, by its name with ``_sharded``, and of its column-blocked
-    form (kernels A′, B′), by its name with ``_blocked``."""
-    counts = {}
-    for fn in wrappers:
-        counts[fn.__name__] = fn.launches
-        counts[f"{fn.__name__}_sharded"] = fn.sharded_launches
-        if hasattr(fn, "blocked_launches"):
-            counts[f"{fn.__name__}_blocked"] = fn.blocked_launches
-    return counts
 
 
 # --- the fused solve ----------------------------------------------------------
@@ -748,51 +701,33 @@ def _make_fused_body(problem: Problem, cv: Canvas, cs, cw, g, sc2,
     replays each whole block of it as a captured graph. The marked body is
     cached with the canvases, per ``kernels`` and ``run``, so that its
     captured blocks serve every solve on them."""
+    make = lambda: _fused_body(problem, cv, cs, cw, g, sc2, kernels, run)
     if not can_capture(cs.device):
-        return _fused_body(problem, cv, cs, cw, g, sc2, kernels, run)
-    (_, *cached), bodies = _device_canvases(problem, cv, cs.device)
-    if not all(a is b for a, b in zip((cs, cw, g, sc2),
-                                      (*cached[:3], cached[4]))):
-        return _fused_body(problem, cv, cs, cw, g, sc2, kernels, run)
-    body = bodies.get((kernels, run))
-    if body is None:
-        body = _fused_body(problem, cv, cs, cw, g, sc2, kernels, run)
-        body.capturable = Capturable((*kernels, serial_sum))
-        body = bodies.setdefault((kernels, run), body)
-    return body
+        return make()
+    cached, bodies = _device_canvases(problem, cv, cs.device)
+    if not all(a is b for a, b in zip((cs, cw, g, sc2), (
+            cached.cs, cached.cw, cached.g, cached.sc2))):
+        return make()
+    return marked(bodies, (kernels, run), make)
 
 
 def _fused_body(problem: Problem, cv: Canvas, cs, cw, g, sc2, kernels,
                 run: int | None):
     """The body :func:`_make_fused_body` describes, unmarked."""
     direction_and_stencil_fn, fused_update_fn = kernels
-    f32 = dict(dtype=torch.float32, device=cs.device)
-    h1h2 = torch.tensor(problem.h1 * problem.h2, **f32)
-    norm_w = h1h2 if problem.weighted_norm else torch.tensor(1.0, **f32)
-    delta = torch.tensor(problem.delta, **f32)
+    rec = Recurrence(problem, cs.device)
 
     def body(s: _FusedState) -> _FusedState:
         pn, ap, denom_part = direction_and_stencil_fn(
             cv, s.beta, s.z, s.p, cs, cw, g, out=(s.spare, s.ap))
-        denom = partial_sums((denom_part,), run)[0] * h1h2
-        degenerate = torch.abs(denom) < _DENOM_TOL
-        alpha = torch.where(degenerate | s.done, 0.0,
-                            s.zr / torch.where(degenerate, 1.0, denom))
+        alpha, degenerate = rec.step_size(
+            s, partial_sums((denom_part,), run)[0])
         w, r, diff_part, zr_part = fused_update_fn(cv, alpha, pn, ap, sc2,
                                                    s.w, s.r)
-        diff_sum, zr_sum = partial_sums((diff_part, zr_part), run)
-        diff = torch.abs(alpha) * torch.sqrt(diff_sum * norm_w)
-        zr_new = zr_sum * h1h2
-        live = ~s.done
         return _FusedState(
-            k=s.k + live.to(torch.int32),
-            done=s.done | degenerate | (diff < delta),
             w=w, r=r, z=r, p=pn, spare=s.p, ap=ap,
-            zr=torch.where(live, zr_new, s.zr),
-            beta=torch.where(
-                live, zr_new / torch.where(s.zr == 0.0, 1.0, s.zr), s.beta),
-            diff=torch.where(live, diff, s.diff),
-        )
+            **rec.close(s, alpha, degenerate,
+                        *partial_sums((diff_part, zr_part), run)))
 
     return body
 
@@ -996,9 +931,7 @@ def fused_cg_solve_checkpointed(problem: Problem, checkpoint_path: str,
                             run=fused_run(problem, cv, serial))
     cap = problem.iteration_cap
     s = run_chunked(
-        s,
-        advance=lambda st: drive(body, st, min(chunk, cap - int(st.k)),
-                                 check_every),
+        s, advance=chunked_advance(body, chunk, cap, check_every),
         to_portable=lambda st: _fused_to_pcg_state(problem, cv, st),
         path=checkpoint_path, fingerprint=fp, cap=cap,
         keep_checkpoint=keep_checkpoint, keep_last=keep_last,

@@ -46,12 +46,12 @@ import torch.nn.functional as F
 
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.ops._build import check, load_kernels
+from poisson_tpu_torch.ops.launch import launch
 from poisson_tpu_torch.ops.fused_cg import (
     HALO,
     Canvas,
     _check_operands,
     _fused_solve,
-    _stream,
     build_canvases,
     canvas_spec,
     canvas_to_w64,
@@ -234,30 +234,17 @@ def resident_solve(problem: Problem, cv: Canvas, cs, cw, g, rhs, sc2):
     diff = torch.empty((), **f32)
     zr = torch.empty((), **f32)
     h1h2 = problem.h1 * problem.h2
-    code = kernels.lib.resident_cg_solve(
-        cs.data_ptr(), cw.data_ptr(), g.data_ptr(), rhs.data_ptr(),
-        sc2.data_ptr(), w.data_ptr(), r.data_ptr(), ap.data_ptr(),
-        xch.data_ptr(), spill.data_ptr(), part.data_ptr(), k.data_ptr(),
-        diff.data_ptr(), zr.data_ptr(), h1h2,
-        h1h2 if problem.weighted_norm else 1.0, problem.delta,
-        problem.iteration_cap, cv.rows, cv.cols, HALO, *lay.offsets,
-        lay.spill_stride, lay.smem_bytes, lay.blocks, dev.index or 0,
-        _stream(dev),
-    )
-    check(kernels, code, "resident_cg cooperative launch")
-    resident_solve.launches += 1
+    launch(kernels, "resident_cg_solve", "resident_solve", dev,
+           cs.data_ptr(), cw.data_ptr(), g.data_ptr(), rhs.data_ptr(),
+           sc2.data_ptr(), w.data_ptr(), r.data_ptr(), ap.data_ptr(),
+           xch.data_ptr(), spill.data_ptr(), part.data_ptr(), k.data_ptr(),
+           diff.data_ptr(), zr.data_ptr(), h1h2,
+           h1h2 if problem.weighted_norm else 1.0, problem.delta,
+           problem.iteration_cap, cv.rows, cv.cols, HALO, *lay.offsets,
+           lay.spill_stride, lay.smem_bytes, lay.blocks)
     return w, k, diff, zr
 
 
-resident_solve.launches = 0
-
-
-def reset_launch_counts() -> None:
-    resident_solve.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"resident_solve": resident_solve.launches}
 
 
 def resident_cg_solve(problem: Problem, device=None,

@@ -18,7 +18,7 @@ and sums those partials with kernel S (``csrc/serial_sum.cu``):
 
 :func:`serial_sum_plain` repeats that order with tensor operations, so the
 kernel and the plain version agree bit for bit. The wrapper launches the
-kernel for CUDA tensors, counted in ``serial_sum.launches``, and runs the
+kernel for CUDA tensors (``ops.launch``, which counts it), and runs the
 plain version for CPU tensors, and only for them.
 
 How the partials reach the adds is the kernel's own design, and
@@ -42,8 +42,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from poisson_tpu_torch.ops._build import check, load_kernels, source
-from poisson_tpu_torch.solvers.graphs import launch_stream
+from poisson_tpu_torch.ops._build import load_kernels, source
+from poisson_tpu_torch.ops.launch import launch
 
 
 def _kernel_constants() -> dict:
@@ -250,25 +250,12 @@ def serial_sum(parts, run: int) -> torch.Tensor:
     x, interleaved = kernel_layout(x)
     nvec, n = x.shape
     serial_plan(n, nvec, run, interleaved)   # raises where the kernel would
-    kernels = _kernels()
     out = torch.empty(nvec, dtype=torch.float32, device=x.device)
     ll = ctypes.c_longlong
     strides = (nvec, 1) if interleaved else (1, x.stride(0))
-    args = (x.data_ptr(), out.data_ptr(), ll(n), ll(strides[0]),
-            ll(strides[1]), ll(run), nvec, x.device.index or 0,
-            launch_stream(x.device))
-    code = kernels.lib.serial_sum_launch(*args)
-    check(kernels, code, "serial_sum launch")
-    serial_sum.launches += 1
+    launch(_kernels(), "serial_sum_launch", "serial_sum", x.device,
+           x.data_ptr(), out.data_ptr(), ll(n), ll(strides[0]),
+           ll(strides[1]), ll(run), nvec)
     return out[0] if single else out
 
 
-serial_sum.launches = 0
-
-
-def reset_launch_counts() -> None:
-    serial_sum.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"serial_sum": serial_sum.launches}

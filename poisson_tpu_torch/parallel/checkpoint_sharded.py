@@ -57,7 +57,7 @@ from poisson_tpu_torch.solvers.pcg import (
     CHECK_EVERY,
     PCGResult,
     PCGState,
-    drive,
+    chunked_advance,
     init_state,
     make_pcg_body,
     resolve_dtype,
@@ -141,8 +141,7 @@ def pcg_solve_sharded_checkpointed(problem: Problem, mesh: Mesh | None,
     cap = problem.iteration_cap
     state = run_chunked(
         state,
-        advance=lambda s: drive(body, s, min(chunk, cap - int(s.k)),
-                                check_every),
+        advance=chunked_advance(body, chunk, cap, check_every),
         to_portable=to_portable,
         path=checkpoint_path, fingerprint=fp,
         cap=cap, keep_checkpoint=keep_checkpoint, primary=is_primary,

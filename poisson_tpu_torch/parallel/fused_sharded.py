@@ -73,7 +73,7 @@ from poisson_tpu_torch.ops.fused_cg import (
     scaled_stencil_fields,
     serial_run,
 )
-from poisson_tpu_torch.ops.serial import serial_sum
+from poisson_tpu_torch.ops.recurrence import Recurrence
 from poisson_tpu_torch.parallel.checkpoint_sharded import _sync
 from poisson_tpu_torch.parallel.halo import (
     gather_shards,
@@ -90,12 +90,12 @@ from poisson_tpu_torch.solvers.checkpoint import (
     load_state,
     run_chunked,
 )
-from poisson_tpu_torch.solvers.graphs import Capturable, can_capture
+from poisson_tpu_torch.solvers.graphs import can_capture, marked
 from poisson_tpu_torch.solvers.pcg import (
     CHECK_EVERY,
     PCGResult,
     PCGState,
-    _DENOM_TOL,
+    chunked_advance,
     drive,
 )
 
@@ -355,19 +355,14 @@ def _make_sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
     serve every solve on them. A mesh over processes (gloo moves host
     tensors, which no graph can capture) and a mesh of CPU devices run the
     unmarked body."""
+    make = lambda: _sharded_body(problem, spec, mesh, canvases, run)
     devices = [mesh.devices[i] for i in mesh.local]
     if mesh.multiprocess or not all(can_capture(d) for d in devices):
-        return _sharded_body(problem, spec, mesh, canvases, run)
+        return make()
     _, cached, bodies = _shard_canvases(problem, mesh, spec.ring)
     if canvases is not cached:
-        return _sharded_body(problem, spec, mesh, canvases, run)
-    body = bodies.get(run)
-    if body is None:
-        body = _sharded_body(problem, spec, mesh, canvases, run)
-        body.capturable = Capturable(
-            (direction_and_stencil, fused_update, serial_sum))
-        body = bodies.setdefault(run, body)
-    return body
+        return make()
+    return marked(bodies, run, make)
 
 
 def _sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
@@ -375,10 +370,7 @@ def _sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
     """The body :func:`_make_sharded_body` describes, unmarked."""
     cv = spec.cv
     f = canvases
-    f32 = dict(dtype=torch.float32, device=mesh.lead)
-    h1h2 = torch.tensor(problem.h1 * problem.h2, **f32)
-    norm_w = h1h2 if problem.weighted_norm else torch.tensor(1.0, **f32)
-    delta = torch.tensor(problem.delta, **f32)
+    rec = Recurrence(problem, mesh.lead)
     band = (HALO - 1, HALO + spec.m_blk + 1)   # owned rows + halo rows
     shards = range(len(mesh.local))
 
@@ -389,10 +381,8 @@ def _sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
                                        out=(s.spare[i], s.ap[i]), band=band,
                                        colmask=f.colmask[i])
                  for i in shards]
-        denom = mesh_sum([part for _, _, part in swept], mesh, run) * h1h2
-        degenerate = torch.abs(denom) < _DENOM_TOL
-        alpha = torch.where(degenerate | s.done, 0.0,
-                            s.zr / torch.where(degenerate, 1.0, denom))
+        alpha, degenerate = rec.step_size(
+            s, mesh_sum([part for _, _, part in swept], mesh, run))
         alphas = replicate(alpha, mesh)
         updated = [fused_update(cv, alphas[i], swept[i][0], swept[i][1],
                                 f.sc2[i], s.w[i], s.r[i],
@@ -404,21 +394,11 @@ def _sharded_body(problem: Problem, spec: ShardSpec, mesh: Mesh,
         else:
             diff_sum, zr_sum = mesh_sum([u[2:] for u in updated], mesh,
                                         run).unbind()
-        diff = torch.abs(alpha) * torch.sqrt(diff_sum * norm_w)
-        zr_new = zr_sum * h1h2
         exchange_r_halo(s.r, spec, mesh)
-        live = ~s.done
         return _ShardedState(
-            k=s.k + live.to(torch.int32),
-            done=s.done | degenerate | (diff < delta),
             w=s.w, r=s.r, z=s.r, p=tuple(pn for pn, _, _ in swept),
-            spare=s.p,
-            ap=s.ap,
-            zr=torch.where(live, zr_new, s.zr),
-            beta=torch.where(
-                live, zr_new / torch.where(s.zr == 0.0, 1.0, s.zr), s.beta),
-            diff=torch.where(live, diff, s.diff),
-        )
+            spare=s.p, ap=s.ap,
+            **rec.close(s, alpha, degenerate, diff_sum, zr_sum))
 
     return body
 
@@ -573,9 +553,7 @@ def fused_cg_solve_sharded_checkpointed(problem: Problem, mesh: Mesh | None,
                               shard_run(problem, spec, mesh, serial))
     cap = problem.iteration_cap
     s = run_chunked(
-        s,
-        advance=lambda st: drive(body, st, min(chunk, cap - int(st.k)),
-                                 check_every),
+        s, advance=chunked_advance(body, chunk, cap, check_every),
         to_portable=lambda st: sharded_portable(
             problem, spec, mesh, k=st.k, done=st.done, sol=st.w, r=st.r,
             pend=st.p, beta=st.beta, zr=st.zr, diff=st.diff, z=st.z),

@@ -61,7 +61,7 @@ from poisson_tpu_torch.solvers.pcg import (
     FLAG_NONFINITE,
     PCGResult,
     PCGState,
-    drive,
+    chunked_advance,
     gate_rhs,
     init_state,
     make_pcg_body,
@@ -418,9 +418,8 @@ def _chunked(problem: Problem, chunk: int, dtype, scaled, device,
     cap = problem.iteration_cap
     if check_every is None:
         check_every = setup.check_every
-    advance = lambda s: drive(body, s, min(chunk, cap - int(s.k)),
-                              check_every)
-    return setup, advance, lambda: init_state(setup.ops, setup.rhs)
+    return (setup, chunked_advance(body, chunk, cap, check_every),
+            lambda: init_state(setup.ops, setup.rhs))
 
 
 def _result(setup, state, deadline) -> PCGResult:

@@ -49,13 +49,12 @@ Counters (``obs.metrics``): ``pcg.drive.graph_captures``,
 ``pcg.drive.graph_replays``, ``pcg.drive.multi_card_replays`` (replays of
 a block across several cards) and ``pcg.drive.eager_steps`` (steps of a
 marked step run eagerly). A replay calls no kernel wrapper and no Python
-of the step, so it adds to the wrappers' launch counters the launches
-counted while its block was captured, and to every ``obs.metrics``
-counter what the capturing thread added to it while capturing (a mesh's
-traffic, ``parallel.halo``; ``obs.metrics.tally``). The launches are
-measured: each counted launch asks for its stream through
-:func:`launch_stream`, and a capture in which one went to a stream
-outside the capture is refused (:class:`CaptureRefused`).
+of the step, so it adds to every ``obs.metrics`` counter what the
+capturing thread added to it while capturing (``obs.metrics.tally``): the
+kernels' launches (``ops.launches.*``) and a mesh's traffic
+(``parallel.halo``). The launches are audited: a capture in which a
+counted launch went to a stream outside the capture is refused
+(``ops.launch.CaptureRefused``).
 """
 
 from __future__ import annotations
@@ -67,37 +66,12 @@ import warnings
 import torch
 
 from poisson_tpu_torch.obs.metrics import inc, tally
-
-# The launch counters a kernel wrapper may carry (``ops.fused_cg``).
-LAUNCH_COUNTERS = ("launches", "sharded_launches", "blocked_launches")
-
-# The capture in progress on this thread: its streams, and the counted
-# launches that went to one of them (``captured``) and to another
-# (``strays``).
-_audit = threading.local()
+from poisson_tpu_torch.ops.launch import CaptureRefused, audit
 
 
 def can_capture(device: torch.device) -> bool:
     """Whether a step on ``device`` may be replayed as a captured graph."""
     return device.type == "cuda"
-
-
-def launch_stream(device: torch.device) -> int:
-    """The stream a counted kernel launch on ``device`` goes to: its
-    current stream. While this thread captures a block, the launch is
-    noted as going to one of the capture's streams or to another."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    streams = getattr(_audit, "streams", None)
-    if streams is not None:
-        if stream in streams:
-            _audit.captured += 1
-        else:
-            _audit.strays += 1
-    return stream
-
-
-class CaptureRefused(RuntimeError):
-    """A capture in which a counted launch went to a stream outside it."""
 
 
 def _capture_failed(e: BaseException) -> bool:
@@ -110,18 +84,29 @@ def _capture_failed(e: BaseException) -> bool:
 
 class Capturable:
     """The mark a step carries (as its ``capturable`` attribute) when its
-    blocks may be replayed as a captured graph: the kernel wrappers whose
-    launch counters a replay adds to, and the step's blocks."""
+    blocks may be replayed as a captured graph: the step's blocks."""
 
-    def __init__(self, wrappers: tuple):
-        self.wrappers = wrappers
+    def __init__(self):
         self.blocks: dict = {}    # check_every -> Block
 
     def block(self, n: int) -> Block:
         block = self.blocks.get(n)
         if block is None:
-            block = self.blocks.setdefault(n, Block(self.wrappers, n))
+            block = self.blocks.setdefault(n, Block(n))
         return block
+
+
+def marked(bodies: dict, key, make):
+    """The body cached in ``bodies`` under ``key``, else ``make()``'s,
+    marked :class:`Capturable` and cached there: a cache kept with the
+    canvases the body runs on, so that its captured blocks serve every
+    solve on them."""
+    body = bodies.get(key)
+    if body is None:
+        body = make()
+        body.capturable = Capturable()
+        body = bodies.setdefault(key, body)
+    return body
 
 
 def _tensors(s) -> list:
@@ -167,11 +152,6 @@ def _copied(fields, ptrs=None) -> list:
     return out
 
 
-def _counts(wrappers) -> dict:
-    return {(fn, name): getattr(fn, name) for fn in wrappers
-            for name in LAUNCH_COUNTERS if hasattr(fn, name)}
-
-
 @contextlib.contextmanager
 def _across(stream, sides, pools):
     """Inside a capture on ``stream``: each of ``sides`` (a stream of
@@ -214,17 +194,16 @@ def _pool(device: torch.device):
 
 class Block:
     """One block of ``n`` steps of a marked step: its static state, its
-    replay and the launches and counts a replay adds."""
+    replay and the counts a replay adds."""
 
-    def __init__(self, wrappers, n: int):
-        self.wrappers, self.n = wrappers, n
+    def __init__(self, n: int):
+        self.n = n
         self.lock = threading.Lock()
         self.warm = False     # an eager block of this step has run
         self.broken = False   # the block cannot be replayed: never again
         self.state = None     # the static state the replay reads and writes
         self.replay = None
         self.pools = ()       # a pool for each card past the first
-        self.launches = ()    # (wrapper, counter, launches a replay makes)
         self.added = ()       # (counter, what a replay adds to it)
 
     def _capture(self, fn, device: torch.device, others=()):
@@ -235,24 +214,23 @@ class Block:
         ``fn`` ran."""
         graph = torch.cuda.CUDAGraph()
         self.pools = tuple(_pool(d) for d in others)
-        _audit.strays = _audit.captured = 0
+        audit.strays = audit.captured = 0
         try:
             with torch.cuda.device(device):
                 stream = torch.cuda.Stream(device)
                 sides = [torch.cuda.Stream(d) for d in others]
                 with torch.cuda.graph(graph, stream=stream,
                                       capture_error_mode="thread_local"):
-                    _audit.streams = {s.cuda_stream
-                                      for s in (stream, *sides)}
+                    audit.streams = {s.cuda_stream for s in (stream, *sides)}
                     with _across(stream, sides, self.pools):
                         fn()
         finally:
-            _audit.streams = None
-        if _audit.strays:
+            audit.streams = None
+        if audit.strays:
             raise CaptureRefused(
                 f"capture of a {self.n}-step block on {device}: "
-                f"{_audit.captured} counted kernel launches went to the "
-                f"capture's streams and {_audit.strays} to another")
+                f"{audit.captured} counted kernel launches went to the "
+                f"capture's streams and {audit.strays} to another")
         if not others:
             def replay():
                 with torch.cuda.device(device):
@@ -293,7 +271,6 @@ class Block:
             chained.append(_write_back(_tensors(out),
                                        _tensors(self.state)))
 
-        before = _counts(self.wrappers)
         try:
             with tally() as added:
                 replay = self._capture(block, device, others)
@@ -310,18 +287,12 @@ class Block:
                 for d in (device, *others):
                     torch.cuda.synchronize(d)
         finally:
-            after = _counts(self.wrappers)
-            for (fn, name), value in before.items():
-                setattr(fn, name, value)
             for name, value in added.items():
                 if value:
                     inc(name, -value)
         if not all(chained):
             self.broken, self.state, self.pools = True, None, ()
             return
-        self.launches = tuple((fn, name, after[fn, name] - value)
-                              for (fn, name), value in before.items()
-                              if after[fn, name] != value)
         self.added = tuple((name, v) for name, v in added.items() if v)
         self.replay = replay
         inc("pcg.drive.graph_captures")
@@ -354,8 +325,6 @@ class Block:
         elif s is not self.state and not self._load(s):
             return None
         self.replay()
-        for fn, name, k in self.launches:
-            setattr(fn, name, getattr(fn, name) + k)
         for name, value in self.added:
             inc(name, value)
         inc("pcg.drive.graph_replays")

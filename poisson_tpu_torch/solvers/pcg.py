@@ -203,6 +203,12 @@ def drive(step, s, cap: int, check_every: int = CHECK_EVERY):
             run.release()
 
 
+def chunked_advance(step, chunk: int, cap: int, check_every: int):
+    """A chunked driver's advance (``solvers.checkpoint.run_chunked``):
+    ``step`` driven ``chunk`` more iterations, never past ``cap`` in all."""
+    return lambda s: drive(step, s, min(chunk, cap - int(s.k)), check_every)
+
+
 def init_state(ops: PCGOps, rhs) -> PCGState:
     """w=0, r=B, z=D⁻¹r, p=z, ζ=(z,r)  (stage2:…cpp:384-396). The scalars
     take ζ's shape: 0-d for one solve, (B, 1, 1) for a batch."""

@@ -23,7 +23,7 @@ from poisson_tpu.ops import pallas_cg
 from poisson_tpu.solvers.pcg import pcg_solve as jax_pcg_solve
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.interop import canvases_from_reference
-from poisson_tpu_torch.ops import fused_cg
+from poisson_tpu_torch.ops import fused_cg, launch
 from poisson_tpu_torch.ops.fused_cg import HALO
 from poisson_tpu_torch.solvers.refine import refined_solve
 
@@ -176,12 +176,12 @@ def test_blocked_fused_update_matches_jax_kernel(M, N, bm, bn):
 def test_blocked_kernels_count_their_own_form_and_refuse_a_mask():
     cv, cs, cw, g, rhs, sc2, _ = fused_cg.build_canvases(
         Problem(M=24, N=300), "cpu", None, 128)
-    fused_cg.reset_launch_counts()
+    launch.reset_launch_counts()
     beta = torch.zeros(())
     z = rhs.clone()
     fused_cg.direction_and_stencil(cv, beta, z, torch.zeros_like(z), cs, cw,
                                    g)
-    assert not any(fused_cg.launch_counts().values())   # CPU: plain only
+    assert not any(launch.launch_counts().values())   # CPU: plain only
     with pytest.raises(ValueError, match="single-device"):
         fused_cg.direction_and_stencil(cv, beta, z, torch.zeros_like(z), cs,
                                        cw, g,

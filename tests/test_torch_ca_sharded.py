@@ -37,7 +37,7 @@ from poisson_tpu.solvers.pcg import pcg_solve as jax_pcg_solve
 from poisson_tpu.utils.compat import shard_map
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.interop import shard_canvases_from_reference
-from poisson_tpu_torch.ops import ca_cg
+from poisson_tpu_torch.ops import ca_cg, launch
 from poisson_tpu_torch.ops.fused_cg import HALO
 from poisson_tpu_torch.parallel import ca_sharded, fused_sharded, mesh
 
@@ -219,9 +219,10 @@ def test_done_state_is_frozen():
 
 
 def test_cpu_ca_sharded_solve_launches_no_kernel():
-    ca_cg.reset_launch_counts()
+    launch.reset_launch_counts()
     ca_sharded.ca_cg_solve_sharded(Problem(M=24, N=24), _cpu_mesh((2, 1)))
-    assert not any(ca_cg.launch_counts().values())
+    assert not any(launch.launch_counts("basis_sweep",
+                                        "pair_update").values())
 
 
 def test_ring_needs_two_owned_columns():

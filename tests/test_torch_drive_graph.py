@@ -17,8 +17,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import sys
 import threading
+import types
 from typing import NamedTuple
 
 import pytest
@@ -26,7 +28,7 @@ import torch
 
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.obs import metrics
-from poisson_tpu_torch.ops import fused_cg, resident, serial
+from poisson_tpu_torch.ops import _build, fused_cg, launch, resident
 from poisson_tpu_torch.solvers import graphs
 from poisson_tpu_torch.solvers.pcg import drive
 
@@ -45,10 +47,10 @@ def moved(before: dict) -> dict:
 
 def fake_capture(self, fn, device, others=()):
     """A capture that runs nothing, as on the card: ``fn`` runs once, so
-    that the block's shape is found and its launches and counts taken, and
-    the static state is put back. The replay runs ``fn`` with the launch
-    counters and the ``obs.metrics`` counters left as they were, as a
-    graph's replay calls no wrapper and no Python of the step."""
+    that the block's shape is found and its counts taken, and the static
+    state is put back. The replay runs ``fn`` with the ``obs.metrics``
+    counters, launches included, left as they were, as a graph's replay
+    calls no wrapper and no Python of the step."""
     static = graphs._tensors(self.state)
     saved = [t.clone() for t in static]
     fn()
@@ -56,11 +58,8 @@ def fake_capture(self, fn, device, others=()):
         t.copy_(v)
 
     def replay():
-        counts = graphs._counts(self.wrappers)
         with metrics.tally() as counted:
             fn()
-        for (wrapper, name), value in counts.items():
-            setattr(wrapper, name, value)
         for name, value in counted.items():
             metrics.inc(name, -value)
 
@@ -98,16 +97,20 @@ def toy_state(z_is_x: bool = True) -> Toy:
                z=x if z_is_x else torch.ones(4))
 
 
+_toys = itertools.count()
+
+
+def launches(step) -> int:
+    """The launches a toy step counted, on its own counter."""
+    return metrics.get(step.counter)
+
+
 def toy_step(stop: int, mark: bool = True):
     """k += 1 and x = z + 1 until k reaches ``stop``, a frozen state after;
-    one launch of ``step.kernel`` a step, one tap a block."""
-    def kernel():
-        pass
-
-    kernel.launches = 0
-
+    one launch a step, counted on the step's own ``obs.metrics`` counter,
+    one tap a block."""
     def step(s: Toy) -> Toy:
-        kernel.launches += 1
+        metrics.inc(step.counter)
         live = ~s.done
         k = s.k + live.to(torch.int32)
         x = torch.where(live, s.z + 1, s.x)
@@ -116,9 +119,10 @@ def toy_step(stop: int, mark: bool = True):
     def flush():
         step.flushes += 1
 
-    step.kernel, step.flushes, step.flush = kernel, 0, flush
+    step.counter = f"test.toy_launches.{next(_toys)}"
+    step.flushes, step.flush = 0, flush
     if mark:
-        step.capturable = graphs.Capturable((kernel,))
+        step.capturable = graphs.Capturable()
     return step
 
 
@@ -147,7 +151,7 @@ def test_blocks_replay_and_the_tail_runs_eagerly(fake_graphs, done_reads):
     assert moved(before) == {"graph_captures": 1, "graph_replays": 2,
                              "eager_steps": 36}
     assert len(done_reads) == 4 and step.flushes == 4
-    assert step.kernel.launches == 100
+    assert launches(step) == 100
     # The block is cached: a new state replays from its first step.
     before = counters()
     t = drive(step, toy_state(), cap=100, check_every=32)
@@ -155,7 +159,7 @@ def test_blocks_replay_and_the_tail_runs_eagerly(fake_graphs, done_reads):
     assert moved(before) == {"graph_captures": 0, "graph_replays": 3,
                              "eager_steps": 4}
     assert len(done_reads) == 8 and step.flushes == 8
-    assert step.kernel.launches == 200
+    assert launches(step) == 200
 
 
 def test_a_done_state_stops_at_the_block_that_saw_it(fake_graphs,
@@ -166,7 +170,7 @@ def test_a_done_state_stops_at_the_block_that_saw_it(fake_graphs,
     assert int(s.k) == 40 and bool(s.done)
     assert moved(before) == {"graph_captures": 1, "graph_replays": 1,
                              "eager_steps": 32}
-    assert len(done_reads) == 2 and step.kernel.launches == 64
+    assert len(done_reads) == 2 and launches(step) == 64
 
 
 def test_a_state_out_of_shape_runs_eagerly_until_it_fits(fake_graphs):
@@ -218,17 +222,17 @@ def test_a_capture_whose_launches_miss_its_stream_is_refused(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: Handle(current[d]))
     dev = torch.device("cuda", 1)
-    block = graphs.Block((), 32)
-    launch = lambda: graphs.launch_stream(dev)
+    block = graphs.Block(32)
+    counted = lambda: launch.launch_stream(dev)
     current[dev] = 1                    # the capture's stream
-    assert callable(block._capture(launch, dev))
+    assert callable(block._capture(counted, dev))
     current[dev] = 2                    # the card's own stream
-    with pytest.raises(graphs.CaptureRefused,
+    with pytest.raises(launch.CaptureRefused,
                        match="0 counted .* and 1 to another"):
-        block._capture(launch, dev)
+        block._capture(counted, dev)
     assert callable(block._capture(lambda: None, dev))
-    assert graphs.launch_stream(dev) == 2   # outside a capture: no note
-    assert graphs._audit.streams is None
+    assert launch.launch_stream(dev) == 2   # outside a capture: no note
+    assert launch.audit.streams is None
 
 
 def test_a_block_that_swaps_its_canvases_is_never_replayed(fake_graphs):
@@ -238,7 +242,7 @@ def test_a_block_that_swaps_its_canvases_is_never_replayed(fake_graphs):
         s.spare.copy_(s.p + 1)
         return Swap(k=s.k + 1, done=s.done, p=s.spare, spare=s.p)
 
-    step.capturable = graphs.Capturable(())
+    step.capturable = graphs.Capturable()
     start = lambda: Swap(torch.zeros((), dtype=torch.int32),
                          torch.zeros((), dtype=torch.bool), torch.zeros(3),
                          torch.zeros(3))
@@ -255,7 +259,7 @@ CAPTURE_ERRORS = {
                          "is capturing"),
     "invalidated": RuntimeError("CUDA error: operation failed due to a "
                                 "previous error during capture"),
-    "refused": graphs.CaptureRefused("capture of a 32-step block: 0 counted "
+    "refused": launch.CaptureRefused("capture of a 32-step block: 0 counted "
                                      "kernel launches went to the capture's "
                                      "streams and 1 to another"),
 }
@@ -297,7 +301,7 @@ def test_a_capture_that_fails_leaves_the_block_to_the_eager_loop(
         assert len(attempts) == 1 and len(attempts[0]) == 4
         block = step.capturable.blocks[32]
         assert block.broken and block.state is None
-        assert step.kernel.launches == 200
+        assert launches(step) == 200
 
 
 @pytest.mark.parametrize("cards, error", [
@@ -353,6 +357,39 @@ def test_a_replay_adds_what_the_capturing_thread_counted(monkeypatch):
     assert metrics.get(name) - start == 100 + 1000
 
 
+def test_a_replay_re_adds_its_captured_launches_through_tally_alone(
+        fake_graphs, monkeypatch):
+    """A launch through ``ops.launch`` counts on ``ops.launches.<key>``:
+    the capture of a block takes its launches back and each replay adds
+    them again, as every other counter, by the capture's tally. The count
+    reads the eager loop's, and the block keeps no launch count of its
+    own."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: Handle(1))
+    calls = []
+    lib = types.SimpleNamespace(toy_launch=lambda *a: calls.append(a) or 0)
+    kernels = _build.Kernels(name="toy", lib=lib, path=None,
+                             build_seconds=0.0, log="")
+    inner = toy_step(stop=10 ** 6)
+
+    def step(s):
+        launch.launch(kernels, "toy_launch", "serial_sum",
+                      torch.device("cpu"), 7)
+        return inner(s)
+
+    step.capturable = graphs.Capturable()
+    launch.reset_launch_counts()
+    s = drive(step, toy_state(), cap=100, check_every=32)
+    assert int(s.k) == 100
+    # The eager block, the capture, two replays run by the fake, the tail.
+    assert len(calls) == 32 + 32 + 2 * 32 + 4
+    assert calls[0] == (7, 0, 1)      # the arguments, the card, the stream
+    assert launch.launch_counts() == {**dict.fromkeys(launch.launch_counts(),
+                                                      0), "serial_sum": 100}
+    block = step.capturable.blocks[32]
+    assert ("ops.launches.serial_sum", 32) in block.added
+    assert not any("launch" in name for name in vars(block))
+
+
 def test_an_unmarked_step_runs_the_plain_loop(fake_graphs, done_reads):
     step = toy_step(stop=10 ** 6, mark=False)
     before = counters()
@@ -360,7 +397,7 @@ def test_an_unmarked_step_runs_the_plain_loop(fake_graphs, done_reads):
     assert int(s.k) == 100 and s.z is s.x
     assert moved(before) == dict.fromkeys(before, 0)
     assert len(done_reads) == 4 and step.flushes == 4
-    assert step.kernel.launches == 100
+    assert launches(step) == 100
 
 
 def test_threads_never_replay_one_block_at_once(fake_graphs):
@@ -558,8 +595,7 @@ def test_card_captured_solve_is_the_eager_solve(card, eager_loop, kw):
     eager = fused_cg.fused_cg_solve(FLAGSHIP, device=card, **kw)
     eager_loop(False)
     fused_cg.fused_cg_solve(FLAGSHIP, device=card, **kw)     # captures
-    fused_cg.reset_launch_counts()
-    serial.reset_launch_counts()
+    launch.reset_launch_counts()
     before = counters()
     got = fused_cg.fused_cg_solve(FLAGSHIP, device=card, **kw)
     k = int(got.iterations)
@@ -569,13 +605,13 @@ def test_card_captured_solve_is_the_eager_solve(card, eager_loop, kw):
     assert moved(before) == {"graph_captures": 0,
                              "graph_replays": steps // 32,
                              "eager_steps": 0}
-    counts = fused_cg.launch_counts()
+    counts = launch.launch_counts("direction_and_stencil", "fused_update")
     form = "_blocked" if "bn" in kw else ""
     assert counts[f"direction_and_stencil{form}"] == steps
     assert counts[f"fused_update{form}"] == steps
     assert sum(counts.values()) == 2 * steps
-    assert serial.serial_sum.launches == (2 * steps if kw.get("serial")
-                                          else 0)
+    assert launch.launch_counts("serial_sum") == {
+        "serial_sum": 2 * steps if kw.get("serial") else 0}
 
 
 @pytest.mark.card

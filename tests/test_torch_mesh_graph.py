@@ -3,12 +3,12 @@ blocks (``solvers.graphs``).
 
 On the CPU the fake capture of ``test_torch_drive_graph.py`` stands in for
 a CUDA graph: it leaves the static state as it found it, and its replay
-runs the captured steps with the launch and mesh counters left as they
-were. With it the tests pin how the helpers carry a state whose fields
-are tuples of per-shard canvases, and which meshes mark their body. The
-tests marked ``card`` compare a replayed mesh solve with the eager one on
-CUDA cards (one card holding the whole 2x2 mesh, and every visible card)
-and skip without them. This file imports no JAX::
+runs the captured steps with the launch and mesh counters (``obs.metrics``)
+left as they were. With it the tests pin how the helpers carry a state
+whose fields are tuples of per-shard canvases, and which meshes mark their
+body. The tests marked ``card`` compare a replayed mesh solve with the
+eager one on CUDA cards (one card holding the whole 2x2 mesh, and every
+visible card) and skip without them. This file imports no JAX::
 
     python -m pytest --noconftest -p no:cacheprovider -m card \\
         tests/test_torch_mesh_graph.py
@@ -23,7 +23,7 @@ import torch
 
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.obs import metrics
-from poisson_tpu_torch.ops import fused_cg, serial
+from poisson_tpu_torch.ops import launch
 from poisson_tpu_torch.parallel import fused_sharded as fs
 from poisson_tpu_torch.parallel.mesh import Mesh, make_solver_mesh
 from poisson_tpu_torch.solvers import graphs
@@ -121,9 +121,7 @@ def test_the_marked_body_is_cached_with_its_canvases(marked):
     spec, canvases = fs.shard_canvases(P, mesh, 1)
     body = fs._make_sharded_body(P, spec, mesh, canvases)
     assert isinstance(body.capturable, graphs.Capturable)
-    assert body.capturable.wrappers == (fused_cg.direction_and_stencil,
-                                        fused_cg.fused_update,
-                                        serial.serial_sum)
+    assert body.capturable.blocks == {}
     assert fs._make_sharded_body(P, spec, mesh, canvases) is body
     run = fs.shard_run(P, spec, mesh, True)
     serial_body = fs._make_sharded_body(P, spec, mesh, canvases, run)
@@ -290,20 +288,11 @@ def eager_mesh(monkeypatch):
     return use
 
 
-def reset_launches() -> None:
-    fused_cg.reset_launch_counts()
-    serial.reset_launch_counts()
-
-
-def launches() -> dict:
-    return {**fused_cg.launch_counts(), **serial.launch_counts()}
-
-
 def run_counted(mesh, gate, **kw):
-    reset_launches()
+    launch.reset_launch_counts()
     before = counters()
     out = fs.fused_cg_solve_sharded(FLAGSHIP, mesh, rhs_gate=gate, **kw)
-    return out, launches(), moved(before)
+    return out, launch.launch_counts(), moved(before)
 
 
 @pytest.mark.card
@@ -356,21 +345,21 @@ def test_card_a_stray_launch_is_refused_and_the_solve_stays_right(
     eager_mesh(True)
     eager = fs.fused_cg_solve_sharded(FLAGSHIP, mesh, rhs_gate=1.03)
     eager_mesh(False)
-    real = fused_cg.launch_stream
+    real = launch.launch_stream
     # High priority: never one of the pooled streams a capture takes.
     outside = {d: torch.cuda.Stream(d, priority=-1)
                for d in set(mesh.devices)}
 
     def astray(device):
-        if getattr(graphs._audit, "streams", None) is None:
+        if getattr(launch.audit, "streams", None) is None:
             return real(device)
         with torch.cuda.stream(outside[device]):
             return real(device)
 
-    monkeypatch.setattr(fused_cg, "launch_stream", astray)
+    monkeypatch.setattr(launch, "launch_stream", astray)
     before = counters()
     if where == "one-card":
-        with pytest.raises(graphs.CaptureRefused, match="to another"):
+        with pytest.raises(launch.CaptureRefused, match="to another"):
             fs.fused_cg_solve_sharded(FLAGSHIP, mesh, rhs_gate=1.03)
         torch.cuda.synchronize()
         counts = moved(before)

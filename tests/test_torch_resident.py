@@ -18,7 +18,7 @@ from poisson_tpu.ops import pallas_cg, pallas_resident
 from poisson_tpu.solvers.pcg import pcg_solve as jax_pcg_solve
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.interop import canvases_from_reference
-from poisson_tpu_torch.ops import fused_cg, resident
+from poisson_tpu_torch.ops import fused_cg, launch, resident
 
 
 @pytest.fixture(autouse=True)
@@ -152,6 +152,6 @@ def test_zero_rhs_stops_cleanly():
 
 
 def test_cpu_solve_launches_no_kernel():
-    resident.reset_launch_counts()
+    launch.reset_launch_counts()
     resident.resident_cg_solve(Problem(M=24, N=24), device="cpu")
-    assert resident.launch_counts() == {"resident_solve": 0}
+    assert launch.launch_counts("resident_solve") == {"resident_solve": 0}

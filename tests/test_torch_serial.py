@@ -25,7 +25,7 @@ from poisson_tpu.config import Problem as JaxProblem
 from poisson_tpu.ops import pallas_ca, pallas_cg
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.interop import canvases_from_reference
-from poisson_tpu_torch.ops import ca_cg, fused_cg, serial
+from poisson_tpu_torch.ops import ca_cg, fused_cg, launch, serial
 from poisson_tpu_torch.ops.fused_cg import HALO
 from poisson_tpu_torch.parallel import ca_sharded, fused_sharded, mesh
 
@@ -205,6 +205,6 @@ def test_serial_sharded_counts_on_a_cpu_mesh(path):
 
 
 def test_serial_mode_counts_no_kernel_launch_on_the_cpu():
-    serial.reset_launch_counts()
+    launch.reset_launch_counts()
     fused_cg.fused_cg_solve(Problem(M=24, N=24), device="cpu", serial=True)
-    assert serial.launch_counts() == {"serial_sum": 0}
+    assert launch.launch_counts("serial_sum") == {"serial_sum": 0}

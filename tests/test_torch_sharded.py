@@ -41,7 +41,7 @@ from poisson_tpu.utils.compat import shard_map
 from poisson_tpu_torch import cli
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.interop import shard_canvases_from_reference
-from poisson_tpu_torch.ops import fused_cg
+from poisson_tpu_torch.ops import fused_cg, launch
 from poisson_tpu_torch.ops.fused_cg import HALO
 from poisson_tpu_torch.parallel import fused_sharded, halo, mesh
 
@@ -292,10 +292,11 @@ def test_done_state_is_frozen():
 
 
 def test_cpu_sharded_solve_launches_no_kernel():
-    fused_cg.reset_launch_counts()
+    launch.reset_launch_counts()
     fused_sharded.fused_cg_solve_sharded(Problem(M=24, N=24),
                                          _cpu_mesh((1, 2)))
-    assert not any(fused_cg.launch_counts().values())
+    assert not any(launch.launch_counts("direction_and_stencil",
+                                        "fused_update").values())
 
 
 def test_cli_mesh_choice():
