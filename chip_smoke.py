@@ -852,6 +852,84 @@ def serial_chain_bound(sr, parts, run: int) -> dict:
             "chain_bound_us": ops * FADD_CYCLES / sm_clock_mhz()}
 
 
+# The recurrence's kernels (``ops.recurrence``), one thread each: the links
+# of the longer dependent chain of each (the IEEE divide and square root
+# counted as eight links each), the floor under a one-thread kernel's time
+# at FADD_CYCLES a link; and the bytes each launch reads and writes.
+RECURRENCE_CHAIN = {"recurrence_step": 12, "recurrence_close": 12}
+RECURRENCE_BYTES = {"recurrence_step": 14, "recurrence_close": 47}
+RECURRENCE_REPS = 500
+
+
+def check_recurrence(card: str) -> dict:
+    """The scalar recurrence's two kernels on the card against their plain
+    version (the torch operations they replaced) on a few states, bit for
+    bit (``tests/test_torch_recurrence.py`` sweeps many more), and each
+    timed by the profiler per launch beside the plain version's kernels per
+    call. Returns the line it prints."""
+    import types
+
+    from poisson_tpu_torch.config import FLAGSHIP
+    from poisson_tpu_torch.ops.recurrence import Recurrence
+
+    dev = torch.device("cuda")
+    rec = Recurrence(FLAGSHIP, dev)
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    def state(done, zr):
+        return types.SimpleNamespace(k=t(7, torch.int32), done=t(done, None),
+                                     zr=t(zr), beta=t(0.9), diff=t(1e-2))
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x.view(torch.int32) if x.is_floating_point()
+                               else x, y.view(torch.int32)
+                               if y.is_floating_point() else y)
+                   for x, y in zip(a, b))
+
+    for denom, done, zr in ((1.5e6, False, 3.0), (1.5e6, True, 3.0),
+                            (0.0, False, 3.0), (-1.5e6, False, 0.0)):
+        s = state(done, zr)
+        got = rec.step_size(s, t(denom))
+        check(same(got, rec.step_size_plain(s, t(denom))),
+              f"recurrence_step: not its plain version's bits at denom "
+              f"{denom}, done {done}, zr {zr}")
+        sums = (t(1e-3), t(2.0))
+        closed = rec.close(s, *got, *sums)
+        plain = rec.close_plain(s, *got, *sums)
+        check(same(closed.values(), plain.values()),
+              f"recurrence_close: not its plain version's bits at denom "
+              f"{denom}, done {done}, zr {zr}")
+    s = state(False, 3.0)
+    denom, sums = t(1.5e6), (t(1e-3), t(2.0))
+    alpha, deg = rec.step_size(s, denom)
+    runs = {"recurrence_step": (lambda: rec.step_size(s, denom),
+                                lambda: rec.step_size_plain(s, denom)),
+            "recurrence_close": (lambda: rec.close(s, alpha, deg, *sums),
+                                 lambda: rec.close_plain(s, alpha, deg,
+                                                         *sums))}
+    line = {}
+    for name, (kernel, plain) in runs.items():
+        ms = kernel_device_ms(kernel, RECURRENCE_REPS, f"{name}_kernel")
+        check(ms is not None, f"{name}: the profiler saw no launch")
+        seen, _ = profile_kernels(
+            lambda: [plain() for _ in range(RECURRENCE_REPS)])
+        line[name] = {
+            "us_per_launch": ms * 1e3,
+            "plain_us_per_call": sum(us for _, us in (seen or {}).values())
+            / RECURRENCE_REPS,
+            "plain_launches_per_call": sum(n for n, _ in (seen or {}).values())
+            / RECURRENCE_REPS,
+            "bytes": RECURRENCE_BYTES[name],
+            "chain_links": RECURRENCE_CHAIN[name],
+            "chain_bound_us": RECURRENCE_CHAIN[name] * FADD_CYCLES
+            / sm_clock_mhz(),
+            "bitwise_vs_plain": True}
+    print(f"recurrence kernels [{card}]: {json.dumps(line)}", flush=True)
+    return line
+
+
 def check_kernels(M: int, N: int, fc, ca, sr, results: dict, errors: dict):
     """Phase 3 at one grid: kernels A, B, C, D vs their plain versions, and
     kernel S vs its plain version on their partials, in the serial mode's
@@ -1256,6 +1334,16 @@ FUSED = ("direction_and_stencil", "fused_update")
 CA = ("basis_sweep", "pair_update")
 RESIDENT = ("resident_solve",)
 SERIAL = ("serial_sum",)
+# The fused iteration's scalar recurrence (``ops.recurrence``): one launch
+# of each a driven step of the fused or the sharded body on a card (on the
+# mesh's lead card, whatever the shards), none on the CA paths.
+RECURRENCE = ("recurrence_step", "recurrence_close")
+
+
+def recurrence_counts(steps: int) -> dict:
+    """The launches of the recurrence's kernels over ``steps`` driven steps
+    of the fused or the sharded body."""
+    return dict.fromkeys(RECURRENCE, steps)
 
 
 class LaunchGate:
@@ -1358,8 +1446,16 @@ def check_sharded_replays(mesh, label: str) -> None:
               f"fused-sharded {label}: {wrapper[name]} {name} launches "
               f"counted, {on_card} {symbol} seen by the profiler, for "
               f"{mesh.size} shards x {steps} driven steps")
+    recurrence = launch.launch_counts(*RECURRENCE)
+    for name in RECURRENCE:
+        on_card = sum(n for key, (n, _) in (seen or {}).items()
+                      if named(key, f"{name}_kernel"))
+        check(recurrence[name] == on_card == steps,
+              f"fused-sharded {label}: {recurrence[name]} {name} launches "
+              f"counted, {on_card} seen by the profiler, for {steps} "
+              "driven steps on the lead card")
     print(f"replayed launches on the fused-sharded path, {label}: "
-          f"{json.dumps(wrapper)} (the profiler: "
+          f"{json.dumps({**wrapper, **recurrence})} (the profiler: "
           f"{mesh.size} shards x {steps} steps), drive: {json.dumps(moved)}",
           flush=True)
 
@@ -3316,7 +3412,8 @@ def multiprocess_worker(rank: int, coordinator: str, out: str,
                                per_step)
                  + chunk_steps(0, int(timed_r.iterations), cap, cap,
                                CHECK_EVERY, per_step))
-        launched = sharded_counts(launch.launch_counts(*wrappers))
+        launched = {**sharded_counts(launch.launch_counts(*wrappers)),
+                    **launch.launch_counts(*RECURRENCE)}
         arrays[tag] = resumed.w.cpu().numpy()
         arrays[f"{tag}_timed"] = timed_r.w.cpu().numpy()
         report[path] = {
@@ -3485,6 +3582,13 @@ def check_multiprocess(mesh, fs, cs_, ps, card: str, root: str) -> dict:
                               f"rank {r}: {name}_sharded launched {got} "
                               f"times, expected {MP_SHARDS} shards x "
                               f"{rec['steps']} steps")
+                    got = {name: rec["launches"].get(name)
+                           for name in RECURRENCE}
+                    check(got == recurrence_counts(
+                        rec["steps"] if path == "fused-sharded" else 0),
+                          f"multi-process {backend} {path} rank {r}: "
+                          f"recurrence launches {got} for {rec['steps']} "
+                          "steps")
                 rec = lead[path]
                 k = rec["timed_iterations"]
                 one_s, one_k = single[path]
@@ -3634,6 +3738,10 @@ def main() -> None:
     big_r, big_s = timed(lambda: fc.fused_cg_solve(big))
     counts.update(single_counts(gate.counts(*FUSED)))
     no_serial("fused")
+    check(gate.counts(*RECURRENCE)
+          == recurrence_counts(counts["direction_and_stencil"]),
+          f"fused: recurrence launches {gate.counts(*RECURRENCE)}, expected "
+          f"one of each per launch of A ({counts['direction_and_stencil']})")
     check(not any(blocked_counts(gate.counts(*FUSED)).values()),
           "fused: a column-blocked kernel was launched at full width")
 
@@ -3686,6 +3794,14 @@ def main() -> None:
         check(wrapper[name] == on_card == steps,
               f"{name}: {wrapper[name]} launches counted, {on_card} "
               f"{symbol} seen by the profiler, for {steps} driven steps")
+    recurrence = gate.counts(*RECURRENCE)
+    for name in RECURRENCE:
+        on_card = sum(n for k, (n, _) in (seen or {}).items()
+                      if named(k, f"{name}_kernel"))
+        check(recurrence[name] == on_card == steps,
+              f"{name}: {recurrence[name]} launches counted, {on_card} seen "
+              f"by the profiler, for {steps} driven steps")
+    check_recurrence(card)
 
     elapsed("fused")
     # --- the resident path (kernel R): one launch per solve.
@@ -3857,6 +3973,10 @@ def main() -> None:
             check(n == shards * steps,
                   f"{path}: {name} launched {n} times, expected "
                   f"{shards} shards x {steps} steps")
+        check(gate.counts(*RECURRENCE) == recurrence_counts(
+            steps if path == "fused-sharded" else 0),
+              f"{path}: recurrence launches {gate.counts(*RECURRENCE)} "
+              f"for {steps} steps")
         counts.update(sharded_counts(launched))
     check_sharded_replays(mesh, "2x2 on one card")
 
@@ -3979,7 +4099,8 @@ def main() -> None:
         steps += (runs + (runs > 1)) * driven_steps(k, p.iteration_cap,
                                                     CHECK_EVERY)
     gate.expect(f"the blocked path ({steps} steps)",
-                  {name: steps for name in blk})
+                  {**{name: steps for name in blk},
+                   **recurrence_counts(steps)})
     counts.update({name: steps for name in blk})
 
     elapsed("blocked")
@@ -3992,20 +4113,20 @@ def main() -> None:
                               CHECK_EVERY)
     counts["serial_sum"] = 0
     serial_oneshot = {}
-    for path, solve, names, n in (
+    for path, solve, names, n, rec_n in (
             ("fused", lambda: fc.fused_cg_solve(FLAGSHIP, serial=True), full,
-             steps),
+             steps, steps),
             ("blocked bn=256", lambda: fc.fused_cg_solve(FLAGSHIP, bn=256,
                                                          serial=True), blk,
-             steps),
+             steps, steps),
             ("ca", lambda: ca.ca_cg_solve(FLAGSHIP, serial=True), cd,
-             pair_steps),
+             pair_steps, 0),
             ("fused-sharded", lambda: fs.fused_cg_solve_sharded(
                 FLAGSHIP, mesh, serial=True),
-             tuple(f"{k}_sharded" for k in full), shards * steps),
+             tuple(f"{k}_sharded" for k in full), shards * steps, steps),
             ("ca-sharded", lambda: cs_.ca_cg_solve_sharded(
                 FLAGSHIP, mesh, serial=True),
-             tuple(f"{k}_sharded" for k in cd), shards * pair_steps)):
+             tuple(f"{k}_sharded" for k in cd), shards * pair_steps, 0)):
         gate.reset()
         r, sec = timed(solve)
         k = int(r.iterations)
@@ -4014,7 +4135,8 @@ def main() -> None:
         gap = float((r.w.double() - w64.w).abs().max())
         check(gap <= ITERATE_TOL, f"serial {path}: iterate {gap} from fp64")
         gate.expect(f"the serial {path} path",
-                      {**{name: n for name in names}, "serial_sum": 2 * n})
+                      {**{name: n for name in names}, "serial_sum": 2 * n,
+                       **recurrence_counts(rec_n)})
         counts["serial_sum"] += 2 * n
         solve_line(f"serial {path}", FLAGSHIP, r, sec,
                    l2_error_host(FLAGSHIP, r.w),
@@ -4035,7 +4157,8 @@ def main() -> None:
         check(k == WIDE["max_iter"], f"wide {label}: {k} iterations")
         check(bool(torch.isfinite(r.w).all()), f"wide {label}: non-finite")
         gate.expect(f"the wide probe {label}",
-                      {name: k for name in (blk if cv.cg else full)})
+                      {**{name: k for name in (blk if cv.cg else full)},
+                       **recurrence_counts(k)})
         probe[label] = (r, {
             "canvas": [cv.rows, cv.cols], "bn": cv.bn, "ncb": cv.ncb,
             "seconds": sec, "us_per_iter": sec / k * 1e6,
@@ -4081,17 +4204,19 @@ def main() -> None:
 
         def resume(name: str):
             return counted(f"{name} resume", fc.fused_cg_solve_checkpointed,
-                           FLAGSHIP, full, CKPT_CAP)
+                           FLAGSHIP, full + RECURRENCE, CKPT_CAP)
 
         drills = {}
         one = counted("chunks", fc.fused_cg_solve_checkpointed, FLAGSHIP,
-                      full)
+                      full + RECURRENCE)
         drills["chunks"] = (one, torch.equal(one.w, fused.w))
-        capped_write("resume", fc.fused_cg_solve_checkpointed, full)
+        capped_write("resume", fc.fused_cg_solve_checkpointed,
+                     full + RECURRENCE)
         got = resume("resume")
         drills["resume"] = (got, torch.equal(got.w, fused.w))
         capped_write("blocked", lambda p, f, chunk:
-                     fc.fused_cg_solve_checkpointed(p, f, chunk, bn=256), blk)
+                     fc.fused_cg_solve_checkpointed(p, f, chunk, bn=256),
+                     blk + RECURRENCE)
         drills["blocked_to_full_width"] = (resume("blocked"), None)
         capped_write("ca", ca.ca_cg_solve_checkpointed, cd, per_step=2)
         drills["ca_to_fused"] = (resume("ca"), None)
@@ -4158,6 +4283,8 @@ def main() -> None:
                 want = {name: n for name in names}
                 if serial:
                     want["serial_sum"] = 2 * n
+                if path == "fused-sharded":
+                    want.update(recurrence_counts(n // shards))
                 gate.expect(f"mesh drill {path} {label} ({n} shard steps)",
                               want)
                 return r
@@ -4290,7 +4417,8 @@ def main() -> None:
     gate.reset()
     ab = check_front_door(fc, pcg_solve, fp64, card)
     gate.expect("the measurement phase",
-                  {"direction_and_stencil": ab, "fused_update": ab})
+                  {"direction_and_stencil": ab, "fused_update": ab,
+                   **recurrence_counts(ab)})
 
     elapsed("measurement")
     # --- the service phase: the solve service on the card and the chaos
@@ -4306,7 +4434,8 @@ def main() -> None:
     gate.reset()
     ab = check_tooling(pcg_solve, metrics, card, root)
     gate.expect("the tooling phase",
-                  {"direction_and_stencil": ab, "fused_update": ab})
+                  {"direction_and_stencil": ab, "fused_update": ab,
+                   **recurrence_counts(ab)})
 
     elapsed("tooling")
     # --- the multi-process phase: two ranks of this script, each driving
@@ -4318,7 +4447,8 @@ def main() -> None:
         "direction_and_stencil_sharded": mp["fused-sharded"],
         "fused_update_sharded": mp["fused-sharded"],
         "basis_sweep_sharded": mp["ca-sharded"],
-        "pair_update_sharded": mp["ca-sharded"]})
+        "pair_update_sharded": mp["ca-sharded"],
+        **recurrence_counts(mp["fused-sharded"] // mesh.size)})
 
     elapsed("multiprocess")
     for time_it in timers:
@@ -4487,7 +4617,8 @@ def main() -> None:
     gate.reset()
     ab = check_capture(fc, pcg_solve, metrics, card, root)
     gate.expect("the measurement capture",
-                  {"direction_and_stencil": ab, "fused_update": ab})
+                  {"direction_and_stencil": ab, "fused_update": ab,
+                   **recurrence_counts(ab)})
 
     elapsed("timers and profiles")
     line = []

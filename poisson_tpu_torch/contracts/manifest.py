@@ -310,7 +310,8 @@ class KernelSpec:
 
 
 KERNEL_SOURCES: Tuple[KernelSpec, ...] = (
-    KernelSpec("fused_cg", "A, B and their sharded forms"),
+    KernelSpec("fused_cg", "A, B and their sharded forms; the recurrence's "
+               "two halves"),
     KernelSpec("ca_cg", "C, D and their sharded forms"),
     KernelSpec("resident_cg", "R"),
     KernelSpec("blocked_cg", "A′, B′"),

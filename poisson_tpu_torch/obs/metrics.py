@@ -29,8 +29,11 @@ The names the port emits:
   one add a launch, by the wrapper's form: ``direction_and_stencil`` and
   ``fused_update`` (A, B; with ``_sharded`` their masked forms, with
   ``_blocked`` A′, B′), ``basis_sweep`` and ``pair_update`` (C, D; with
-  ``_sharded``), ``resident_solve`` (R) and ``serial_sum`` (S); a
-  replayed block adds what its capture counted, as to every counter;
+  ``_sharded``), ``resident_solve`` (R), ``serial_sum`` (S), and
+  ``recurrence_step`` and ``recurrence_close`` (the fused iteration's
+  scalar recurrence, ``ops.recurrence``: one of each an iteration on a
+  card, none on the CPU); a replayed block adds what its capture counted,
+  as to every counter;
 - ``time.compile_seconds`` / ``time.execute_seconds`` — accumulating float
   counters: the first call's extra time (kernel build and load, canvas
   setup) and the timed solves;

@@ -112,6 +112,13 @@ ENTRIES = {
         # alpha p ap sc2 colmask w r diff_part zr_part | cols halo blocks
         # device | stream
         "fused_cg_update": ([_PTR] * 9 + [_I32] * 4 + [_PTR], _I32),
+        # denom_sum zr done alpha degenerate | h1h2 | device | stream
+        "fused_cg_recurrence_step": ([_PTR] * 5 + [_F32, _I32, _PTR], _I32),
+        # alpha degenerate diff_sum zr_sum k done zr beta diff k_out
+        # done_out zr_out beta_out diff_out | h1h2 norm_w delta | device
+        # | stream
+        "fused_cg_recurrence_close": ([_PTR] * 14 + [_F32] * 3
+                                      + [_I32, _PTR], _I32),
     },
     "ca_cg": {
         "ca_cg_layout": ([_I32_OUT] * 4, None),

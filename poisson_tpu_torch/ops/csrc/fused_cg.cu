@@ -1,11 +1,14 @@
-// Kernels A and B of the fused two-sweep PCG iteration, for Hopper (sm_90a).
+// Kernels A and B of the fused two-sweep PCG iteration, for Hopper (sm_90a),
+// and the two halves of its scalar recurrence.
 //
 // Built by poisson_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes; the
 // Python wrappers are direction_and_stencil and fused_update in
-// poisson_tpu_torch/ops/fused_cg.py, each beside its plain PyTorch version.
+// poisson_tpu_torch/ops/fused_cg.py, each beside its plain PyTorch version,
+// and Recurrence.step_size and Recurrence.close in
+// poisson_tpu_torch/ops/recurrence.py, beside theirs (the *_plain methods).
 //
 // Kernel A, direction_stencil, replaces the Pallas kernel
 // poisson_tpu/ops/pallas_cg.py:_make_direction_stencil_kernel (pallas_call in
@@ -236,6 +239,71 @@ fused_update_sharded(const float* __restrict__ alpha,
                           zr_part, cols, halo, diff_slots, zr_slots);
 }
 
+// The scalar recurrence of one iteration, which the fused body and the
+// sharded one (on the mesh's lead card) run between the sweeps:
+// recurrence_step between A's sum and B, recurrence_close after B's two
+// sums. Each is one thread of one block: a chain of about a dozen dependent
+// scalar operations on a few 0-d tensors, bound by its latency, never by
+// bytes or flops. Each replaces the torch operations of its plain version
+// (7 and 17 of them, each one small kernel or more) by one launch.
+//
+// Every operation is rounded alone, as each torch operation rounds its
+// result: explicit round-to-nearest intrinsics, so nothing is contracted
+// into a multiply-add, and IEEE division and square root, so α, ζ, β and
+// diff are the plain version's bits. The constants h1·h2, the norm's
+// weight and δ come in by value, as the fp32 values the plain version's
+// tensors hold. kDenomTol is the degenerate-direction guard
+// (solvers/pcg.py _DENOM_TOL): torch compares an fp32 tensor with that
+// Python float in fp32, so the kernel compares with it rounded to fp32.
+constexpr float kDenomTol = 1e-15f;
+
+// α and `degenerate` from Σ⟨Ap, p⟩: denom = Σ·h1h2; a direction with
+// |denom| < kDenomTol is degenerate and gets α = 0, as does a done state;
+// else α = ζ / denom.
+__global__ void __launch_bounds__(1)
+recurrence_step_kernel(const float* __restrict__ denom_sum,
+                       const float* __restrict__ zr,
+                       const bool* __restrict__ done,
+                       float* __restrict__ alpha,
+                       bool* __restrict__ degenerate, float h1h2) {
+  const float denom = __fmul_rn(*denom_sum, h1h2);
+  const bool deg = fabsf(denom) < kDenomTol;
+  *alpha = (deg || *done) ? 0.0f : __fdiv_rn(*zr, denom);
+  *degenerate = deg;
+}
+
+// k, done, ζ, β and diff after the step, from α, `degenerate`, Σ p²·sc²
+// and Σ r²: diff = |α|·sqrt(Σ p²·sc² · norm_w), ζ' = Σ r²·h1h2,
+// β = ζ' / ζ (ζ = 0 read as 1), done once degenerate or diff < δ. A done
+// state is frozen: k, ζ, β and diff keep their values.
+__global__ void __launch_bounds__(1)
+recurrence_close_kernel(const float* __restrict__ alpha,
+                        const bool* __restrict__ degenerate,
+                        const float* __restrict__ diff_sum,
+                        const float* __restrict__ zr_sum,
+                        const int* __restrict__ k,
+                        const bool* __restrict__ done,
+                        const float* __restrict__ zr,
+                        const float* __restrict__ beta,
+                        const float* __restrict__ diff,
+                        int* __restrict__ k_out, bool* __restrict__ done_out,
+                        float* __restrict__ zr_out,
+                        float* __restrict__ beta_out,
+                        float* __restrict__ diff_out, float h1h2,
+                        float norm_w, float delta) {
+  const float d = __fmul_rn(fabsf(*alpha),
+                            __fsqrt_rn(__fmul_rn(*diff_sum, norm_w)));
+  const float zr_new = __fmul_rn(*zr_sum, h1h2);
+  const bool frozen = *done;
+  const float zr_old = *zr;
+  *k_out = frozen ? *k : *k + 1;
+  *done_out = frozen || *degenerate || d < delta;
+  *zr_out = frozen ? zr_old : zr_new;
+  *beta_out = frozen ? *beta
+                     : __fdiv_rn(zr_new, zr_old == 0.0f ? 1.0f : zr_old);
+  *diff_out = frozen ? *diff : d;
+}
+
 }  // namespace
 
 extern "C" {
@@ -284,6 +352,35 @@ int fused_cg_update(const float* alpha, const float* p, const float* ap,
     fused_update_sharded<<<blocks, kBlock, 0, stream>>>(
         alpha, p, ap, sc2, colmask, w, r, diff_part, zr_part, cols, halo);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The recurrence's two halves, each one thread on `stream`. The outputs are
+// fresh tensors, none aliasing an input.
+int fused_cg_recurrence_step(const float* denom_sum, const float* zr,
+                             const bool* done, float* alpha,
+                             bool* degenerate, float h1h2, int device,
+                             cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  recurrence_step_kernel<<<1, 1, 0, stream>>>(denom_sum, zr, done, alpha,
+                                              degenerate, h1h2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fused_cg_recurrence_close(const float* alpha, const bool* degenerate,
+                              const float* diff_sum, const float* zr_sum,
+                              const int* k, const bool* done,
+                              const float* zr, const float* beta,
+                              const float* diff, int* k_out, bool* done_out,
+                              float* zr_out, float* beta_out,
+                              float* diff_out, float h1h2, float norm_w,
+                              float delta, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  recurrence_close_kernel<<<1, 1, 0, stream>>>(
+      alpha, degenerate, diff_sum, zr_sum, k, done, zr, beta, diff, k_out,
+      done_out, zr_out, beta_out, diff_out, h1h2, norm_w, delta);
   return static_cast<int>(cudaGetLastError());
 }
 

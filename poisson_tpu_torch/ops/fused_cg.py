@@ -41,11 +41,12 @@ band widened past the centre rows and a column mask on the sums.
 Each kernel wrapper launches its CUDA kernel for CUDA tensors, counted
 (``ops.launch``); for CPU tensors, and only for them, it runs the kernel's
 plain PyTorch version (``*_plain``), which repeats its arithmetic in the same
-order. The partial sums across blocks, and the scalar recurrence (α, diff,
-ζ, β, the stop test; ``ops.recurrence``), are plain tensor code on the
-device: α and β reach the kernels through device pointers, and nothing in
-the loop reads a value back except ``done`` once every ``check_every``
-iterations (``solvers.pcg.drive``). The serial-reduce mode (``serial=True``)
+order. The partial sums across blocks are plain tensor code on the
+device; the scalar recurrence (α, diff, ζ, β, the stop test;
+``ops.recurrence``) is two one-thread kernels on a card and its plain
+version elsewhere. α and β reach the kernels through device pointers, and
+nothing in the loop reads a value back except ``done`` once every
+``check_every`` iterations (``solvers.pcg.drive``). The serial-reduce mode (``serial=True``)
 sums each partials vector with kernel S instead (``ops.serial``), in the
 order of the JAX package's ``serial=True`` kernels.
 

@@ -1,8 +1,10 @@
 """The one path of every kernel launch (kernels A, A′, B, B′, C, D, R and
-S): :func:`launch` calls a library's C entry on the current stream of its
+S, and the two halves of the fused iteration's scalar recurrence):
+:func:`launch` calls a library's C entry on the current stream of its
 card, checks the code it returns and counts the launch in ``obs.metrics``
 as ``ops.launches.<key>``: the wrapper's name, with ``_sharded`` for its
-column-masked form and ``_blocked`` for kernels A′, B′ (:data:`FORMS`). A
+column-masked form and ``_blocked`` for kernels A′, B′ (:data:`FORMS`);
+``recurrence_step`` and ``recurrence_close`` for the recurrence. A
 block replayed as a captured CUDA graph (``solvers.graphs``) calls no
 wrapper: it adds to these counters, as to every other, what its capture
 counted.
@@ -32,6 +34,8 @@ FORMS = {
     "pair_update": ("", "_sharded"),
     "resident_solve": ("",),
     "serial_sum": ("",),
+    "recurrence_step": ("",),
+    "recurrence_close": ("",),
 }
 
 audit = threading.local()

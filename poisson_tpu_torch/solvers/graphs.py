@@ -1,7 +1,7 @@
 """Blocks of :func:`solvers.pcg.drive` replayed as captured CUDA graphs.
 
-On the card one fused step (``ops.fused_cg``) is two hand-written kernels
-and some thirty small torch operations. Queueing them from Python costs the
+On the card one fused step (``ops.fused_cg``) is a handful of kernel
+launches and small torch operations. Queueing them from Python costs the
 host about a millisecond a step, many times what the card spends on them,
 so the host, not the card, sets the pace of the loop. A step that carries a
 :class:`Capturable` mark has each block of ``check_every`` steps captured

@@ -342,13 +342,16 @@ def test_kernel_launch_configuration_is_read_off_the_source():
     launch = manifest.kernel_entry(spec)
     assert set(launch["globals"]) == {
         "direction_stencil_kernel", "direction_stencil_sharded",
-        "fused_update_kernel", "fused_update_sharded"}
+        "fused_update_kernel", "fused_update_sharded",
+        "recurrence_step_kernel", "recurrence_close_kernel"}
     src = (Path(ROOT) / "poisson_tpu_torch/ops/csrc/fused_cg.cu").read_text()
     cfg = manifest.launch_configuration(src)
     assert cfg["constants"]["kBlock"] == "256"
     assert cfg["globals"]["fused_update_kernel"] == "kBlock"
     assert "fused_update_kernel<<<blocks, kBlock, 0, stream>>>" in \
         cfg["launches"]
+    assert cfg["globals"]["recurrence_close_kernel"] == "1"
+    assert "recurrence_step_kernel<<<1, 1, 0, stream>>>" in cfg["launches"]
     assert manifest.nvcc_command("fused_cg")[0] == "nvcc"
     assert "arch=compute_90a,code=sm_90a" in manifest.nvcc_command(
         "fused_cg")

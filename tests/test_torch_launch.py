@@ -12,9 +12,11 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
+from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.obs import metrics
-from poisson_tpu_torch.ops import _build, launch
+from poisson_tpu_torch.ops import _build, fused_cg, launch
 
 OPS = Path(launch.__file__).resolve().parent
 ROOT = OPS.parents[1]
@@ -57,6 +59,43 @@ def test_every_kernel_entry_is_launched_through_the_one_helper():
     keys = set(launch.launch_counts())
     for name, entry, used in launches():
         assert used and used <= keys, (name, entry, used)
+
+
+def test_the_recurrence_kernels_launch_through_the_helper():
+    """The scalar recurrence's two kernels have a key each, of one form,
+    and ``ops/recurrence.py`` launches each C entry under its own key."""
+    assert launch.FORMS["recurrence_step"] == ("",)
+    assert launch.FORMS["recurrence_close"] == ("",)
+    assert {"fused_cg_recurrence_step", "fused_cg_recurrence_close"} <= set(
+        _build.ENTRIES["fused_cg"])
+    ours = [(entry, used) for name, entry, used in launches()
+            if name == "recurrence.py"]
+    assert sorted(ours) == [("fused_cg_recurrence_close",
+                             {"recurrence_close"}),
+                            ("fused_cg_recurrence_step",
+                             {"recurrence_step"})]
+
+
+@pytest.mark.card
+def test_card_a_replayed_block_re_adds_one_recurrence_launch_a_step():
+    """On a card a replayed block of the fused body adds one launch of
+    each recurrence kernel a step, as the eager steps count them."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card visible: blocks are captured on a card "
+                    "only")
+    card = torch.device("cuda", 0)
+    p = Problem(M=400, N=600)
+    fused_cg.fused_cg_solve(p, device=card)          # captures its block
+    launch.reset_launch_counts()
+    names = ("graph_replays", "eager_steps")
+    before = {n: metrics.get(f"pcg.drive.{n}") for n in names}
+    r = fused_cg.fused_cg_solve(p, device=card)
+    moved = {n: metrics.get(f"pcg.drive.{n}") - before[n] for n in names}
+    steps = -(-int(r.iterations) // 32) * 32
+    assert int(r.iterations) == 546
+    assert moved == {"graph_replays": steps // 32, "eager_steps": 0}
+    assert launch.launch_counts("recurrence_step", "recurrence_close") == {
+        "recurrence_step": steps, "recurrence_close": steps}
 
 
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: p.name)
