@@ -55,6 +55,11 @@ The names the port emits:
   of a mesh over processes (``parallel.halo``): bytes this process sent to
   other ranks (halo slices, its share of each all-gather), and copies
   staged from a card to host memory for gloo (each a host sync);
+- ``pcg.setup.fields_in`` / ``pcg.setup.fields_in_bytes`` — the plain
+  solve's fields copied up from the host's fp64 cache
+  (``solvers.pcg.solve_fields`` on the reference ellipse, one add a call):
+  calls, and the bytes of a, b, the right-hand side and the diagonal in
+  the state's precision;
 - ``mesh.halo_copies`` / ``mesh.halo_bytes`` / ``mesh.sums`` /
   ``mesh.replicas`` — the mesh's traffic between shards
   (``parallel.halo``, one add a call): halo slices this process copied

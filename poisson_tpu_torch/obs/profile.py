@@ -26,14 +26,15 @@ The hot path carries unfenced ranges of its own (:func:`region`, the
 port's own; the JAX package has no counterpart): ``pcg.drive.enqueue`` and
 ``pcg.drive.check`` around each block of ``solvers.pcg.drive``,
 ``stage.rhs_in`` and ``stage.w_out`` around the host staging of
-``ops.fused_cg``, and ``mesh.halo``, ``mesh.sum`` and ``mesh.replicate``
-around the halo exchange, the mesh-order sums and the scalar broadcasts of
-``parallel.halo``. A range exists only while a profiler runs, whichever
-started it (:func:`capture`, or a caller's own ``torch.profiler``), and is
-then a host operator on the profiler's clock beside the card's
-activities; it is never an event on the card, and never a recorder event,
-so a plain solve leaves the recorder unconfigured and its logs as the JAX
-package writes them.
+``ops.fused_cg``, ``stage.fields_in`` around the copies up of the plain
+solve's fields (``solvers.pcg.solve_fields``), and ``mesh.halo``,
+``mesh.sum`` and ``mesh.replicate`` around the halo exchange, the
+mesh-order sums and the scalar broadcasts of ``parallel.halo``. A range
+exists only while a profiler runs, whichever started it (:func:`capture`,
+or a caller's own ``torch.profiler``), and is then a host operator on the
+profiler's clock beside the card's activities; it is never an event on
+the card, and never a recorder event, so a plain solve leaves the
+recorder unconfigured and its logs as the JAX package writes them.
 """
 
 from __future__ import annotations

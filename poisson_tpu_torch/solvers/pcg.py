@@ -43,6 +43,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from poisson_tpu_torch import obs
 from poisson_tpu_torch.config import Problem
 from poisson_tpu_torch.models.fictitious_domain import build_fields
 from poisson_tpu_torch.obs.profile import region
@@ -591,14 +592,24 @@ def solve_fields(problem: Problem, dtype_name: str, scaled: bool, device,
     setup of the reference ellipse cast once, or, with ``geometry``, the
     fingerprint-cached canvases of ``geometry.canvas`` (same shapes, same
     contract). The one setup seam of every plain solve, as the JAX
-    package's ``solve_setup``."""
+    package's ``solve_setup``.
+
+    The ellipse's four copies up are one host range ``stage.fields_in``
+    while a profiler runs, and are counted once a call on
+    ``pcg.setup.fields_in`` and ``pcg.setup.fields_in_bytes`` (the bytes
+    copied up); a geometry's canvases are counted by ``geom.cache.*``."""
     if geometry is not None:
         from poisson_tpu_torch.geometry.canvas import geometry_setup
 
         return geometry_setup(problem, geometry, dtype_name, scaled, device)
     tdtype = getattr(torch, dtype_name)
-    return tuple(torch.tensor(x, dtype=tdtype, device=device)
-                 for x in host_fields64(problem, scaled))
+    with region("stage.fields_in"):
+        fields = tuple(torch.tensor(x, dtype=tdtype, device=device)
+                       for x in host_fields64(problem, scaled))
+    obs.inc("pcg.setup.fields_in")
+    obs.inc("pcg.setup.fields_in_bytes",
+            sum(t.numel() * t.element_size() for t in fields))
+    return fields
 
 
 def setup_from_fields(problem: Problem, a, b, rhs, aux, dtype_name: str,
@@ -684,7 +695,6 @@ def pcg_solve(problem: Problem, dtype=None, scaled=None, device=None,
         setup = solve_setup(problem, dtype, scaled, device,
                             geometry=geometry)
     else:
-        from poisson_tpu_torch import obs
         from poisson_tpu_torch.mg.preconditioner import mg_solve_setup
 
         if verify_abft:
